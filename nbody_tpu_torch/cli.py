@@ -1,0 +1,258 @@
+"""Command-line interface of the port: the ``run`` verb.
+
+The same flags as ``python -m nbody_tpu run`` plus ``--device`` (default
+``cuda``).  Flags whose paths are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item rather than being
+ignored.  The printed timing lines are the reference's stdout contract
+(project.cu:1097/1102, parsed by plot_first_scale.py:58-59).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--n-bodies", type=int, default=1024)
+    p.add_argument("--dims", type=int, choices=[2, 3], default=2,
+                   help="spatial dimensions (3 is not ported yet)")
+    p.add_argument("--steps", type=int, default=10,
+                   help="N_SIMULATIONS analogue (project.cu:9-11)")
+    p.add_argument("--dt", type=float, default=1.0)
+    p.add_argument("--g", type=float, default=6.67e-11)
+    p.add_argument("--engine", choices=["naive", "allpairs", "barnes_hut"],
+                   default="barnes_hut")
+    p.add_argument("--theta", type=float, default=0.5)
+    p.add_argument("--max-depth", type=int, default=None,
+                   help="tree depth cap; default 9 in 2D (reference "
+                        "QUADTREE_MAX_DEPTH, project.cu:61)")
+    p.add_argument("--softening", type=float, default=1e-15,
+                   help="distance softening (project.cu:634; naive uses 0)")
+    p.add_argument("--bh-mode", choices=["grouped", "exact"],
+                   default="grouped", help="exact is not ported yet")
+    p.add_argument("--group-size", type=int, default=None,
+                   help="Morton group size (default 2048)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--precision", choices=["float32", "float64", "bfloat16"],
+                   default="float32")
+    p.add_argument("--compensated", action="store_true",
+                   help="Kahan-compensated accumulation in the all-pairs "
+                        "kernel (Barnes-Hut: not ported yet)")
+    p.add_argument("--target-block", type=int, default=None,
+                   help="all-pairs threads per block (default: "
+                        "utils.occupancy)")
+    p.add_argument("--source-block", type=int, default=None,
+                   help="all-pairs sources staged per tile (default: "
+                        "utils.occupancy)")
+    p.add_argument("--verbose-occupancy", action="store_true",
+                   help="print the all-pairs launch shape decision")
+    p.add_argument("--frontier-cap", type=int, default=None,
+                   help="BH traversal capacity (default: per-level "
+                        "schedule from measured demand)")
+    p.add_argument("--eval-mode", choices=["grid", "dynamic", "runs"],
+                   default=None,
+                   help="grouped-BH list evaluator (only runs is ported)")
+    p.add_argument("--eval-k-tile", type=int, default=None,
+                   help="list-evaluator k-tile width (default 256)")
+    p.add_argument("--run-cap", type=int, default=None,
+                   help="merged Morton runs per group (default 256)")
+    p.add_argument("--split-eval", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="quarter-split runs evaluation (on: not ported yet)")
+    p.add_argument("--collect3", choices=["auto", "gather", "dense"],
+                   default=None, help="3D list collection (3D not ported)")
+    p.add_argument("--no-adaptive-caps", action="store_true",
+                   help="disable the 4x-caps retry of an overflowed step")
+    p.add_argument("--init-mode", choices=["uniform", "blobs"],
+                   default="uniform",
+                   help="random init distribution: uniform (reference) or "
+                        "blobs (two dense clusters)")
+    p.add_argument("--load-init", metavar="DIR", default=None,
+                   help="load masses/positions/velocities_init.txt from DIR")
+    p.add_argument("--save-init", action="store_true",
+                   help="save the init triplet to the output dir")
+    p.add_argument("--save-positions", action="store_true",
+                   help="write per-step positions.txt (plot_2d.py input)")
+    p.add_argument("--save-tree-dumps", action="store_true",
+                   help="quadtree dumps (not ported yet)")
+    p.add_argument("--output-dir", default=".")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="not ported yet")
+    p.add_argument("--metrics-csv", default=None, metavar="FILE",
+                   help="not ported yet")
+    p.add_argument("--no-metrics-tree", action="store_true")
+    p.add_argument("--check-overflow", action="store_true",
+                   help="barnes_hut: one diagnostic force pass before the "
+                        "run, warning if any traversal/list cap overflowed")
+    p.add_argument("--fused", action="store_true",
+                   help="whole loop as one program (not ported yet)")
+    p.add_argument("--resume", metavar="NPZ", default=None,
+                   help="resume from a checkpoint (not ported yet)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="number of devices (only 1 is ported)")
+    p.add_argument(
+        "--mode",
+        choices=["auto", "dp_allpairs", "ring_allpairs", "dp_barnes_hut",
+                 "dp_barnes_hut_grouped", "dp_barnes_hut_sharded",
+                 "dp_barnes_hut_grouped3", "dp_barnes_hut_sharded3",
+                 "dp2d_allpairs"],
+        default="auto", help="sharded step selection (--devices > 1)")
+    p.add_argument("--hbm-gb", type=float, default=None,
+                   help="per-device memory for the sharded-mode gate")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the kernels) or cpu (their "
+                        "plain twins)")
+
+
+# The Simulation of the last ``run`` in this process (its final state and
+# overflow count), for callers that run main() in-process (chip_smoke.py).
+last_simulation = None
+
+# flag -> (is it set?, ROADMAP item): what the port cannot honour yet
+_UNPORTED = (
+    ("--dims 3", lambda a: a.dims == 3, "A8"),
+    ("--bh-mode exact",
+     lambda a: a.engine == "barnes_hut" and a.bh_mode == "exact", "A9"),
+    ("--devices > 1", lambda a: a.devices > 1, "A11"),
+    ("--fused", lambda a: a.fused, "A3"),
+    ("--save-tree-dumps", lambda a: a.save_tree_dumps, "A6"),
+    ("--metrics-csv", lambda a: a.metrics_csv, "A10"),
+    ("--checkpoint-every", lambda a: a.checkpoint_every, "A10"),
+    ("--resume", lambda a: a.resume, "A10"),
+    ("--compensated with --engine barnes_hut",
+     lambda a: a.compensated and a.engine == "barnes_hut", "Queue B, K6"),
+    ("--eval-mode grid", lambda a: a.eval_mode == "grid", "Queue B, K6"),
+    ("--eval-mode dynamic", lambda a: a.eval_mode == "dynamic",
+     "Queue B, K7"),
+    ("--split-eval on", lambda a: a.split_eval == "on", "Queue B, K4"),
+)
+
+
+def _check_ported(args) -> None:
+    for flag, is_set, item in _UNPORTED:
+        if is_set(args):
+            raise NotImplementedError(
+                f"{flag} is not yet ported to nbody_tpu_torch (ROADMAP "
+                f"{item}); run it with python -m nbody_tpu")
+
+
+def _build_config(args):
+    from .config import MeshConfig, SimConfig
+
+    return SimConfig(
+        n_bodies=args.n_bodies,
+        n_dim=args.dims,
+        n_steps=args.steps,
+        dt=args.dt,
+        g=args.g,
+        engine=args.engine,
+        theta=args.theta,
+        max_depth=args.max_depth,
+        softening=args.softening,
+        bh_mode=args.bh_mode,
+        group_size=args.group_size,
+        seed=args.seed,
+        init_mode=args.init_mode,
+        dtype=args.precision,
+        compensated=args.compensated,
+        target_block=args.target_block,
+        source_block=args.source_block,
+        verbose_occupancy=args.verbose_occupancy,
+        frontier_cap=args.frontier_cap,
+        eval_mode=args.eval_mode,
+        eval_k_tile=args.eval_k_tile,
+        run_cap=args.run_cap,
+        split_eval={"auto": None, "on": True, "off": False}[args.split_eval],
+        collect3=args.collect3,
+        adaptive_caps=not args.no_adaptive_caps,
+        save_positions=args.save_positions,
+        save_tree_dumps=args.save_tree_dumps,
+        output_dir=args.output_dir,
+        checkpoint_every=args.checkpoint_every,
+        metrics_csv=args.metrics_csv,
+        metrics_tree=not args.no_metrics_tree,
+        mesh=MeshConfig(dp=args.devices),
+        hbm_bytes=int(args.hbm_gb * 1024**3) if args.hbm_gb else None,
+    )
+
+
+def _make_state(args, config):
+    from .rng import random_state
+    from .state import make_state
+
+    if args.load_init:
+        from .utils.textio import load_init_triplet
+
+        m, p, v = load_init_triplet(
+            os.path.join(args.load_init, "masses_init.txt"),
+            os.path.join(args.load_init, "positions_init.txt"),
+            os.path.join(args.load_init, "velocities_init.txt"),
+            args.n_bodies,
+            n_dim=args.dims,
+        )
+        return make_state(m, p, v, dtype=config.torch_dtype(),
+                          device=args.device)
+    return random_state(config, device=args.device)
+
+
+def cmd_run(args) -> int:
+    _check_ported(args)
+    config = _build_config(args)
+    state = _make_state(args, config)
+
+    if args.save_init:
+        from .utils.textio import save_init_triplet
+
+        os.makedirs(args.output_dir, exist_ok=True)
+        save_init_triplet(
+            args.output_dir,
+            state.masses.cpu().numpy(),
+            state.positions.cpu().numpy(),
+            state.velocities.cpu().numpy(),
+        )
+
+    from .models.simulation import Simulation
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    sim = Simulation(config, state=state)
+
+    if args.check_overflow and args.engine == "barnes_hut":
+        from .models.engines import make_accel_fn
+
+        _, ovf = make_accel_fn(config, return_diagnostics=True)(
+            sim.state.positions, sim.state.masses)
+        n_ovf = int(ovf.sum())
+        if n_ovf:
+            print(
+                f"WARNING: traversal caps overflowed for {n_ovf} bodies at "
+                "step 0; raise --frontier-cap / list/direct caps (forces "
+                "for flagged bodies drop interactions)", file=sys.stderr)
+
+    _, timing = sim.run_contract()
+    global last_simulation
+    last_simulation = sim
+    print()
+    # the machine-readable contract lines (project.cu:1097/1102)
+    print(timing.total_line())
+    print()
+    print(timing.parallel_line())
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="nbody_tpu_torch",
+        description="gravitational N-body framework, PyTorch/CUDA port",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    p_run = sub.add_parser("run", help="run one simulation")
+    _add_common(p_run)
+    p_run.set_defaults(fn=cmd_run)
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,141 @@
+// All-pairs gravity on Hopper (sm_90a), kernel K1 of the port.
+//
+// Replaces the TPU kernel nbody_tpu/ops/allpairs.py::_allpairs_kernel
+// (entered through allpairs_accelerations_vs / allpairs_accelerations).
+// Semantics: a_i = sum_j w_ij * (p_j - p_i) with w = gm_j / d^3 when
+// softening == 0 and w = gm_j / (d2 * (d + eps)) otherwise; pairs with
+// d2 == 0 (self, coincident bodies) are dropped.  Optional Kahan
+// compensation chains 128-source partial sums, as the TPU kernel chains
+// its 128-lane chunks and source tiles.
+//
+// What bounds it on an H100: arithmetic, not bytes.  Each pair costs
+// ~10 FP32 instructions plus one SFU rsqrtf (and one IEEE divide when
+// softened); a source tile of 16 B per body is reused by every thread of
+// the block, so device-memory traffic is ~N^2 * 16 B / threads_per_block,
+// negligible.  The SFU (16 rsqrt per SM per clock, against 128 FP32
+// lanes) and the FP32 pipe set the pairs/s ceiling.
+//
+// Design: one thread per target, as the reference's own CUDA kernel maps
+// one thread per body (project.cu:703).  The block stages a tile of
+// sources as float4 (x, y, gm, 0) in shared memory (as project.cu:691-700
+// stages its tree), so each pair is one broadcast 16-byte shared load.  A
+// loop over source tiles inside the block replaces the TPU grid's
+// sequential source axis; the per-tile partial sum is added to the
+// running sum (or Kahan-chained), mirroring the TPU kernel's per-tile
+// lane reduction.  No atomics: each thread owns its target's sum, so the
+// result is deterministic.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+template <bool SOFT>
+__device__ __forceinline__ void pair_accum(const float4 s, const float px,
+                                           const float py, const float eps,
+                                           float& tx, float& ty) {
+  const float dx = s.x - px;
+  const float dy = s.y - py;
+  const float d2 = dx * dx + dy * dy;
+  const float inv_d = rsqrtf(d2);
+  float w;
+  if (SOFT) {
+    const float d = d2 * inv_d;
+    w = s.z / (d2 * (d + eps));
+  } else {
+    w = s.z * (inv_d * inv_d * inv_d);
+  }
+  w = d2 > 0.f ? w : 0.f;  // self-pairs and coincident bodies
+  tx += w * dx;
+  ty += w * dy;
+}
+
+__device__ __forceinline__ void kahan_add(float& sum, float& comp,
+                                          const float v) {
+  const float y = v - comp;
+  const float t = sum + y;
+  comp = (t - sum) - y;
+  sum = t;
+}
+
+template <bool SOFT, bool COMP>
+__global__ void allpairs_kernel(const float* __restrict__ tgt,  // [nt, 2]
+                                const int nt,
+                                const float* __restrict__ src,  // [3, ns]
+                                const int ns, const float eps,
+                                const int tile,
+                                float* __restrict__ out) {  // [nt, 2]
+  extern __shared__ float4 stile[];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < nt;
+  const float px = live ? tgt[2 * i] : 0.f;
+  const float py = live ? tgt[2 * i + 1] : 0.f;
+  float ax = 0.f, ay = 0.f, cx = 0.f, cy = 0.f;
+
+  for (int base = 0; base < ns; base += tile) {
+    const int cnt = min(tile, ns - base);
+    for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
+      stile[j] = make_float4(src[base + j], src[ns + base + j],
+                             src[2 * ns + base + j], 0.f);
+    }
+    __syncthreads();
+    if (COMP) {
+      for (int c0 = 0; c0 < cnt; c0 += 128) {
+        const int c1 = min(cnt, c0 + 128);
+        float tx = 0.f, ty = 0.f;
+        for (int j = c0; j < c1; ++j) pair_accum<SOFT>(stile[j], px, py, eps, tx, ty);
+        kahan_add(ax, cx, tx);
+        kahan_add(ay, cy, ty);
+      }
+    } else {
+      float tx = 0.f, ty = 0.f;
+      for (int j = 0; j < cnt; ++j) pair_accum<SOFT>(stile[j], px, py, eps, tx, ty);
+      ax += tx;
+      ay += ty;
+    }
+    __syncthreads();
+  }
+  if (live) {
+    out[2 * i] = COMP ? ax - cx : ax;
+    out[2 * i + 1] = COMP ? ay - cy : ay;
+  }
+}
+
+template <bool SOFT, bool COMP>
+cudaError_t launch(const float* tgt, int nt, const float* src, int ns,
+                   float eps, int threads, int tile, float* out,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float4) * static_cast<size_t>(tile);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        allpairs_kernel<SOFT, COMP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (nt + threads - 1) / threads;
+  allpairs_kernel<SOFT, COMP><<<blocks, threads, smem, stream>>>(
+      tgt, nt, src, ns, eps, tile, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int nbody_allpairs_accel(const float* tgt, int nt,
+                                    const float* src, int ns, float* out,
+                                    float softening, int compensated,
+                                    int threads, int tile, void* stream) {
+  if (nt == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (softening != 0.f) {
+    e = compensated ? launch<true, true>(tgt, nt, src, ns, softening, threads, tile, out, s)
+                    : launch<true, false>(tgt, nt, src, ns, softening, threads, tile, out, s);
+  } else {
+    e = compensated ? launch<false, true>(tgt, nt, src, ns, 0.f, threads, tile, out, s)
+                    : launch<false, false>(tgt, nt, src, ns, 0.f, threads, tile, out, s);
+  }
+  return static_cast<int>(e);
+}
+
+extern "C" const char* nbody_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,122 @@
+"""Force engines: naive dense, all-pairs (kernel K1), grouped 2D
+Barnes-Hut (kernel K2) — counterpart of ``nbody_tpu.models.engines``.
+
+Every engine is an acceleration function of one signature:
+
+    accel_fn(positions [N, 2], masses [N]) -> accelerations [N, 2]
+
+(or ``(acc, overflow [N] bool)`` with ``return_diagnostics``).  The
+kernels launch for CUDA tensors; CPU tensors take their plain twins.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..config import SimConfig
+from ..physics import pair_accelerations_chunked, pair_accelerations_dense
+
+
+def resolved_caps(config: SimConfig) -> dict:
+    """The traversal caps the barnes_hut engine will use — explicit
+    config values, else the calibrated defaults; the basis of the 4x
+    adaptive-caps retry (simulation.py)."""
+    if config.n_dim == 3:
+        raise NotImplementedError(
+            "3D cap defaults (ops.bh3d) are not yet ported (ROADMAP A8)")
+    from ..ops.bh_grouped import DEFAULT_GROUP_SIZE, cap_defaults
+
+    d = cap_defaults(config.group_size or DEFAULT_GROUP_SIZE,
+                     config.n_bodies)
+    return dict(
+        frontier_cap=config.frontier_cap or d["frontier_cap"],
+        list_cap=config.list_cap or d["list_cap"],
+        direct_cap=config.direct_cap or d["direct_cap"],
+        direct_body_cap=config.direct_body_cap or d["direct_body_cap"],
+        run_cap=config.run_cap or d["run_cap"],
+    )
+
+
+def _no_overflow(fn: Callable, return_diagnostics: bool) -> Callable:
+    """Wrap an engine that cannot overflow in the diagnostics signature."""
+    if not return_diagnostics:
+        return fn
+
+    def accel(positions, masses):
+        acc = fn(positions, masses)
+        return acc, torch.zeros((positions.shape[0],), dtype=torch.bool,
+                                device=positions.device)
+
+    return accel
+
+
+def make_accel_fn(config: SimConfig,
+                  return_diagnostics: bool = False) -> Callable:
+    """Build the configured engine's acceleration function."""
+    engine = config.engine
+    g = config.g
+
+    if engine == "naive":
+        # main_approach_1.cpp semantics: dense O(N^2), no softening
+        def naive(positions, masses):
+            return pair_accelerations_dense(positions, masses, g=g)
+
+        return _no_overflow(naive, return_diagnostics)
+
+    if engine == "allpairs":
+        from ..ops import allpairs
+        from ..utils.occupancy import resolve_tiles
+
+        if config.dtype == "float64":
+            # the kernel is f32; float64 keeps full precision on the
+            # chunked dense path, as in the JAX package
+            def chunked(positions, masses):
+                return pair_accelerations_chunked(positions, masses, g=g)
+
+            return _no_overflow(chunked, return_diagnostics)
+
+        def tiled(positions, masses):
+            n = positions.shape[0]
+            if n < 512:
+                # tiny problems: the dense path (engines.py:104 of the
+                # JAX package)
+                return pair_accelerations_dense(positions, masses, g=g)
+            tb, sb = resolve_tiles(n, config.target_block,
+                                   config.source_block,
+                                   verbose=config.verbose_occupancy)
+            return allpairs.allpairs_accelerations(
+                positions, masses, g=g, softening=0.0, target_block=tb,
+                source_block=sb, compensated=config.compensated)
+
+        return _no_overflow(tiled, return_diagnostics)
+
+    if engine == "barnes_hut":
+        if config.n_dim == 3:
+            raise NotImplementedError(
+                "3D Barnes-Hut (ops.bh3d) is not yet ported (ROADMAP A8)")
+        if config.bh_mode == "exact":
+            raise NotImplementedError(
+                "bh_mode='exact' (ops.barnes_hut) is not yet ported "
+                "(ROADMAP A9)")
+        from ..ops.bh_grouped import bh_accelerations_grouped
+
+        def grouped(positions, masses):
+            return bh_accelerations_grouped(
+                positions, masses, g=g, theta=config.theta,
+                max_depth=config.resolved_max_depth,
+                softening=config.softening, group_size=config.group_size,
+                frontier_cap=config.frontier_cap, list_cap=config.list_cap,
+                direct_cap=config.direct_cap,
+                direct_cell_max=config.resolved_direct_cell_max,
+                direct_body_cap=config.direct_body_cap,
+                return_diagnostics=return_diagnostics,
+                compensated=config.compensated, eval_mode=config.eval_mode,
+                eval_k_tile=config.eval_k_tile, run_cap=config.run_cap,
+                split_eval=config.split_eval,
+            )
+
+        return grouped
+
+    raise ValueError(f"unknown engine {engine!r}")

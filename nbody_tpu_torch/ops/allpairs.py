@@ -1,0 +1,134 @@
+"""All-pairs gravity: the CUDA kernel K1 (``csrc/allpairs.cu``) and its
+plain PyTorch twin.
+
+Counterpart of ``nbody_tpu.ops.allpairs`` (the Pallas
+``_allpairs_kernel``).  Semantics: softening 0 gives the naive factoring
+g*m_j/d^3 (main_approach_1.cpp:53-75), softening eps the Barnes-Hut
+factoring g*m_j/(d2*(d+eps)) (project.cu:651-658); d2 > 0 excludes
+self-pairs and coincident bodies (their force is defined as 0).
+
+:func:`allpairs_accelerations_vs` launches the kernel for CUDA tensors
+and takes the twin only for CPU tensors; a CUDA tensor the kernel cannot
+take raises.  ``KERNEL_LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+KERNEL_LAUNCHES = 0
+_MAX_SMEM = 232448  # bytes of shared memory one block may use on an H100
+
+
+def allpairs_accelerations_plain(
+    target_positions: torch.Tensor,  # [Nt, D]
+    source_positions: torch.Tensor,  # [Ns, D]
+    source_masses: torch.Tensor,  # [Ns]
+    *,
+    g: float,
+    softening: float = 0.0,
+    source_block: int = 1024,
+    compensated: bool = False,
+) -> torch.Tensor:
+    """The kernel's plain twin: per source tile of ``source_block``, a
+    tile sum of w * disp per target, added to the running sum — or, when
+    ``compensated``, 128-source partial sums chained with Kahan
+    compensation, as the kernel does."""
+    from ..physics import _pair_weights
+
+    gm = g * source_masses
+    acc = torch.zeros_like(target_positions)
+    comp = torch.zeros_like(target_positions)
+    for s0 in range(0, source_positions.shape[0], source_block):
+        src = source_positions[s0:s0 + source_block]
+        disp = src[None, :, :] - target_positions[:, None, :]  # [Nt, SB, D]
+        w = _pair_weights((disp * disp).sum(-1), gm[None, s0:s0 + source_block],
+                          softening)
+        prod = w[:, :, None] * disp
+        if not compensated:
+            acc = acc + prod.sum(1)
+            continue
+        for c0 in range(0, prod.shape[1], 128):
+            y = prod[:, c0:c0 + 128].sum(1) - comp
+            t = acc + y
+            comp = (t - acc) - y
+            acc = t
+    return acc - comp if compensated else acc
+
+
+def allpairs_accelerations_vs(
+    target_positions: torch.Tensor,  # [Nt, D]
+    source_positions: torch.Tensor,  # [Ns, D]
+    source_masses: torch.Tensor,  # [Ns]
+    *,
+    g: float,
+    softening: float = 0.0,
+    target_block: int = 128,
+    source_block: int = 1024,
+    compensated: bool = False,
+) -> torch.Tensor:
+    """Accelerations [Nt, D] of targets due to sources (the clouds may
+    differ; a target present among the sources at bit-equal coordinates
+    is self-excluded by d2 > 0).
+
+    On CUDA: kernel K1 with ``target_block`` threads per block (one
+    target each) and ``source_block`` sources staged in shared memory per
+    tile; f32, 2D, contiguous inputs only.  On the CPU: the plain twin."""
+    if not target_positions.is_cuda:
+        return allpairs_accelerations_plain(
+            target_positions, source_positions, source_masses, g=g,
+            softening=softening, source_block=source_block,
+            compensated=compensated,
+        )
+    global KERNEL_LAUNCHES
+    dev = target_positions.device
+    nt, ns = target_positions.shape[0], source_positions.shape[0]
+    _cuda.require(target_positions, "target_positions", torch.float32,
+                  (nt, 2), dev)
+    _cuda.require(source_positions, "source_positions", torch.float32,
+                  (ns, 2), dev)
+    _cuda.require(source_masses, "source_masses", torch.float32, (ns,), dev)
+    if target_block % 32 or not 32 <= target_block <= 1024:
+        raise ValueError(
+            f"target_block={target_block}: threads per block must be a "
+            "multiple of 32 in [32, 1024]")
+    if source_block < 1 or 16 * source_block > _MAX_SMEM:
+        raise ValueError(
+            f"source_block={source_block}: the staged tile must fit "
+            f"{_MAX_SMEM} bytes of shared memory (16 B per source)")
+    if nt >= 2**31 or 3 * ns >= 2**31:
+        raise ValueError("body counts must fit 32-bit indices")
+    src = torch.stack(
+        [source_positions[:, 0], source_positions[:, 1], g * source_masses]
+    )  # [3, Ns]: x, y, g*m
+    out = torch.empty((nt, 2), dtype=torch.float32, device=dev)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        code = lib.nbody_allpairs_accel(
+            target_positions.data_ptr(), nt, src.data_ptr(), ns,
+            out.data_ptr(), float(softening), int(compensated),
+            target_block, source_block, _cuda.stream_of(out),
+        )
+    _cuda.check(code, "allpairs (K1)")
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+def allpairs_accelerations(
+    positions: torch.Tensor,  # [N, D]
+    masses: torch.Tensor,  # [N]
+    *,
+    g: float,
+    softening: float = 0.0,
+    target_block: int = 128,
+    source_block: int = 1024,
+    compensated: bool = False,
+) -> torch.Tensor:
+    """Single-cloud O(N^2) accelerations (targets == sources)."""
+    return allpairs_accelerations_vs(
+        positions, positions, masses, g=g, softening=softening,
+        target_block=target_block, source_block=source_block,
+        compensated=compensated,
+    )

@@ -1,0 +1,462 @@
+"""Grouped Barnes-Hut: Morton-sorted body groups share one traversal
+(counterpart of ``nbody_tpu.ops.bh_grouped``, runs evaluator only).
+
+Bodies are sorted by Morton code and cut into groups; each group walks
+the pyramid once with a conservative acceptance test (cell size over the
+distance from the group's sub-bboxes to the cell COM), emitting an
+approx list of accepted cells and the body ranges of close cells; the
+ranges are merged into Morton runs and the list is evaluated by kernel
+K2 (``ops/list_eval.list_eval_runs``).  See the JAX module's docstring
+for the method and the self-exclusion argument (bit-exact singleton
+COMs, d2 > 0).
+
+Shapes are static, as in the JAX package: every cap is fixed before the
+step and overflowing groups raise a flag, so a step needs no host sync.
+Only the runs evaluator is ported: ``compensated=True`` and
+``eval_mode="grid"`` (kernel K6), ``eval_mode="dynamic"`` (K7) and split
+evaluation (K4) raise ``NotImplementedError``; so does ``seg_pack > 1``
+(K3) in ``list_eval.list_eval_runs``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from ..config import (
+    BH_SOFTENING,
+    MASS_SKIP_THRESHOLD,
+    MAX_DEPTH_DEFAULT,
+    THETA_DEFAULT,
+)
+from . import list_eval
+from .tree import (
+    RAW_CNT,
+    RAW_M,
+    RAW_MX,
+    RAW_MY,
+    RAW_OCC,
+    RAW_SX,
+    RAW_SY,
+    Quadtree,
+    build_quadtree,
+    level_cell_size,
+)
+
+_INT_MAX = 2**31 - 1
+
+# 2D default Morton group size (see nbody_tpu.ops.bh_grouped).
+DEFAULT_GROUP_SIZE = 2048
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(x - 1, 1).bit_length()
+
+
+def frontier_peak(n_bodies: int) -> int:
+    """Peak frontier demand ~4*sqrt(N), next power of two, in
+    [1024, 8192] (the JAX package's calibration)."""
+    return min(8192, max(1024, _pow2_ceil(int(4 * n_bodies**0.5))))
+
+
+def cap_defaults(group_size: int, n_bodies: int) -> dict:
+    """Interaction-list cap defaults, the JAX package's measured-demand
+    calibration (see nbody_tpu.ops.bh_grouped.cap_defaults)."""
+    peak = frontier_peak(n_bodies)
+    return dict(
+        list_cap=max(2048, -(-(7 * peak // 4) // 2048) * 2048),
+        direct_cap=min(max(2560, 3 * peak // 4), max(256, n_bodies // 2)),
+        direct_body_cap=max(24576, 16 * peak),
+        frontier_cap=peak,
+        run_cap=256,
+    )
+
+
+def frontier_schedule(peak: int, max_depth: int,
+                      n_bodies: int) -> Tuple[int, ...]:
+    """Per-level frontier capacities: the full peak from the uniform-state
+    hump level log4(N/16) down to max_depth, 2*peak on the deepest two
+    levels, a pruned ramp above (see the JAX module for the measured
+    failure modes behind each rule)."""
+    lf = math.log(max(n_bodies, 256) / 16, 4)
+    lo_star = min(max_depth, max(4, math.floor(lf)))
+    shape = []
+    for level in range(max_depth + 1):
+        if level <= 3:
+            c = 4**level
+        elif level >= max_depth - 1:
+            c = 2 * peak
+        elif level >= lo_star:
+            c = peak
+        else:
+            c = peak >> min(lo_star - level, 3)
+        shape.append(int(min(c, 2 * peak, 4**level)))
+    return tuple(shape)
+
+
+def _sort_compact(mask: torch.Tensor, arrays, cap: int):
+    """Compact masked row entries to the left (keeping their order) and
+    truncate to ``cap``: a stable sort on ``~mask``.  Returns (compacted
+    arrays [G, min(F, cap)], overflow [G] bool)."""
+    order = torch.argsort((~mask).to(torch.uint8), dim=1, stable=True)
+    order = order[:, :cap]
+    out = [torch.gather(a, 1, order) for a in arrays]
+    return out, mask.sum(1) > cap
+
+
+def _collect_lists(
+    bbox: Tuple[torch.Tensor, ...],  # 4 x [G, Q]: x0, x1, y0, y1
+    tree: Quadtree,
+    *,
+    theta: float,
+    softening: float,
+    frontier_caps: Tuple[int, ...],
+    list_cap: int,
+    direct_cap: int,
+    direct_cell_max: int,
+):
+    """Per-group interaction lists via a dual (cell-vs-group-bbox) walk.
+
+    Per frontier cell: singletons, theta-accepted cells and max-depth
+    aggregates go to the approx list; close cells with
+    2 <= count <= direct_cell_max go to the direct list as a Morton body
+    range; other close cells open.  Returns ((lx, ly, lm) [G, L] approx
+    list, zero-mass padded; ranges [G, D, 2] (start, count), zero-count
+    padded; overflow [G] bool)."""
+    x0, x1, y0, y1 = bbox
+    g = x0.shape[0]
+    dev = x0.device
+    max_depth = tree.max_depth
+    overflow = torch.zeros((g,), dtype=torch.bool, device=dev)
+
+    leaf_cnt = tree.raw[max_depth][:, RAW_CNT].to(torch.int32)
+    leaf_cum = torch.cat([
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+        torch.cumsum(leaf_cnt, 0, dtype=torch.int32),
+    ])
+
+    frontier = torch.zeros((g, 1), dtype=torch.int32, device=dev)  # root
+    fcap = 1
+    quad = torch.arange(4, dtype=torch.int32, device=dev)
+    app_x, app_y, app_m, app_mask = [], [], [], []
+    dir_s, dir_c, dir_mask = [], [], []
+
+    for level in range(max_depth + 1):
+        valid = frontier >= 0
+        idx = torch.where(valid, frontier, 0)
+        rows = tree.raw[level][idx.long()]  # [G, F, 8]
+        m = rows[..., RAW_M]
+        cnt = rows[..., RAW_CNT]
+        safe = torch.where(m > 0, m, torch.ones_like(m))
+        cx = torch.where(cnt == 1.0, rows[..., RAW_SX], rows[..., RAW_MX] / safe)
+        cy = torch.where(cnt == 1.0, rows[..., RAW_SY], rows[..., RAW_MY] / safe)
+
+        cxe, cye = cx[:, None, :], cy[:, None, :]  # [G, 1, F]
+        dx = torch.clamp(torch.maximum(x0[:, :, None] - cxe,
+                                       cxe - x1[:, :, None]), min=0.0)
+        dy = torch.clamp(torch.maximum(y0[:, :, None] - cye,
+                                       cye - y1[:, :, None]), min=0.0)
+        d2all = dx * dx + dy * dy  # [G, Q, F]
+        d_min = torch.sqrt(d2all.min(dim=1).values) + softening  # [G, F]
+        size = level_cell_size(tree.bounds, level)
+        theta_ok = size < theta * d_min
+
+        nonempty = valid & (cnt > 0) & (m > MASS_SKIP_THRESHOLD)
+        single = nonempty & (cnt == 1.0)
+        multi = nonempty & (cnt > 1.0)
+        at_leaf = level == max_depth
+        approx = single | (multi & (theta_ok | at_leaf))
+        direct = multi & ~theta_ok & (cnt <= direct_cell_max)
+        if at_leaf:
+            direct = torch.zeros_like(direct)
+
+        app_x.append(cx)
+        app_y.append(cy)
+        app_m.append(torch.where(approx, m, torch.zeros_like(m)))
+        app_mask.append(approx)
+        # direct cells ride as their first leaf cell; leaf_cum resolves
+        # them to body ranges once, on the compacted list
+        dir_s.append(idx << (2 * (max_depth - level)))
+        dir_c.append(torch.where(direct, cnt.to(torch.int32), 0))
+        dir_mask.append(direct)
+
+        if at_leaf:
+            break
+
+        open_ = multi & ~theta_ok & ~direct
+        children = (idx[:, :, None] * 4 + quad).reshape(g, -1)
+        occ = rows[..., RAW_OCC].to(torch.int32)
+        child_bits = ((occ[:, :, None] >> quad) & 1).reshape(g, -1)
+        cmask = open_.repeat_interleave(4, dim=1) & (child_bits > 0)
+
+        next_cap = min(4 * fcap, frontier_caps[level + 1])
+        if next_cap == 4 * fcap:
+            # the cap cannot bind: carry the children with -1 holes
+            frontier = torch.where(cmask, children, -1)
+        else:
+            (frontier,), ovf = _sort_compact(
+                cmask, [torch.where(cmask, children, -1)], next_cap)
+            overflow = overflow | ovf
+        fcap = next_cap
+
+    (lx, ly, lm), ovf_a = _sort_compact(
+        torch.cat(app_mask, 1),
+        [torch.cat(app_x, 1), torch.cat(app_y, 1), torch.cat(app_m, 1)],
+        list_cap,
+    )
+    (dleaf, dc), ovf_d = _sort_compact(
+        torch.cat(dir_mask, 1), [torch.cat(dir_s, 1), torch.cat(dir_c, 1)],
+        direct_cap,
+    )
+    has = dc > 0
+    ds = torch.where(has, leaf_cum[torch.where(has, dleaf, 0).long()], 0)
+    overflow = overflow | ovf_a | ovf_d
+    return (lx, ly, lm), torch.stack([ds, dc], dim=-1), overflow
+
+
+def _expand_runs_tiles(runs: torch.Tensor, k_tile: int, t_cap: int):
+    """Merged body runs -> per-group direct k-tile table for the runs
+    evaluator.
+
+    Each run [start, start+count) is rounded down to a 128-aligned base
+    and becomes ceil((start%128 + count)/k_tile) tiles of (aligned tile
+    start, first valid lane, one-past-last valid lane).  A scatter-max of
+    each run's index at its first slot plus a running max gives every
+    slot its run; offsets past ``t_cap`` are dropped, so an overflowing
+    group never spills into its neighbour.
+
+    runs: [G, R, 2].  Returns (tiles [G, 3, T] int32, n_tiles [G] int32
+    clamped to T, overflow [G] bool)."""
+    g, r, _ = runs.shape
+    dev = runs.device
+    starts, counts = runs[:, :, 0].long(), runs[:, :, 1].long()
+    base = starts - starts % 128
+    n_t = (starts - base + counts + k_tile - 1) // k_tile
+    total = n_t.sum(1)
+    offsets = torch.cumsum(n_t, 1) - n_t
+    kidx = torch.arange(r, device=dev).expand(g, r)
+    row0 = torch.arange(g, device=dev)[:, None] * t_cap
+    flat_pos = torch.where((n_t > 0) & (offsets < t_cap), row0 + offsets,
+                           g * t_cap)
+    marks = torch.zeros(g * t_cap + 1, dtype=torch.long, device=dev)
+    marks.scatter_reduce_(0, flat_pos.reshape(-1), kidx.reshape(-1), "amax")
+    k = torch.cummax(marks[:-1].reshape(g, t_cap), dim=1).values
+    j = torch.arange(t_cap, device=dev)
+    packed = torch.stack([base, starts, starts + counts, offsets],
+                         dim=-1).reshape(g * r, 4)
+    rows = packed[torch.arange(g, device=dev)[:, None] * r + k]  # [G, T, 4]
+    ts = rows[:, :, 0] + (j[None, :] - rows[:, :, 3]) * k_tile
+    lo = (rows[:, :, 1] - ts).clamp(0, k_tile)
+    hi = (rows[:, :, 2] - ts).clamp(0, k_tile)
+    mask = j[None, :] < total[:, None]
+    tiles = torch.stack([torch.where(mask, ts, 0), torch.where(mask, lo, 0),
+                         torch.where(mask, hi, 0)], dim=1)
+    return (tiles.to(torch.int32), total.clamp(max=t_cap).to(torch.int32),
+            total > t_cap)
+
+
+def _evaluate_runs(
+    positions_grouped: torch.Tensor,  # [G, S, D]
+    coord_lists,  # D approx coordinate arrays [G, L]
+    lm: torch.Tensor,  # [G, L] approx masses (zero-padded)
+    ranges: torch.Tensor,  # [G, D_cells, 2] direct body ranges
+    sorted_coords,  # D arrays [Ns]: all sources, Morton order
+    sorted_gm: torch.Tensor,  # [Ns]
+    *,
+    g_const: float,
+    softening: float,
+    k_tile: int,
+    run_cap: int,
+    t_cap: int,
+):
+    """Gather-free evaluation (``_evaluate_pallas_runs`` at seg_pack=1 in
+    the JAX package): builds the approx table [G, 8, A], merges the
+    direct ranges into runs, expands them to the k-tile table and runs
+    ``list_eval_runs``.  Returns (acc [G, S, D], overflow [G])."""
+    from .experiments import merge_ranges  # imports this module
+
+    dtype = positions_grouped.dtype
+    dev = positions_grouped.device
+    dims = positions_grouped.shape[-1]
+    apad = (-coord_lists[0].shape[1]) % k_tile
+    cl = [torch.nn.functional.pad(a, (0, apad)) for a in coord_lists]
+    lmp = torch.nn.functional.pad(lm, (0, apad))
+    gg, a_width = cl[0].shape
+    approx = torch.cat(
+        [torch.stack(cl + [g_const * lmp], dim=1),
+         torch.zeros((gg, 8 - dims - 1, a_width), dtype=dtype, device=dev)],
+        dim=1,
+    )  # [G, 8, A]: coordinates, g*m, zero rows
+
+    merged, ovf_m = merge_ranges(ranges, cap=run_cap)
+    ns = sorted_coords[0].shape[0]
+    srct = torch.zeros((8, ns + k_tile), dtype=dtype, device=dev)
+    for d_, c in enumerate(sorted_coords):
+        srct[d_, :ns] = c
+    srct[dims, :ns] = sorted_gm
+    tiles, n_tiles, ovf_t = _expand_runs_tiles(merged, k_tile, t_cap)
+    lens = torch.stack([(lmp > 0).sum(1).to(torch.int32), n_tiles])
+    acc = list_eval.list_eval_runs(
+        positions_grouped, approx, srct, tiles, lens,
+        softening=float(softening), k_tile=k_tile,
+    )
+    return acc, ovf_m | ovf_t
+
+
+def bh_accelerations_grouped(
+    positions: torch.Tensor,
+    masses: torch.Tensor,
+    *,
+    g: float,
+    theta: float = THETA_DEFAULT,
+    max_depth: int = MAX_DEPTH_DEFAULT,
+    softening: float = BH_SOFTENING,
+    group_size: int | None = None,
+    frontier_cap: int | None = None,
+    list_cap: int | None = None,
+    direct_cap: int | None = None,
+    direct_cell_max: int = 32,
+    direct_body_cap: int | None = None,
+    return_diagnostics: bool = False,
+    compensated: bool = False,
+    eval_k_tile: int | None = None,
+    eval_mode: str | None = None,
+    run_cap: int | None = None,
+    split_eval: bool | None = None,
+):
+    """Grouped Barnes-Hut accelerations [N, 2] (+ per-body overflow [N]
+    with ``return_diagnostics``).  ``None`` caps resolve from
+    :func:`cap_defaults`."""
+    if positions.shape[1] != 2:
+        raise NotImplementedError(
+            "3D grouped Barnes-Hut (ops.bh3d) is not yet ported "
+            "(ROADMAP A8)")
+    tree = build_quadtree(positions, masses, max_depth=max_depth)
+    src_order = torch.argsort(tree.codes, stable=True)
+    psort = positions[src_order]
+    return grouped_eval(
+        tree,
+        sorted_x=psort[:, 0].contiguous(),
+        sorted_y=psort[:, 1].contiguous(),
+        sorted_gm=g * masses[src_order],
+        g=g, theta=theta, softening=softening, group_size=group_size,
+        frontier_cap=frontier_cap, list_cap=list_cap, direct_cap=direct_cap,
+        direct_cell_max=direct_cell_max, direct_body_cap=direct_body_cap,
+        return_diagnostics=return_diagnostics, target_sorted=psort,
+        target_order=src_order, compensated=compensated,
+        eval_k_tile=eval_k_tile, eval_mode=eval_mode, run_cap=run_cap,
+        split_eval=split_eval,
+    )
+
+
+def grouped_eval(
+    tree: Quadtree,
+    *,
+    target_order: torch.Tensor,  # [Nt] targets' stable Morton order
+    target_sorted: torch.Tensor,  # [Nt, 2] targets in that order
+    sorted_x: torch.Tensor,  # [Ns] all sources in Morton order
+    sorted_y: torch.Tensor,
+    sorted_gm: torch.Tensor,  # [Ns] g * mass, same order
+    g: float,
+    theta: float = THETA_DEFAULT,
+    softening: float = BH_SOFTENING,
+    group_size: int | None = None,
+    frontier_cap: int | None = None,
+    list_cap: int | None = None,
+    direct_cap: int | None = None,
+    direct_cell_max: int = 32,
+    direct_body_cap: int | None = None,
+    return_diagnostics: bool = False,
+    compensated: bool = False,
+    eval_k_tile: int | None = None,
+    eval_mode: str | None = None,
+    run_cap: int | None = None,
+    split_eval: bool | None = None,
+):
+    """Grouped evaluation of targets against a prebuilt tree, through the
+    runs evaluator (kernel K2 on CUDA, its twin on the CPU).
+
+    Options that select an evaluator not yet ported raise
+    ``NotImplementedError`` naming the ROADMAP kernel instead of quietly
+    running another path."""
+    n = target_sorted.shape[0]
+    ns = sorted_x.shape[0]
+    if compensated:
+        raise NotImplementedError(
+            "compensated grouped Barnes-Hut needs the Kahan grid evaluator "
+            "(kernel K6, list_eval_pallas), not yet ported (ROADMAP "
+            "Queue B, K6)")
+    if eval_mode is None:
+        eval_mode = "runs"
+    if eval_mode == "grid":
+        raise NotImplementedError(
+            "eval_mode='grid' (kernel K6, list_eval_pallas) is not yet "
+            "ported (ROADMAP Queue B, K6)")
+    if eval_mode == "dynamic":
+        raise NotImplementedError(
+            "eval_mode='dynamic' (kernel K7, list_eval_dynamic) is not yet "
+            "ported (ROADMAP Queue B, K7)")
+    if eval_mode != "runs":
+        raise ValueError(f"unknown eval_mode {eval_mode!r}")
+
+    if group_size is None:
+        group_size = DEFAULT_GROUP_SIZE
+    defaults = cap_defaults(group_size, ns)
+    frontier_cap = frontier_cap or defaults["frontier_cap"]
+    list_cap = list_cap or defaults["list_cap"]
+    direct_cap = direct_cap or defaults["direct_cap"]
+    direct_body_cap = direct_body_cap or defaults["direct_body_cap"]
+
+    # groups of gs Morton-consecutive targets, the last padded with
+    # copies of the last body (a tight bbox; results sliced off)
+    gs = min(group_size, max(n, 1))
+    n_pad = ((n + gs - 1) // gs) * gs
+    tsort = torch.cat(
+        [target_sorted, target_sorted[-1:].expand(n_pad - n, 2)], dim=0)
+    pg = tsort.reshape(-1, gs, 2)  # [G, S, 2]
+
+    # Q sub-bboxes per group over slices of its run (tight even where the
+    # run straddles a Morton seam)
+    n_sub = max(4, gs // 128)
+    if gs % n_sub:
+        n_sub = 1
+    sub = pg.reshape(pg.shape[0], n_sub, gs // n_sub, 2)
+    bbox = (sub[..., 0].amin(2), sub[..., 0].amax(2),
+            sub[..., 1].amin(2), sub[..., 1].amax(2))
+
+    if split_eval is None:
+        # the JAX package's auto gate: on only for dcm >= 128 at >= 768K
+        split_eval = (gs % 4 == 0 and gs >= 512 and n_sub % 4 == 0
+                      and direct_cell_max >= 128 and ns >= 768 * 1024)
+    if split_eval:
+        raise NotImplementedError(
+            "quarter-split evaluation (kernel K4, list_eval_runs_split) is "
+            "not yet ported (ROADMAP Queue B, K4); pass split_eval=False")
+
+    (lx, ly, lm), ranges, overflow_g = _collect_lists(
+        bbox, tree, theta=theta, softening=softening,
+        frontier_caps=frontier_schedule(frontier_cap, tree.max_depth, ns),
+        list_cap=list_cap, direct_cap=direct_cap,
+        direct_cell_max=direct_cell_max,
+    )
+    # the JAX package's k_tile resolution, kept for tile-table parity
+    k_tile = min(eval_k_tile or 256, list_eval.runs_k_max())
+    rc = run_cap or defaults["run_cap"]
+    acc, ovf_e = _evaluate_runs(
+        pg, (lx, ly), lm, ranges, (sorted_x, sorted_y), sorted_gm,
+        g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
+        t_cap=direct_body_cap // k_tile + 2 * rc,
+    )
+    overflow_g = overflow_g | ovf_e
+
+    # un-sort: ``target_order`` is a permutation, so one scatter restores
+    # body order (unique indices: deterministic)
+    out = torch.empty((n, 2), dtype=acc.dtype, device=acc.device)
+    out[target_order] = acc.reshape(-1, 2)[:n]
+    if return_diagnostics:
+        ovf = torch.empty((n,), dtype=torch.bool, device=acc.device)
+        ovf[target_order] = overflow_g.repeat_interleave(gs)[:n]
+        return out, ovf
+    return out

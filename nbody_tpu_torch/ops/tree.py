@@ -1,0 +1,162 @@
+"""Implicit dense quadtree pyramid (counterpart of ``nbody_tpu.ops.tree``).
+
+Level L = max_depth is a 2^L x 2^L grid of cells; each body maps to a
+leaf cell by its Morton code (recursive midpoint rule, DetermineChild
+project.cu:348-356); coarser levels are 4->1 reductions of the packed
+per-cell rows (Morton order makes the four children of cell c the rows
+4c..4c+3).  See the JAX module for the equivalence to the reference's
+adaptive tree.
+
+Where the port must not drift from the reference's bits:
+
+* Morton codes come from repeated f32 midpoint halving with ``>=`` to the
+  high side — no other formula;
+* leaf rows are sums over contiguous segments of the Morton-sorted
+  bodies, in body order (``torch.segment_reduce``), not atomics, so they
+  are deterministic and a singleton cell's position sums are the body's
+  own bits;
+* the pyramid sums the four children with plain adds, never a matmul
+  (a TF32 matmul would truncate the singleton sums and let a body pull
+  on itself).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..config import MAX_DEPTH_DEFAULT, ROOT_PAD_FRACTION
+
+
+class TreeLevel(NamedTuple):
+    mass: torch.Tensor  # [4^level] total mass per cell
+    comx: torch.Tensor  # [4^level] centre of mass x (0 where empty)
+    comy: torch.Tensor  # [4^level]
+    count: torch.Tensor  # [4^level] int32 bodies per cell
+
+
+# Column layout of the packed per-level rows [4^level, 8].
+RAW_M, RAW_MX, RAW_MY, RAW_SX, RAW_SY, RAW_CNT, RAW_OCC, RAW_PAD = range(8)
+
+
+@dataclasses.dataclass
+class Quadtree:
+    raw: Tuple[torch.Tensor, ...]  # packed [4^level, 8] rows, root first
+    bounds: torch.Tensor  # [4] x_min, x_max, y_min, y_max
+    codes: torch.Tensor  # [N] int32 leaf-cell Morton code per body
+
+    @property
+    def max_depth(self) -> int:
+        return len(self.raw) - 1
+
+    @property
+    def levels(self) -> Tuple[TreeLevel, ...]:
+        """Unpacked per-level views (derived on demand: the grouped
+        engine reads ``raw`` only)."""
+        return tuple(_finish_level(r, r.dtype) for r in self.raw)
+
+
+def root_bounds(positions: torch.Tensor) -> torch.Tensor:
+    """ComputeRootBounds (project.cu:536-573): min/max padded by 10% of
+    the larger extent; 1e-6 for a single-point cloud."""
+    x, y = positions[:, 0], positions[:, 1]
+    x_min, x_max = x.min(), x.max()
+    y_min, y_max = y.min(), y.max()
+    max_dim = torch.maximum(x_max - x_min, y_max - y_min)
+    pad = torch.where(max_dim == 0.0, torch.full_like(max_dim, 1e-6),
+                      ROOT_PAD_FRACTION * max_dim)
+    return torch.stack([x_min - pad, x_max + pad, y_min - pad, y_max + pad])
+
+
+def morton_codes(positions: torch.Tensor, bounds: torch.Tensor,
+                 max_depth: int) -> torch.Tensor:
+    """Per-body leaf-cell Morton code by recursive midpoint subdivision:
+    two bits per level, root first, low bit = x decision (child numbering
+    0=BL, 1=BR, 2=TL, 3=TR)."""
+    x, y = positions[:, 0], positions[:, 1]
+    x_lo, x_hi = bounds[0].expand_as(x), bounds[1].expand_as(x)
+    y_lo, y_hi = bounds[2].expand_as(y), bounds[3].expand_as(y)
+    code = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for _ in range(max_depth):
+        mid_x = (x_lo + x_hi) * 0.5
+        mid_y = (y_lo + y_hi) * 0.5
+        bx = x >= mid_x
+        by = y >= mid_y
+        x_lo = torch.where(bx, mid_x, x_lo)
+        x_hi = torch.where(bx, x_hi, mid_x)
+        y_lo = torch.where(by, mid_y, y_lo)
+        y_hi = torch.where(by, y_hi, mid_y)
+        code = (code << 2) | (by.to(torch.int32) << 1) | bx.to(torch.int32)
+    return code
+
+
+def leaf_raw(positions: torch.Tensor, masses: torch.Tensor,
+             codes: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """Packed per-leaf rows [4^max_depth, 8] (cols per RAW_*): sums over
+    each leaf's contiguous segment of the stably Morton-sorted bodies,
+    taken in body order."""
+    n_leaf = 4 ** max_depth
+    x, y = positions[:, 0], positions[:, 1]
+    zero = torch.zeros_like(masses)
+    packed = torch.stack(
+        [masses, masses * x, masses * y, x, y, torch.ones_like(masses),
+         zero, zero], dim=1)  # [N, 8]
+    order = torch.argsort(codes, stable=True)
+    lengths = torch.bincount(codes.long(), minlength=n_leaf)
+    return torch.segment_reduce(packed[order], "sum", lengths=lengths,
+                                axis=0)
+
+
+def _finish_level(raw: torch.Tensor, dtype) -> TreeLevel:
+    """Unpacked TreeLevel view of packed rows; singleton cells take the
+    exact position sums."""
+    m = raw[:, RAW_M]
+    cnt = raw[:, RAW_CNT].to(torch.int32)
+    safe = torch.where(m > 0, m, torch.ones_like(m))
+    comx = torch.where(cnt == 1, raw[:, RAW_SX], raw[:, RAW_MX] / safe)
+    comy = torch.where(cnt == 1, raw[:, RAW_SY], raw[:, RAW_MY] / safe)
+    return TreeLevel(mass=m.to(dtype), comx=comx.to(dtype),
+                     comy=comy.to(dtype), count=cnt)
+
+
+def pyramid_from_raw(raw: torch.Tensor, bounds: torch.Tensor,
+                     codes: torch.Tensor, max_depth: int) -> Quadtree:
+    """4->1 reductions up the pyramid (replaces recursive ComputeMass).
+    Fields 0..5 are the children's sums in child order; RAW_OCC packs the
+    four child-occupancy bits (count > 0) so the traversal can prune empty
+    children from the parent's own row."""
+    bits = torch.tensor([1.0, 2.0, 4.0, 8.0], dtype=raw.dtype,
+                        device=raw.device)
+    raws = [raw]
+    for _ in range(max_depth):
+        v = raw.reshape(-1, 4, 8)
+        s = v[:, 0, :RAW_OCC] + v[:, 1, :RAW_OCC]
+        s = s + v[:, 2, :RAW_OCC]
+        s = s + v[:, 3, :RAW_OCC]
+        occ = ((v[:, :, RAW_CNT] > 0).to(raw.dtype) * bits).sum(1)
+        raw = torch.cat(
+            [s, occ[:, None], torch.zeros_like(occ)[:, None]], dim=1)
+        raws.append(raw)
+    raws.reverse()  # root first
+    return Quadtree(raw=tuple(raws), bounds=bounds, codes=codes)
+
+
+def build_quadtree(positions: torch.Tensor, masses: torch.Tensor,
+                   max_depth: int = MAX_DEPTH_DEFAULT,
+                   bounds: torch.Tensor | None = None) -> Quadtree:
+    """Whole-tree build: Morton codes, leaf segment sums, 4->1
+    reductions."""
+    if bounds is None:
+        bounds = root_bounds(positions)
+    codes = morton_codes(positions, bounds, max_depth)
+    raw = leaf_raw(positions, masses, codes, max_depth)
+    return pyramid_from_raw(raw, bounds, codes, max_depth)
+
+
+def level_cell_size(bounds: torch.Tensor, level: int) -> torch.Tensor:
+    """Max cell extent at a level (project.cu:637-639)."""
+    sx = (bounds[1] - bounds[0]) / (1 << level)
+    sy = (bounds[3] - bounds[2]) / (1 << level)
+    return torch.maximum(sx, sy)

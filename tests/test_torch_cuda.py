@@ -1,0 +1,89 @@
+"""The port's CUDA kernels against their plain twins on the card.
+
+These need an NVIDIA GPU with nvcc (a CUDA kernel has no CPU mode): they
+are marked ``cuda`` and skip elsewhere.  On a machine with the card:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nbody_tpu_torch.ops import allpairs, bh_grouped, list_eval
+
+pytestmark = pytest.mark.cuda
+
+G = 6.67e-11
+TOL = 1e-5  # of max|a|: f32 both sides, summation order differs
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _cloud(n, seed, device):
+    rng = np.random.default_rng(seed)
+    m = (10 ** rng.uniform(-1, np.log10(0.5), n)).astype(np.float32)
+    p = rng.uniform(-0.1, 0.1, (n, 2)).astype(np.float32)
+    return torch.tensor(p, device=device), torch.tensor(m, device=device)
+
+
+@pytest.mark.parametrize("n,soft,comp", [
+    (700, 0.0, False), (4099, 0.0, False), (4099, 1e-3, False),
+    (4099, 0.0, True)])
+def test_k1_matches_twin(cuda, n, soft, comp):
+    p, m = _cloud(n, n, cuda)
+    before = allpairs.KERNEL_LAUNCHES
+    got = allpairs.allpairs_accelerations_vs(
+        p, p, m, g=G, softening=soft, target_block=128, source_block=512,
+        compensated=comp)
+    want = allpairs.allpairs_accelerations_plain(
+        p, p, m, g=G, softening=soft, source_block=512, compensated=comp)
+    assert allpairs.KERNEL_LAUNCHES == before + 1
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+def test_k1_rejects_what_it_cannot_take(cuda):
+    p, m = _cloud(256, 1, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        allpairs.allpairs_accelerations(p.double(), m.double(), g=G)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt = p.t().contiguous().t()
+        allpairs.allpairs_accelerations_vs(pt, pt, m, g=G)
+    with pytest.raises(ValueError, match="threads per block"):
+        allpairs.allpairs_accelerations(p, m, g=G, target_block=100)
+
+
+def test_k2_matches_twin_on_engine_tables(cuda):
+    p, m = _cloud(8192, 2, cuda)
+    seen = {}
+    orig = list_eval.list_eval_runs
+
+    def spy(*a, **kw):
+        seen["a"], seen["kw"] = a, kw
+        return orig(*a, **kw)
+
+    list_eval.list_eval_runs = spy
+    try:
+        bh_grouped.bh_accelerations_grouped(p, m, g=G, group_size=512)
+    finally:
+        list_eval.list_eval_runs = orig
+    before = list_eval.KERNEL_LAUNCHES
+    got = list_eval.list_eval_runs(*seen["a"], **seen["kw"])
+    want = list_eval.list_eval_runs_plain(*seen["a"], **seen["kw"])
+    assert list_eval.KERNEL_LAUNCHES == before + 1
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+def test_grouped_bh_on_card_matches_cpu(cuda):
+    p, m = _cloud(8192, 3, cuda)
+    got, ovf = bh_grouped.bh_accelerations_grouped(
+        p, m, g=G, group_size=512, return_diagnostics=True)
+    want = bh_grouped.bh_accelerations_grouped(p.cpu(), m.cpu(), g=G,
+                                               group_size=512)
+    assert int(ovf.sum()) == 0
+    assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
