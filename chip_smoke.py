@@ -6,15 +6,26 @@
 Phases, each printing what it found; the first failure exits non-zero:
 
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
-1. build the CUDA kernels from nbody_tpu_torch/csrc (nvcc, sm_90a);
+1. build the CUDA kernels from nbody_tpu_torch/csrc (one nvcc per
+   source, started together, sm_90a);
 2. kernel K1 (all-pairs) against its plain PyTorch twin on the card;
+   2b. K1's 3D instantiation, at N=65,536 and a ragged N;
 3. kernel K2 (grouped Barnes-Hut runs evaluation) against its twin on
    the tables of a real 2D grouped-BH state;
-4. the main path: ``nbody_tpu_torch.cli.main(["run", ...])`` for
-   barnes_hut at N=40,960 and allpairs at N=65,536, 10 steps each, with
-   the kernels' launch counters reset just before and read just after;
-   the same runs through the plain twins must end at the same positions;
-5. times on the card (CUDA events, after a warm-up), kernel beside twin.
+   3b. K2 (3D) and K3 (segment-packed) against their twins, and K3
+   against K2, on the packed and plain tables of one 3D grouped-BH state
+   at N=131,072 (both built from the same merged runs);
+4. the 2D main path: ``nbody_tpu_torch.cli.main(["run", ...])`` for
+   barnes_hut at N=40,960 and allpairs at N=65,536, 10 steps each;
+   4b. the 3D main path: ``run --dims 3`` for barnes_hut at N=131,072,
+   at the smallest N of [131,072, 262,144) whose initial state the
+   run-length gate sends to K3, and at N=65,536 (below the packing N
+   gate: K2), and allpairs at N=65,536 (K1), 10 steps each.
+   Every run has the kernels' launch counters reset just before it and
+   read just after; each run is then replayed in lockstep against the
+   plain twins;
+5. times on the card (CUDA events, after a warm-up), kernel beside twin;
+   5b. the same for the 3D kernels and the 3D grouped-BH step.
 
 The line before the last is the kernel summary JSON, the last line
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA,
@@ -42,10 +53,11 @@ KERNEL_TOL = 1e-5
 # is chaotic (unsoftened close encounters at dt=1 eject bodies, which
 # moves the root bounds and so every Morton group), so two free runs that
 # differ in rounding part ways and their final positions say nothing about
-# the kernels.  Instead every state of the kernel run goes through both
+# the kernels.  Instead the states of the kernel run go through both
 # force passes: the accelerations must agree within KERNEL_TOL x max|a|,
-# and the final positions within KERNEL_TOL x max|a| x dt^2 plus 4 ulp of
-# the largest coordinate (the rounding of p + v dt).
+# and the positions after the last compared step within
+# KERNEL_TOL x max|a| x dt^2 plus 4 ulp of the largest coordinate (the
+# rounding of p + v dt).
 
 
 def fail(msg: str) -> None:
@@ -53,14 +65,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cloud(n: int, seed: int, device):
+def cloud(n: int, seed: int, device, dims: int = 2):
     """Bodies of the reference's distribution (project.cu:30-35)."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
     lo, hi = math.log10(0.1), math.log10(0.5)
     m = 10 ** (lo + (hi - lo) * torch.rand(n, generator=gen))
-    p = -0.1 + 0.2 * torch.rand((n, 2), generator=gen)
+    p = -0.1 + 0.2 * torch.rand((n, dims), generator=gen)
     return p.to(device), m.to(device)
 
 
@@ -93,29 +105,51 @@ def compare(name: str, got, want) -> float:
     return err
 
 
-def capture_tables(positions, masses):
-    """The (args, kwargs) that one grouped-BH force pass hands K2."""
-    from nbody_tpu_torch.ops import bh_grouped, list_eval
-
-    seen = {}
-    orig = list_eval.list_eval_runs
+@contextlib.contextmanager
+def spying(module, name: str, seen: list):
+    """Record the (args, kwargs) of every call of ``module.name``."""
+    orig = getattr(module, name)
 
     def spy(*a, **kw):
-        seen["args"], seen["kw"] = a, kw
+        seen.append((a, kw))
         return orig(*a, **kw)
 
-    list_eval.list_eval_runs = spy
+    setattr(module, name, spy)
     try:
-        bh_grouped.bh_accelerations_grouped(positions, masses, g=G,
-                                            group_size=2048)
+        yield
     finally:
-        list_eval.list_eval_runs = orig
-    return seen["args"], seen["kw"]
+        setattr(module, name, orig)
+
+
+def capture_tables(positions, masses, gate=None):
+    """The (args, kwargs) that one grouped-BH force pass hands the runs
+    wrapper (K2 or K3), and the mean merged-run length.  ``gate`` forces
+    the 3D run-length gate: "packed", "plain" or None (its own choice)."""
+    from nbody_tpu_torch.ops import bh3d, bh_grouped, experiments, list_eval
+
+    runs, seen = [], []
+    thr = bh_grouped.SEG_PACK_MIN_RUN_LANES
+    if gate is not None:
+        bh_grouped.SEG_PACK_MIN_RUN_LANES = (
+            -1.0 if gate == "packed" else float("inf"))
+    try:
+        with spying(list_eval, "list_eval_runs", seen), \
+                spying(experiments, "merge_ranges", runs):
+            if positions.shape[1] == 3:
+                bh3d.bh3_accelerations_grouped(positions, masses, g=G)
+            else:
+                bh_grouped.bh_accelerations_grouped(positions, masses, g=G,
+                                                    group_size=2048)
+    finally:
+        bh_grouped.SEG_PACK_MIN_RUN_LANES = thr
+    counts = experiments.merge_ranges(*runs[0][0], **runs[0][1])[0][:, :, 1]
+    mean_len = float(counts.sum()) / max(int((counts > 0).sum()), 1)
+    return seen[0][0], seen[0][1], mean_len
 
 
 @contextlib.contextmanager
 def plain_twins():
-    """Route the main path's two kernel wrappers to their plain twins."""
+    """Route the main path's kernel wrappers to their plain twins."""
     from nbody_tpu_torch.ops import allpairs, list_eval
 
     orig_vs, orig_runs = (allpairs.allpairs_accelerations_vs,
@@ -123,13 +157,137 @@ def plain_twins():
     allpairs.allpairs_accelerations_vs = (
         lambda t, s, m, *, target_block, **kw:
         allpairs.allpairs_accelerations_plain(t, s, m, **kw))
-    list_eval.list_eval_runs = (
-        lambda *a, seg_pack=1, **kw: list_eval.list_eval_runs_plain(*a, **kw))
+    list_eval.list_eval_runs = list_eval.list_eval_runs_plain
     try:
         yield
     finally:
         allpairs.allpairs_accelerations_vs = orig_vs
         list_eval.list_eval_runs = orig_runs
+
+
+def reset_counts():
+    from nbody_tpu_torch.ops import allpairs, list_eval
+
+    allpairs.KERNEL_LAUNCHES = 0
+    list_eval.KERNEL_LAUNCHES = 0
+    list_eval.PACKED_LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from nbody_tpu_torch.ops import allpairs, list_eval
+
+    return {"k1": allpairs.KERNEL_LAUNCHES, "k2": list_eval.KERNEL_LAUNCHES,
+            "k3": list_eval.PACKED_LAUNCHES}
+
+
+def main_path_run(engine: str, n: int, dims: int, steps: int):
+    """One ``run`` through the CLI with the counters reset just before
+    and read just after; returns (final positions, launch counts)."""
+    import torch
+
+    from nbody_tpu_torch import cli
+
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["run", "--device", "cuda", "--dims", str(dims),
+                       "--engine", engine, "--n-bodies", str(n),
+                       "--steps", str(steps)])
+    counts = read_counts()
+    text = out.getvalue()
+    print(text.strip())
+    state = cli.last_simulation.state
+    tag = f"{dims}D {engine} N={n}"
+    if rc != 0:
+        fail(f"run {tag} exited {rc}")
+    if "GPU total computation took" not in text or (
+            "GPU parallel computation took" not in text):
+        fail(f"run {tag} did not print both timing lines")
+    if int(state.overflow) != 0:
+        fail(f"run {tag}: {int(state.overflow)} bodies overflowed")
+    if not bool(torch.isfinite(state.positions).all()):
+        fail(f"run {tag}: non-finite positions")
+    print(f"  {tag}: {steps} steps, overflow 0, positions finite; kernel "
+          f"launches K1 {counts['k1']}, K2 {counts['k2']}, K3 "
+          f"{counts['k3']}", flush=True)
+    return state.positions.clone(), counts
+
+
+def lockstep(engine: str, n: int, dims: int, steps: int, twin_steps: int,
+             final, device) -> None:
+    """Replay a main-path run as ``run_contract`` steps it (a step whose
+    caps overflow is recomputed with every cap at 4x, through the gather
+    walk): every step through the kernels, the first ``twin_steps`` also
+    through the twins; the replay must end at the CLI run's positions bit
+    for bit."""
+    import torch
+
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.engines import make_accel_fn, resolved_caps
+    from nbody_tpu_torch.physics import integrate
+    from nbody_tpu_torch.rng import random_state
+
+    cfg = SimConfig(n_bodies=n, n_dim=dims, n_steps=steps, engine=engine)
+    accel = make_accel_fn(cfg, return_diagnostics=True)
+    accel4 = None
+    state = random_state(cfg, device=device)
+    worst, d, bound, retries = 0.0, None, None, 0
+    for k in range(steps):
+        prev = state
+        fn = accel
+        acc, ovf = fn(prev.positions, prev.masses)
+        if int(ovf.sum()):
+            if accel4 is None:
+                caps = {c: 4 * v for c, v in resolved_caps(cfg).items()}
+                accel4 = make_accel_fn(
+                    cfg.replace(collect3="gather", **caps),
+                    return_diagnostics=True)
+            fn = accel4
+            acc, ovf = fn(prev.positions, prev.masses)
+            retries += 1
+        state = integrate(prev, acc, cfg.dt, overflow=ovf.sum())
+        if k >= twin_steps:
+            continue
+        with plain_twins():
+            acc_t, _ = fn(prev.positions, prev.masses)
+        err = float((acc - acc_t).abs().max())
+        scale = float(acc_t.abs().max())
+        worst = max(worst, err / scale)
+        if not err <= KERNEL_TOL * scale:
+            fail(f"{dims}D {engine}: force pass through the kernels differs "
+                 f"from the twins by {err:.3e} (max|a| {scale:.3e})")
+        twin_p = integrate(prev, acc_t, cfg.dt).positions
+        d = float((state.positions - twin_p).abs().max())
+        pmax = float(state.positions.abs().max())
+        bound = KERNEL_TOL * scale * cfg.dt ** 2 + 4 * pmax * 2.0 ** -23
+        if not d <= bound:
+            fail(f"{dims}D {engine}: positions after step {k} differ from "
+                 f"the twins' step by {d:.3e} (bound {bound:.3e})")
+    if not torch.equal(state.positions, final):
+        fail(f"{dims}D {engine}: replaying the run did not reproduce the CLI "
+             "run's final positions bit for bit")
+    print(f"  {dims}D {engine} N={n}: {twin_steps} lockstep force passes "
+          f"within {worst:.3e} x max|a| (bound {KERNEL_TOL:g}); positions "
+          f"after step {twin_steps - 1} kernels vs twins {d:.3e} (bound "
+          f"{bound:.3e}); the {steps}-step replay ({retries} steps retried "
+          "at 4x caps) reproduces the CLI run bit for bit -> ok", flush=True)
+
+
+def first_packed_n(device) -> int:
+    """The smallest N of the 3D band [131072, 262144) whose initial
+    uniform state the run-length gate sends to K3."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.rng import random_state
+
+    for n in (131072, 163840, 196608, 229376, 262143):
+        st = random_state(SimConfig(n_bodies=n, n_dim=3), device=device)
+        _, kw, mean_len = capture_tables(st.positions, st.masses)
+        print(f"  N={n}: mean merged run length of the initial state "
+              f"{mean_len:.1f} lanes -> seg_pack {kw['seg_pack']}",
+              flush=True)
+        if kw["seg_pack"] > 1:
+            return n
+    fail("the run-length gate picks K2 for every N of [131072, 262144)")
 
 
 def main() -> int:
@@ -145,15 +303,15 @@ def main() -> int:
         print(f"chip_smoke: cannot import nbody_tpu_torch ({e}); run it "
               "from the root of a checkout", file=sys.stderr)
         return 1
-    from nbody_tpu_torch import cli
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.engines import make_accel_fn
     from nbody_tpu_torch.physics import integrate
     from nbody_tpu_torch.rng import random_state
-    from nbody_tpu_torch.ops import _cuda, allpairs, list_eval
+    from nbody_tpu_torch.ops import _cuda, allpairs, bh_grouped, list_eval
     from nbody_tpu_torch.utils.occupancy import resolve_tiles
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # -- phase 0: the card ---------------------------------------------
     smi = subprocess.run(
@@ -172,125 +330,123 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     print(f"phase 1: built/loaded kernels in {time.perf_counter() - t0:.1f}"
-          f" s (nvcc {_cuda.build_seconds:.1f} s)", flush=True)
+          f" s (nvcc {_cuda.build_seconds:.1f} s, one per source, in "
+          "parallel)", flush=True)
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
 
     # -- phase 2: K1 against its twin ------------------------------------
-    print("phase 2: K1 (all-pairs) vs plain twin", flush=True)
-    k1_err = None
-    for n, soft, comp in ((65536, 0.0, False), (40000, 0.0, False),
-                          (40000, 1e-3, False), (65536, 0.0, True)):
-        p, m = cloud(n, seed=n + int(comp), device=dev)
-        tb, sb = resolve_tiles(n)
-        kw = dict(g=G, softening=soft, source_block=sb, compensated=comp)
-        got = allpairs.allpairs_accelerations_vs(p, p, m, target_block=tb,
-                                                 **kw)
-        want = allpairs.allpairs_accelerations_plain(p, p, m, **kw)
-        torch.cuda.synchronize()
-        err = compare(f"N={n} eps={soft:g} compensated={comp}", got, want)
-        if k1_err is None:
-            k1_err = err  # the main path's shape: N=65,536, eps=0
+    err = {}
+    for dims in (2, 3):
+        cases = ((65536, 0.0, False), (40000, 0.0, False))
+        if dims == 2:
+            cases += ((40000, 1e-3, False), (65536, 0.0, True))
+        print(f"phase 2{'' if dims == 2 else 'b'}: K1 (all-pairs, {dims}D) "
+              "vs plain twin", flush=True)
+        for n, soft, comp in cases:
+            p, m = cloud(n, seed=n + int(comp) + dims, device=dev, dims=dims)
+            tb, sb = resolve_tiles(n)
+            kw = dict(g=G, softening=soft, source_block=sb, compensated=comp)
+            got = allpairs.allpairs_accelerations_vs(p, p, m,
+                                                     target_block=tb, **kw)
+            want = allpairs.allpairs_accelerations_plain(p, p, m, **kw)
+            torch.cuda.synchronize()
+            e = compare(f"{dims}D N={n} eps={soft:g} compensated={comp}",
+                        got, want)
+            err.setdefault(f"k1_{dims}d", e)  # the main path's shape
 
-    # -- phase 3: K2 against its twin on real tables ---------------------
-    print("phase 3: K2 (runs evaluation) vs plain twin, 2D grouped BH "
+    # -- phase 3: K2 against its twin on real 2D tables -------------------
+    print("phase 3: K2 (runs evaluation, 2D) vs plain twin, grouped BH "
           "N=65536 group_size 2048 k_tile 256", flush=True)
-
-    args65, kw65 = capture_tables(*cloud(65536, seed=7, device=dev))
-    tgt, approx, srct, tiles, lens = args65
+    args, kw, _ = capture_tables(*cloud(65536, seed=7, device=dev))
+    tgt, approx, srct, tiles, lens = args
     print(f"  tables: targets {tuple(tgt.shape)}, approx "
           f"{tuple(approx.shape)}, sources_t {tuple(srct.shape)}, tiles "
           f"{tuple(tiles.shape)}; approx lanes max {int(lens[0].max())}, "
           f"direct tiles max {int(lens[1].max())}", flush=True)
-    got = list_eval.list_eval_runs(*args65, **kw65)
-    want = list_eval.list_eval_runs_plain(*args65, **kw65)
+    got = list_eval.list_eval_runs(*args, **kw)
+    want = list_eval.list_eval_runs_plain(*args, **kw)
     torch.cuda.synchronize()
-    k2_err = compare("K2 N=65536", got, want)
+    err["k2_2d"] = compare("K2 2D N=65536", got, want)
 
-    # -- phase 4: the main path ------------------------------------------
-    print("phase 4: main path through nbody_tpu_torch.cli.main", flush=True)
-    runs = (("barnes_hut", 40960), ("allpairs", 65536))
-    allpairs.KERNEL_LAUNCHES = 0
-    list_eval.KERNEL_LAUNCHES = 0
+    # -- phase 3b: K2 (3D) and K3 on real 3D tables -----------------------
+    n3 = 131072
+    print(f"phase 3b: K2 (3D) and K3 (seg_pack 4) vs plain twins, 3D "
+          f"grouped BH N={n3} at the resolved defaults", flush=True)
+    p3, m3 = cloud(n3, seed=17, device=dev, dims=3)
+    _, kw_auto, mean_len = capture_tables(p3, m3)
+    gate_pick = "K3 (packed)" if kw_auto["seg_pack"] > 1 else "K2 (plain)"
+    print(f"  mean merged run length {mean_len:.1f} lanes; the gate "
+          f"(>= {bh_grouped.SEG_PACK_MIN_RUN_LANES:g}) picks {gate_pick}",
+          flush=True)
+    a3p, kw3p, _ = capture_tables(p3, m3, gate="packed")
+    a3k, kw3k, _ = capture_tables(p3, m3, gate="plain")
+    for name, (a, k) in (("packed", (a3p, kw3p)), ("plain", (a3k, kw3k))):
+        print(f"  {name} tables: approx {tuple(a[1].shape)}, tiles "
+              f"{tuple(a[3].shape)}, direct steps max {int(a[4][1].max())}, "
+              f"seg_pack {k['seg_pack']}, k_tile {k['k_tile']}", flush=True)
+    k3_out = list_eval.list_eval_runs(*a3p, **kw3p)
+    err["k3_3d"] = compare(f"K3 3D N={n3}", k3_out,
+                           list_eval.list_eval_runs_plain(*a3p, **kw3p))
+    k2_out = list_eval.list_eval_runs(*a3k, **kw3k)
+    err["k2_3d"] = compare(f"K2 3D N={n3}", k2_out,
+                           list_eval.list_eval_runs_plain(*a3k, **kw3k))
+    compare(f"K3 against K2 on the same runs, N={n3}", k3_out, k2_out)
+
+    # -- phase 4: the 2D main path ------------------------------------------
+    print("phase 4: 2D main path through nbody_tpu_torch.cli.main",
+          flush=True)
+    launches = {}
+    runs2 = (("barnes_hut", 40960), ("allpairs", 65536))
     finals = {}
-    for engine, n in runs:
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(["run", "--device", "cuda", "--engine", engine,
-                           "--n-bodies", str(n), "--steps", "10"])
-        text = out.getvalue()
-        print(text.strip())
-        sim = cli.last_simulation
-        state = sim.state
-        if rc != 0:
-            fail(f"run {engine} exited {rc}")
-        if "GPU total computation took" not in text or (
-                "GPU parallel computation took" not in text):
-            fail(f"run {engine} did not print both timing lines")
-        if int(state.overflow) != 0:
-            fail(f"run {engine}: {int(state.overflow)} bodies overflowed")
-        if not bool(torch.isfinite(state.positions).all()):
-            fail(f"run {engine}: non-finite positions")
-        finals[engine] = state.positions.clone()
-        print(f"  {engine} N={n}: 10 steps, overflow 0, positions finite",
-              flush=True)
-    launches = {"k1": allpairs.KERNEL_LAUNCHES,
-                "k2": list_eval.KERNEL_LAUNCHES}
-    print(f"  kernel launches in the main-path runs: K1 {launches['k1']}, "
-          f"K2 {launches['k2']}", flush=True)
-    if launches["k1"] <= 0 or launches["k2"] <= 0:
-        fail("a kernel of the main path was never launched")
+    for engine, n in runs2:
+        finals[engine], launches[(2, engine, n)] = main_path_run(
+            engine, n, 2, 10)
+    if launches[(2, "barnes_hut", 40960)]["k2"] <= 0 or (
+            launches[(2, "allpairs", 65536)]["k1"] <= 0):
+        fail("a kernel of the 2D main path was never launched")
+    for engine, n in runs2:
+        lockstep(engine, n, 2, 10, 10, finals[engine], dev)
 
-    # the same runs in lockstep through the plain twins on the card
-    for engine, n in runs:
-        cfg = SimConfig(n_bodies=n, n_steps=10, engine=engine)
-        accel = make_accel_fn(cfg, return_diagnostics=True)
-        state = random_state(cfg, device=dev)
-        worst = 0.0
-        for _ in range(cfg.n_steps):
-            prev = state
-            acc, ovf = accel(state.positions, state.masses)
-            with plain_twins():
-                acc_t, _ = accel(state.positions, state.masses)
-            err = float((acc - acc_t).abs().max())
-            scale = float(acc_t.abs().max())
-            worst = max(worst, err / scale)
-            if not err <= KERNEL_TOL * scale:
-                fail(f"{engine}: force pass through the kernels differs from "
-                     f"the twins by {err:.3e} (max|a| {scale:.3e})")
-            state = integrate(state, acc, cfg.dt, overflow=ovf.sum())
-        if not torch.equal(state.positions, finals[engine]):
-            fail(f"{engine}: replaying the run did not reproduce the CLI "
-                 "run's final positions bit for bit")
-        last_t = integrate(prev, acc_t, cfg.dt).positions
-        d = float((state.positions - last_t).abs().max())
-        pmax = float(state.positions.abs().max())
-        bound = KERNEL_TOL * scale * cfg.dt ** 2 + 4 * pmax * 2.0 ** -23
-        ok = d <= bound
-        print(f"  {engine} N={n}: lockstep force passes within "
-              f"{worst:.3e} x max|a| (bound {KERNEL_TOL:g}); final positions "
-              f"kernels vs twins {d:.3e} (bound {bound:.3e}); the replay "
-              f"reproduces the CLI run bit for bit -> "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"{engine}: final positions differ from the twins' step")
+    # -- phase 4b: the 3D main path -----------------------------------------
+    print("phase 4b: 3D main path through nbody_tpu_torch.cli.main; the "
+          "smallest N whose initial state the gate sends to K3:", flush=True)
+    nk3 = first_packed_n(dev)
+    runs3 = tuple(dict.fromkeys((
+        ("barnes_hut", n3), ("barnes_hut", nk3), ("barnes_hut", 65536),
+        ("allpairs", 65536))))
+    finals3 = {}
+    for engine, n in runs3:
+        finals3[(engine, n)], launches[(3, engine, n)] = main_path_run(
+            engine, n, 3, 10)
+    if launches[(3, "barnes_hut", nk3)]["k3"] <= 0:
+        fail(f"K3 was never launched in the 3D barnes_hut run at N={nk3}")
+    if launches[(3, "barnes_hut", 65536)]["k2"] <= 0:
+        fail("K2 (3D) was never launched in the 3D barnes_hut run at "
+             "N=65536")
+    if launches[(3, "allpairs", 65536)]["k1"] <= 0:
+        fail("K1 (3D) was never launched in the 3D allpairs run")
+    for engine, n in runs3:
+        lockstep(engine, n, 3, 10, 3, finals3[(engine, n)], dev)
 
-    # -- phase 5: times on the card ----------------------------------------
+    # -- phase 5: times on the card -------------------------------------------
     print(f"phase 5: times on {card} (CUDA events, mean of reps after a "
           "warm-up)", flush=True)
-    n = 65536
-    p, m = cloud(n, seed=11, device=dev)
-    tb, sb = resolve_tiles(n)
-    k1_ms = cuda_ms(lambda: allpairs.allpairs_accelerations_vs(
-        p, p, m, g=G, target_block=tb, source_block=sb), reps=10)
-    k1_plain = cuda_ms(lambda: allpairs.allpairs_accelerations_plain(
-        p, p, m, g=G, source_block=sb), reps=2)
-    print(f"  K1 N={n}: kernel {k1_ms:.3f} ms = {n * n / k1_ms / 1e6:.1f} "
-          f"Gpairs/s; plain twin {k1_plain:.3f} ms = "
-          f"{n * n / k1_plain / 1e6:.1f} Gpairs/s  [{card}]", flush=True)
+    ms = {}
+    for dims in (2, 3):
+        n = 65536
+        p, m = cloud(n, seed=11 + dims, device=dev, dims=dims)
+        tb, sb = resolve_tiles(n)
+        k = cuda_ms(lambda: allpairs.allpairs_accelerations_vs(
+            p, p, m, g=G, target_block=tb, source_block=sb), reps=10)
+        plain = cuda_ms(lambda: allpairs.allpairs_accelerations_plain(
+            p, p, m, g=G, source_block=sb), reps=2)
+        ms[f"k1_{dims}d"] = (k, plain)
+        print(f"  K1 {dims}D N={n}: kernel {k:.3f} ms = "
+              f"{n * n / k / 1e6:.1f} Gpairs/s; plain twin {plain:.3f} ms = "
+              f"{n * n / plain / 1e6:.1f} Gpairs/s  [{card}]", flush=True)
 
-    k2_ms = k2_plain = None
     for n in (40960, 65536):
         cfg = SimConfig(n_bodies=n, engine="barnes_hut", seed=13)
         st = random_state(cfg, device=dev)
@@ -300,32 +456,83 @@ def main() -> int:
             acc, ovf = accel(st.positions, st.masses)
             return integrate(st, acc, cfg.dt, overflow=ovf.sum())
 
-        a, kw = capture_tables(st.positions, st.masses)
+        a, kw, _ = capture_tables(st.positions, st.masses)
         step_ms = cuda_ms(step, reps=10)
         kern = cuda_ms(lambda: list_eval.list_eval_runs(*a, **kw), reps=10)
         plain = cuda_ms(lambda: list_eval.list_eval_runs_plain(*a, **kw),
                         reps=3)
         with plain_twins():
             step_plain = cuda_ms(step, reps=3)
-        print(f"  grouped BH N={n}: {step_ms:.3f} ms/step (tree build "
+        print(f"  grouped BH 2D N={n}: {step_ms:.3f} ms/step (tree build "
               f"included) with K2, of which K2 {kern:.3f} ms "
               f"({100 * kern / step_ms:.1f}%); through the twin "
               f"{step_plain:.3f} ms/step, twin evaluation {plain:.3f} ms  "
               f"[{card}]", flush=True)
         if n == 40960:
-            k2_ms, k2_plain = kern, plain
+            ms["k2_2d"] = (kern, plain)
 
+    # -- phase 5b: 3D times ----------------------------------------------------
+    for n in dict.fromkeys((n3, nk3)):
+        cfg3 = SimConfig(n_bodies=n, n_dim=3, engine="barnes_hut")
+        st3 = random_state(cfg3, device=dev)
+        accel3 = make_accel_fn(cfg3, return_diagnostics=True)
+
+        def step3():
+            acc, ovf = accel3(st3.positions, st3.masses)
+            return integrate(st3, acc, cfg3.dt, overflow=ovf.sum())
+
+        step3_ms = cuda_ms(step3, reps=5)
+        a_auto, kw_auto, mean_n = capture_tables(st3.positions, st3.masses)
+        pick = "K3" if kw_auto["seg_pack"] > 1 else "K2"
+        pick_ms = cuda_ms(
+            lambda: list_eval.list_eval_runs(*a_auto, **kw_auto), reps=10)
+        print(f"  grouped BH 3D N={n}: {step3_ms:.3f} ms/step (tree build "
+              f"included); mean merged run {mean_n:.1f} lanes, the gate "
+              f"picks {pick}: {pick_ms:.3f} ms "
+              f"({100 * pick_ms / step3_ms:.1f}% of the step)  [{card}]",
+              flush=True)
+        if n == n3:
+            pk, kk = (a3p, kw3p), (a3k, kw3k)
+        else:
+            pk = capture_tables(st3.positions, st3.masses, gate="packed")[:2]
+            kk = capture_tables(st3.positions, st3.masses, gate="plain")[:2]
+        t = {}
+        for key, (a, kw) in (("k3", pk), ("k2", kk)):
+            t[key] = (cuda_ms(lambda: list_eval.list_eval_runs(*a, **kw),
+                              reps=10),
+                      cuda_ms(lambda: list_eval.list_eval_runs_plain(*a,
+                                                                     **kw),
+                              reps=2))
+        print(f"  on the same merged runs (N={n}): K3 {t['k3'][0]:.3f} ms "
+              f"(twin {t['k3'][1]:.3f} ms), K2 {t['k2'][0]:.3f} ms (twin "
+              f"{t['k2'][1]:.3f} ms): K3/K2 = {t['k3'][0] / t['k2'][0]:.3f}"
+              f"  [{card}]", flush=True)
+        if n == n3:
+            ms["k3_3d"], ms["k2_3d"] = t["k3"], t["k2"]
+    print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    def entry(name, source, replaces, key, n_launch, dims):
+        return {"name": name, "route": "cuda",
+                "source": f"nbody_tpu_torch/csrc/{source}",
+                "replaces": replaces, "dims": dims, "launches": n_launch,
+                "max_abs_err": err[key], "ms": ms[key][0],
+                "plain_ms": ms[key][1]}
+
+    ap, le = "nbody_tpu/ops/allpairs.py:49", "nbody_tpu/ops/list_eval.py:333"
     summary = {"kernels": [
-        {"name": "allpairs_k1", "route": "cuda",
-         "source": "nbody_tpu_torch/csrc/allpairs.cu",
-         "replaces": "nbody_tpu/ops/allpairs.py:49",
-         "launches": launches["k1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "runs_eval_k2", "route": "cuda",
-         "source": "nbody_tpu_torch/csrc/runs_eval.cu",
-         "replaces": "nbody_tpu/ops/list_eval.py:333",
-         "launches": launches["k2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
+        entry("allpairs_k1", "allpairs.cu", ap, "k1_2d",
+              launches[(2, "allpairs", 65536)]["k1"], 2),
+        entry("allpairs_k1_3d", "allpairs.cu", ap, "k1_3d",
+              launches[(3, "allpairs", 65536)]["k1"], 3),
+        entry("runs_eval_k2", "runs_eval.cu", le, "k2_2d",
+              launches[(2, "barnes_hut", 40960)]["k2"], 2),
+        entry("runs_eval_k2_3d", "runs_eval.cu", le, "k2_3d",
+              sum(c["k2"] for (d_, e_, _), c in launches.items()
+                  if d_ == 3 and e_ == "barnes_hut"), 3),
+        entry("runs_eval_k3_3d", "runs_eval.cu", le, "k3_3d",
+              sum(c["k3"] for (d_, e_, _), c in launches.items()
+                  if d_ == 3 and e_ == "barnes_hut"), 3),
     ]}
     print(f"card: {card}")
     print(json.dumps(summary))

@@ -3,8 +3,8 @@
 Field for field the same dataclasses as :mod:`nbody_tpu.config` (the JAX
 reference package), so a reference config carries across with
 ``SimConfig.from_dict(dataclasses.asdict(cfg))``.  Knobs that only the
-TPU package acts on (``eval_mode="grid"``, ``collect3``, ``hbm_bytes``,
-...) are kept as fields so configs round-trip; the engines raise
+TPU package acts on (``eval_mode="grid"``, ``collect3="dense"``,
+``hbm_bytes``, ...) are kept as fields so configs round-trip; the engines raise
 ``NotImplementedError`` where a value asks for a path not yet ported.
 """
 
@@ -127,21 +127,21 @@ class SimConfig:
 
     @property
     def resolved_max_depth(self) -> int:
-        """``max_depth`` with the 2D None-auto resolved to the reference
-        default 9.  The 3D density-derived depth needs ``tree3d``, which
-        is not ported yet (ROADMAP A8)."""
+        """``max_depth`` with the None-auto resolved (2D: the reference
+        default 9; 3D: density-derived via tree3d.default_max_depth3)."""
         if self.max_depth is not None:
             return self.max_depth
         if self.n_dim == 3:
-            raise NotImplementedError(
-                "3D auto max_depth (ops.tree3d) is not yet ported "
-                "(ROADMAP A8)"
-            )
+            from .ops.tree3d import default_max_depth3
+
+            return default_max_depth3(self.n_bodies)
         return MAX_DEPTH_DEFAULT
 
     @property
     def resolved_direct_cell_max(self) -> Optional[int]:
-        """``direct_cell_max`` with the 2D None-auto resolved to 32."""
+        """``direct_cell_max`` with the 2D None-auto resolved to 32; in 3D
+        None passes through (ops.bh3d.direct_cell_max_default resolves
+        it from N)."""
         if self.direct_cell_max is not None or self.n_dim == 3:
             return self.direct_cell_max
         return 32

@@ -1,44 +1,58 @@
-// Grouped Barnes-Hut list evaluation on Hopper (sm_90a), kernel K2.
+// Grouped Barnes-Hut list evaluation on Hopper (sm_90a): kernels K2 and K3.
 //
-// Replaces the TPU kernel nbody_tpu/ops/list_eval.py::_runs_kernel at
-// seg_pack=1 (entered through list_eval_runs).  Per Morton group g, the
-// S target bodies take the Barnes-Hut pair force
+// Replaces the TPU kernel nbody_tpu/ops/list_eval.py::_runs_kernel
+// (entered through list_eval_runs): the instantiations P = 1 are K2
+// (seg_pack=1), P = 2, 4, 8 are K3 (seg_pack=P, the segment-packed
+// variant), each for DIMS = 2 and DIMS = 3.  Per Morton group g, the S
+// target bodies take the Barnes-Hut pair force
 //     w = gm / (d2 * (d + eps)),  guard (d2 > 0) & (gm > 0)
 // from two source streams:
-//   (a) the occupied tiles of the group's approx list approx[g, 0:3, :]
+//   (a) the occupied tiles of the group's approx list approx[g, 0:DIMS+1, :]
 //       (zero-padded, so every lane of an occupied tile is used);
-//   (b) the group's direct tiles, read straight from the Morton-sorted
-//       transposed source table srct[0:3, :] at tiles[g, 0, t] (a
-//       128-aligned start), keeping only lanes [lo, hi) =
-//       [tiles[g, 1, t], tiles[g, 2, t]).  Lanes outside the window are
-//       real neighbouring bodies: they are masked before the guard by
-//       never being staged or visited.
-// lens[0, g] counts approx lanes, lens[1, g] direct tiles.
+//   (b) the group's direct table entries, read straight from the
+//       Morton-sorted transposed source table srct[0:DIMS+1, :].  Entry e
+//       is tiles[g, :, e] = (128-aligned start, lo, hi): lanes [lo, hi) of
+//       the window of k_tile / P lanes at start.  Lanes outside the window
+//       are real neighbouring bodies: they are masked before the guard by
+//       never being staged or visited.  One step stages P entries ("segments")
+//       e = d*P + p at lane offset p * (k_tile / P); entries past T are
+//       empty, and padded entries carry lo == hi == 0.
+// lens[0, g] counts approx lanes, lens[1, g] direct steps (packed tiles).
 //
-// What bounds it on an H100: arithmetic.  Each pair is ~10 FP32
-// instructions, one SFU rsqrtf and one IEEE divide; a staged k-tile
-// (16 B per source) is reused by every target of the block, so bytes
-// are negligible next to the pair work.
+// What bounds it on an H100: arithmetic.  Each pair is ~12 FP32
+// instructions (3D), one SFU rsqrtf and one IEEE divide; a staged lane
+// (16 B) is reused by every target of the block, so bytes are negligible
+// next to the pair work.
+//
+// What packing changes on this card: on the TPU every step DMAs a whole
+// k_tile and computes all of its lanes, so short Morton runs waste most
+// of a tile and K3 packs P short windows into one step.  Here K2 already
+// stages and visits only the [lo, hi) lanes of each tile, so packing
+// saves no pair work; it only cuts the number of steps (two block
+// barriers each) per group.  Whether K3 beats K2 on the H100 is a
+// measurement (PERF.md), not a given.
 //
 // Design: one block per (slice of S targets, group), one thread per
-// target.  There is no scalar prefetch on the GPU, so each block reads
-// its own lens entry and tile-table row.  It walks the occupied approx
-// tiles, then the direct tiles, staging each k-tile of (x, y, gm) as
-// float4 in shared memory; the per-tile partial sum is added to the
-// running sum, as the TPU kernel adds each tile's lane reduction.  The
-// TPU kernel's k_tile VMEM ceiling (list_eval.runs_k_max) does not apply:
-// a k-tile costs 16 B of shared memory per lane.
+// target.  There is no scalar prefetch on the GPU, so each block reads its
+// own lens entry and table entries.  Each step stages its lanes of
+// (x, y, z, gm) as float4 in shared memory (z = 0 in 2D; the mass is
+// always .w), then every thread loops over the staged windows; the
+// per-step partial sum is added to the running sum, as the TPU kernel
+// adds each step's lane reduction.  The TPU kernel's k_tile VMEM ceiling
+// (list_eval.runs_k_max) does not apply: a k-tile costs 16 B of shared
+// memory per lane.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void runs_kernel(const float* __restrict__ tgt,     // [G, S, 2]
+template <int DIMS, int P>
+__global__ void runs_kernel(const float* __restrict__ tgt,     // [G, S, DIMS]
                             const float* __restrict__ approx,  // [G, 8, A]
                             const float* __restrict__ srct,    // [8, npad]
                             const int* __restrict__ tiles,     // [G, 3, T]
                             const int* __restrict__ lens,      // [2, G]
-                            float* __restrict__ out,           // [G, S, 2]
+                            float* __restrict__ out,           // [G, S, DIMS]
                             const int n_groups, const int S, const int A,
                             const long long npad, const int T,
                             const int k_tile, const float eps) {
@@ -46,58 +60,131 @@ __global__ void runs_kernel(const float* __restrict__ tgt,     // [G, S, 2]
   const int g = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < S;
-  const size_t ti_base = (static_cast<size_t>(g) * S + i) * 2;
+  const size_t ti_base = (static_cast<size_t>(g) * S + i) * DIMS;
   const float px = live ? tgt[ti_base] : 0.f;
   const float py = live ? tgt[ti_base + 1] : 0.f;
+  const float pz = (DIMS == 3 && live) ? tgt[ti_base + DIMS - 1] : 0.f;
 
+  const int sw = k_tile / P;  // lanes per segment
   const int a_t = (lens[g] + k_tile - 1) / k_tile;
-  const int d_t = min(lens[n_groups + g], T);
+  const int d_t = min(lens[n_groups + g], (T + P - 1) / P);
   const float* ap = approx + static_cast<size_t>(g) * 8 * A;
   const int* tb = tiles + static_cast<size_t>(g) * 3 * T;
 
-  float ax = 0.f, ay = 0.f;
+  float ax = 0.f, ay = 0.f, az = 0.f;
   for (int t = 0; t < a_t + d_t; ++t) {
-    int lo, hi;
+    int lo[P], hi[P];
     if (t < a_t) {
+      // an approx tile is one window [0, n) from lane 0
       const int c0 = t * k_tile;
-      lo = 0;
-      hi = min(k_tile, A - c0);
-      for (int j = threadIdx.x; j < hi; j += blockDim.x) {
-        stile[j] = make_float4(ap[c0 + j], ap[A + c0 + j], ap[2 * A + c0 + j], 0.f);
+      const int n = min(k_tile, A - c0);
+      for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        stile[j] = make_float4(ap[c0 + j], ap[A + c0 + j],
+                               DIMS == 3 ? ap[2 * A + c0 + j] : 0.f,
+                               ap[DIMS * A + c0 + j]);
       }
+      lo[0] = 0;
+      hi[0] = n;
+#pragma unroll
+      for (int p = 1; p < P; ++p) lo[p] = hi[p] = 0;
     } else {
-      const int d = t - a_t;
-      const long long start = tb[d];
-      long long hi_ll = min(tb[2 * T + d], k_tile);
-      if (hi_ll > npad - start) hi_ll = npad - start;  // table tail
-      hi = static_cast<int>(hi_ll);
-      lo = max(tb[T + d], 0);
-      for (int j = lo + static_cast<int>(threadIdx.x); j < hi; j += blockDim.x) {
-        const long long c = start + j;
-        stile[j] = make_float4(srct[c], srct[npad + c], srct[2 * npad + c], 0.f);
+      const int base = (t - a_t) * P;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int e = base + p;
+        int l = 0, h = 0;
+        long long start = 0;
+        if (e < T) {  // never read past the table
+          start = tb[e];
+          long long h_ll = min(tb[2 * T + e], sw);
+          if (h_ll > npad - start) h_ll = npad - start;  // table tail
+          h = static_cast<int>(h_ll);
+          l = max(tb[T + e], 0);
+        }
+        const int off = p * sw;
+        for (int j = l + static_cast<int>(threadIdx.x); j < h; j += blockDim.x) {
+          const long long c = start + j;
+          stile[off + j] = make_float4(srct[c], srct[npad + c],
+                                       DIMS == 3 ? srct[2 * npad + c] : 0.f,
+                                       srct[DIMS * npad + c]);
+        }
+        lo[p] = off + l;
+        hi[p] = off + h;
       }
     }
     __syncthreads();
-    float tx = 0.f, ty = 0.f;
-    for (int j = lo; j < hi; ++j) {
-      const float4 s = stile[j];
-      const float dx = s.x - px;
-      const float dy = s.y - py;
-      const float d2 = dx * dx + dy * dy;
-      const float inv_d = rsqrtf(d2);
-      const float dist = d2 * inv_d;
-      float w = s.z / (d2 * (dist + eps));
-      w = (d2 > 0.f && s.z > 0.f) ? w : 0.f;
-      tx += w * dx;
-      ty += w * dy;
+    float tx = 0.f, ty = 0.f, tz = 0.f;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      for (int j = lo[p]; j < hi[p]; ++j) {
+        const float4 s = stile[j];
+        const float dx = s.x - px;
+        const float dy = s.y - py;
+        const float dz = s.z - pz;
+        float d2 = dx * dx + dy * dy;
+        if (DIMS == 3) d2 += dz * dz;
+        const float inv_d = rsqrtf(d2);
+        const float dist = d2 * inv_d;
+        float w = s.w / (d2 * (dist + eps));
+        w = (d2 > 0.f && s.w > 0.f) ? w : 0.f;
+        tx += w * dx;
+        ty += w * dy;
+        if (DIMS == 3) tz += w * dz;
+      }
     }
     ax += tx;
     ay += ty;
+    az += tz;
     __syncthreads();
   }
   if (live) {
     out[ti_base] = ax;
     out[ti_base + 1] = ay;
+    if (DIMS == 3) out[ti_base + DIMS - 1] = az;
+  }
+}
+
+template <int DIMS, int P>
+cudaError_t launch(const float* tgt, const float* approx, const float* srct,
+                   const int* tiles, const int* lens, float* out,
+                   int n_groups, int S, int A, long long npad, int T,
+                   int k_tile, float softening, int threads,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float4) * static_cast<size_t>(k_tile);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        runs_kernel<DIMS, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((S + threads - 1) / threads, n_groups);
+  runs_kernel<DIMS, P><<<grid, threads, smem, stream>>>(
+      tgt, approx, srct, tiles, lens, out, n_groups, S, A, npad, T, k_tile,
+      softening);
+  return cudaGetLastError();
+}
+
+template <int DIMS>
+cudaError_t dispatch_p(int seg_pack, const float* tgt, const float* approx,
+                       const float* srct, const int* tiles, const int* lens,
+                       float* out, int n_groups, int S, int A, long long npad,
+                       int T, int k_tile, float softening, int threads,
+                       cudaStream_t stream) {
+  switch (seg_pack) {
+    case 1:
+      return launch<DIMS, 1>(tgt, approx, srct, tiles, lens, out, n_groups, S,
+                             A, npad, T, k_tile, softening, threads, stream);
+    case 2:
+      return launch<DIMS, 2>(tgt, approx, srct, tiles, lens, out, n_groups, S,
+                             A, npad, T, k_tile, softening, threads, stream);
+    case 4:
+      return launch<DIMS, 4>(tgt, approx, srct, tiles, lens, out, n_groups, S,
+                             A, npad, T, k_tile, softening, threads, stream);
+    case 8:
+      return launch<DIMS, 8>(tgt, approx, srct, tiles, lens, out, n_groups, S,
+                             A, npad, T, k_tile, softening, threads, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -107,19 +194,22 @@ extern "C" int nbody_runs_eval(const float* tgt, const float* approx,
                                const float* srct, const int* tiles,
                                const int* lens, float* out, int n_groups,
                                int S, int A, long long npad, int T,
-                               int k_tile, float softening, int threads,
-                               void* stream) {
+                               int k_tile, float softening, int dims,
+                               int seg_pack, int threads, void* stream) {
   if (n_groups == 0 || S == 0) return 0;
-  const size_t smem = sizeof(float4) * static_cast<size_t>(k_tile);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (seg_pack < 1 || k_tile % seg_pack) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((S + threads - 1) / threads, n_groups);
-  runs_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      tgt, approx, srct, tiles, lens, out, n_groups, S, A, npad, T, k_tile,
-      softening);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dims == 3) {
+    e = dispatch_p<3>(seg_pack, tgt, approx, srct, tiles, lens, out, n_groups,
+                      S, A, npad, T, k_tile, softening, threads, s);
+  } else if (dims == 2) {
+    e = dispatch_p<2>(seg_pack, tgt, approx, srct, tiles, lens, out, n_groups,
+                      S, A, npad, T, k_tile, softening, threads, s);
+  } else {
+    e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }

@@ -1,9 +1,10 @@
-"""Force engines: naive dense, all-pairs (kernel K1), grouped 2D
-Barnes-Hut (kernel K2) — counterpart of ``nbody_tpu.models.engines``.
+"""Force engines: naive dense, all-pairs (kernel K1), grouped Barnes-Hut
+in 2D (kernel K2) and 3D (kernels K3 and K2) — counterpart of
+``nbody_tpu.models.engines``.
 
 Every engine is an acceleration function of one signature:
 
-    accel_fn(positions [N, 2], masses [N]) -> accelerations [N, 2]
+    accel_fn(positions [N, D], masses [N]) -> accelerations [N, D]
 
 (or ``(acc, overflow [N] bool)`` with ``return_diagnostics``).  The
 kernels launch for CUDA tensors; CPU tensors take their plain twins.
@@ -24,12 +25,14 @@ def resolved_caps(config: SimConfig) -> dict:
     config values, else the calibrated defaults; the basis of the 4x
     adaptive-caps retry (simulation.py)."""
     if config.n_dim == 3:
-        raise NotImplementedError(
-            "3D cap defaults (ops.bh3d) are not yet ported (ROADMAP A8)")
-    from ..ops.bh_grouped import DEFAULT_GROUP_SIZE, cap_defaults
+        from ..ops.bh3d import cap_defaults_3d
 
-    d = cap_defaults(config.group_size or DEFAULT_GROUP_SIZE,
-                     config.n_bodies)
+        d = cap_defaults_3d(config.n_bodies)
+    else:
+        from ..ops.bh_grouped import DEFAULT_GROUP_SIZE, cap_defaults
+
+        d = cap_defaults(config.group_size or DEFAULT_GROUP_SIZE,
+                         config.n_bodies)
     return dict(
         frontier_cap=config.frontier_cap or d["frontier_cap"],
         list_cap=config.list_cap or d["list_cap"],
@@ -94,8 +97,30 @@ def make_accel_fn(config: SimConfig,
 
     if engine == "barnes_hut":
         if config.n_dim == 3:
-            raise NotImplementedError(
-                "3D Barnes-Hut (ops.bh3d) is not yet ported (ROADMAP A8)")
+            if config.bh_mode == "exact":
+                raise ValueError(
+                    "bh_mode='exact' is 2D-only (it mirrors the reference's "
+                    "per-body quadtree DFS); 3D Barnes-Hut uses the grouped "
+                    "octree engine (bh_mode='grouped')")
+            from ..ops.bh3d import bh3_accelerations_grouped
+
+            def grouped3(positions, masses):
+                return bh3_accelerations_grouped(
+                    positions, masses, g=g, theta=config.theta,
+                    max_depth=config.resolved_max_depth,
+                    softening=config.softening, group_size=config.group_size,
+                    frontier_cap=config.frontier_cap,
+                    list_cap=config.list_cap, direct_cap=config.direct_cap,
+                    direct_cell_max=config.resolved_direct_cell_max,
+                    direct_body_cap=config.direct_body_cap,
+                    return_diagnostics=return_diagnostics,
+                    compensated=config.compensated,
+                    eval_mode=config.eval_mode,
+                    eval_k_tile=config.eval_k_tile, run_cap=config.run_cap,
+                    split_eval=config.split_eval, collect=config.collect3,
+                )
+
+            return grouped3
         if config.bh_mode == "exact":
             raise NotImplementedError(
                 "bh_mode='exact' (ops.barnes_hut) is not yet ported "

@@ -10,8 +10,8 @@ every cap at 4x.  The port runs eagerly: CUDA launches are asynchronous,
 so each stopwatch bracket ends in ``torch.cuda.synchronize()``.
 
 Not ported yet (the constructor raises): the fused ``lax.scan`` runs
-(ROADMAP A3), quadtree dumps (A6), the metrics CSV and checkpoints (A10),
-3D (A8) and multi-device steps (A11).
+(ROADMAP A3), quadtree dumps (A6), the metrics CSV and checkpoints (A10)
+and multi-device steps (A11).
 """
 
 from __future__ import annotations
@@ -33,8 +33,6 @@ from .engines import make_accel_fn, resolved_caps
 
 
 def _unported(config: SimConfig) -> Optional[str]:
-    if config.n_dim != 2:
-        return "--dims 3 (ROADMAP A8)"
     if config.mesh.dp > 1:
         return "multi-device runs, --devices > 1 (ROADMAP A11)"
     if config.save_tree_dumps:
@@ -147,8 +145,11 @@ class Simulation:
 
     def _fallback_step(self):
         """The adaptive-caps retry step: every traversal cap at 4x its
-        resolved value (built on first overflow)."""
+        resolved value (built on first overflow).  In 3D it re-collects
+        through the gather walk, as the JAX package's retry does: 4x caps
+        widen its frontiers."""
         if self._step_fallback is None:
             caps = {k: 4 * v for k, v in resolved_caps(self.config).items()}
-            self._step_fallback = self._make_step(self.config.replace(**caps))
+            self._step_fallback = self._make_step(
+                self.config.replace(collect3="gather", **caps))
         return self._step_fallback

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs
-at first use — never at import — into ``build/nbody_tpu_torch/`` beside
-the package (listed in ``.gitignore``); the library's file name carries a
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+Each source is compiled by its own ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``; the compilers
+all start together.  The build runs at first use — never at import —
+into ``build/nbody_tpu_torch/`` beside the package (listed in
+``.gitignore``); each library's file name carries a hash of its source
+and the flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.
 """
 
 from __future__ import annotations
@@ -52,47 +53,73 @@ def _nvcc() -> str:
     )
 
 
-def _build() -> Path:
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(src.read_bytes())
+    return build_dir() / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def _build() -> list:
+    """Build the missing libraries, one ``nvcc`` per source, all at once;
+    returns the library paths in ``SOURCES`` order."""
     global build_log, build_seconds
     srcs = [CSRC / s for s in SOURCES]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
-        h.update(p.read_bytes())
-    out = build_dir() / f"libnbody_tpu_torch_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    outs = [_target(p) for p in srcs]
+    todo = [(p, o) for p, o in zip(srcs, outs) if not o.exists()]
+    if not todo:
+        return outs
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    jobs = []
+    for src, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, tmp, out, proc in jobs:
+        text, _ = proc.communicate()
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{text}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    return out
+    build_log = "".join(logs)
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+class _Library:
+    """The kernels' C entry points, gathered from the per-source
+    libraries (each a ``ctypes`` function with its argument types set)."""
+
+    def __init__(self, paths):
+        self._dlls = [ctypes.CDLL(str(p)) for p in paths]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for name, argtypes, restype in (
+            ("nbody_allpairs_accel", [p, i, p, i, p, f, i, i, i, i, p], i),
+            ("nbody_runs_eval",
+             [p, p, p, p, p, p, i, i, i, ctypes.c_longlong, i, i, f, i, i,
+              i, p], i),
+            ("nbody_cuda_error_string", [i], ctypes.c_char_p),
+        ):
+            fn = next(getattr(d, name) for d in self._dlls
+                      if hasattr(d, name))
+            fn.argtypes, fn.restype = argtypes, restype
+            setattr(self, name, fn)
+
+
+def library() -> _Library:
+    """The loaded kernel libraries, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.nbody_allpairs_accel.argtypes = [
-                p, i, p, i, p, f, i, i, i, p]
-            lib.nbody_allpairs_accel.restype = i
-            lib.nbody_runs_eval.argtypes = [
-                p, p, p, p, p, p, i, i, i, ctypes.c_longlong, i, i, f, i, p]
-            lib.nbody_runs_eval.restype = i
-            lib.nbody_cuda_error_string.argtypes = [i]
-            lib.nbody_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = _Library(_build())
         return _lib
 
 

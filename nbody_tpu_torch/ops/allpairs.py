@@ -75,7 +75,7 @@ def allpairs_accelerations_vs(
 
     On CUDA: kernel K1 with ``target_block`` threads per block (one
     target each) and ``source_block`` sources staged in shared memory per
-    tile; f32, 2D, contiguous inputs only.  On the CPU: the plain twin."""
+    tile; f32, 2D or 3D, contiguous inputs only.  On the CPU: the plain twin."""
     if not target_positions.is_cuda:
         return allpairs_accelerations_plain(
             target_positions, source_positions, source_masses, g=g,
@@ -84,11 +84,14 @@ def allpairs_accelerations_vs(
         )
     global KERNEL_LAUNCHES
     dev = target_positions.device
-    nt, ns = target_positions.shape[0], source_positions.shape[0]
+    nt, dims = target_positions.shape
+    ns = source_positions.shape[0]
+    if dims not in (2, 3):
+        raise ValueError(f"targets have {dims} coordinates; K1 takes 2 or 3")
     _cuda.require(target_positions, "target_positions", torch.float32,
-                  (nt, 2), dev)
+                  (nt, dims), dev)
     _cuda.require(source_positions, "source_positions", torch.float32,
-                  (ns, 2), dev)
+                  (ns, dims), dev)
     _cuda.require(source_masses, "source_masses", torch.float32, (ns,), dev)
     if target_block % 32 or not 32 <= target_block <= 1024:
         raise ValueError(
@@ -98,18 +101,17 @@ def allpairs_accelerations_vs(
         raise ValueError(
             f"source_block={source_block}: the staged tile must fit "
             f"{_MAX_SMEM} bytes of shared memory (16 B per source)")
-    if nt >= 2**31 or 3 * ns >= 2**31:
+    if dims * nt >= 2**31 or (dims + 1) * ns >= 2**31:
         raise ValueError("body counts must fit 32-bit indices")
-    src = torch.stack(
-        [source_positions[:, 0], source_positions[:, 1], g * source_masses]
-    )  # [3, Ns]: x, y, g*m
-    out = torch.empty((nt, 2), dtype=torch.float32, device=dev)
+    src = torch.cat([source_positions.t(), g * source_masses[None]])
+    # [D + 1, Ns]: x, y, (z,) g*m
+    out = torch.empty((nt, dims), dtype=torch.float32, device=dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         code = lib.nbody_allpairs_accel(
             target_positions.data_ptr(), nt, src.data_ptr(), ns,
             out.data_ptr(), float(softening), int(compensated),
-            target_block, source_block, _cuda.stream_of(out),
+            target_block, source_block, dims, _cuda.stream_of(out),
         )
     _cuda.check(code, "allpairs (K1)")
     KERNEL_LAUNCHES += 1

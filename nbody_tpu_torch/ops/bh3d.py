@@ -1,0 +1,425 @@
+"""Grouped Barnes-Hut in 3D over the octree (counterpart of
+``nbody_tpu.ops.bh3d``: the gather walk and the runs evaluator).
+
+The same method as the 2D grouped engine (``ops/bh_grouped.py``) with
+eight children and 3-bit Morton shifts: bodies sorted by Morton code,
+fixed-size groups with Q sub-bboxes, one conservative dual walk per group
+over the dense pyramid (accept a cell iff size < theta * d_min, d_min the
+group-bbox to cell-COM distance), close small cells emitted as Morton
+body ranges, and the lists evaluated by the runs kernels: K3 (segment-
+packed) where the run-length gate picks it, K2 otherwise
+(``ops/list_eval.py``).  Self-exclusion is index-free: singleton cells and
+direct-range bodies carry bit-exact positions, so a body meeting itself
+has d2 == 0 and the d2 > 0 guard drops it.
+
+Every default resolves from N exactly as in the JAX package.  Not ported
+yet, and raising ``NotImplementedError`` naming the ROADMAP item: the
+dense window collector (``collect="dense"``, or ``"auto"`` at
+N >= 262,144; A8b), quarter-split evaluation (``split_eval=True`` or its
+auto gate at dcm >= 128 and N >= 786,432; K4, A8b), ``compensated`` and
+``eval_mode="grid"`` (K6), ``eval_mode="dynamic"`` (K7).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from ..config import BH_SOFTENING, MASS_SKIP_THRESHOLD, THETA_DEFAULT
+from . import bh_grouped
+from .bh_grouped import _pow2_ceil, _sort_compact
+from .list_eval import runs_k_max
+from .tree3d import (
+    R3_CNT,
+    R3_M,
+    R3_MX,
+    R3_MY,
+    R3_MZ,
+    R3_OCC,
+    R3_SX,
+    R3_SY,
+    R3_SZ,
+    Octree,
+    build_octree,
+    default_max_depth3,
+    level_cell_size_3d,
+)
+
+
+def frontier_peak_3d(n_bodies: int) -> int:
+    """3D cap scale ~4*N^(2/3), next power of two, in [2048, 32768] (the
+    JAX package's measured-demand calibration)."""
+    return min(32768, max(2048, _pow2_ceil(int(4 * n_bodies ** (2 / 3)))))
+
+
+def direct_cell_max_default(n_bodies: int) -> int:
+    """Largest cell emitted as a direct body range: 32 below 512K bodies,
+    128 from there (the JAX package's N gate)."""
+    return 32 if n_bodies < 524288 else 128
+
+
+def default_group_size3(n_sources: int) -> int:
+    """Morton group size: 4096 in the [256K, 768K) band, 2048 elsewhere."""
+    return 4096 if 262144 <= n_sources < 786432 else 2048
+
+
+def cap_defaults_3d(n_bodies: int) -> dict:
+    """Interaction-list cap defaults (see nbody_tpu.ops.bh3d for the
+    measured demand behind each)."""
+    peak = frontier_peak_3d(n_bodies)
+    dcm = direct_cell_max_default(n_bodies)
+    if dcm >= 128:
+        list_cap = max(4096, -(-(7 * peak // 16) // 2048) * 2048)
+        direct_cap = max(2048, peak // 4)
+    else:
+        list_cap = max(4096, -(-(5 * peak // 4) // 2048) * 2048)
+        direct_cap = max(2048, 3 * peak // 4)
+    return dict(
+        list_cap=list_cap,
+        direct_cap=direct_cap,
+        direct_body_cap=max(32768, (12 if dcm <= 32 else 20) * peak),
+        frontier_cap=peak,
+        run_cap=run_cap_default_3d(n_bodies),
+    )
+
+
+def run_cap_default_3d(n_bodies: int) -> int:
+    """Merged-run cap: linear in N with headroom at dcm=32 (a multiple of
+    128, floor 256), flat 640 at dcm=128."""
+    if direct_cell_max_default(n_bodies) >= 128:
+        return 640
+    return max(256, -(-(768 * n_bodies // 262144) // 128) * 128)
+
+
+def frontier_schedule_3d(peak: int, max_depth: int,
+                         n_bodies: int) -> Tuple[int, ...]:
+    """Per-level frontier capacities of the octree walk: the hump model
+    below 512K bodies (dcm=32), the terminal-level model from there
+    (dcm=128); see the JAX module for the measured demand."""
+    hump = direct_cell_max_default(n_bodies) < 128
+    lf = math.log(max(n_bodies, 128) / 16, 8)
+    lo_star = min(max_depth, max(3, math.floor(lf)))
+    dcm = direct_cell_max_default(n_bodies)
+    l_t = min(
+        max_depth, max(3, math.ceil(math.log(max(n_bodies // dcm, 8), 8)))
+    )
+    shape = []
+    for level in range(max_depth + 1):
+        if level <= 2:
+            c = 8**level
+        elif level == max_depth:
+            c = peak if hump else peak // 2
+        elif not hump:
+            if level in (l_t, l_t + 1):
+                c = 3 * peak // 8
+            elif level > l_t + 1:
+                c = peak // 4
+            else:
+                c = peak // 8
+        elif level >= lo_star:
+            c = peak
+        else:
+            c = peak >> min(lo_star - level, 3)
+        shape.append(int(min(c, peak, 8**level)))
+    return tuple(shape)
+
+
+def _collect_lists_3d(
+    bbox: Tuple[torch.Tensor, ...],  # 6 x [G, Q]: x0, x1, y0, y1, z0, z1
+    tree: Octree,
+    *,
+    theta: float,
+    softening: float,
+    frontier_caps: Tuple[int, ...],
+    list_cap: int,
+    direct_cap: int,
+    direct_cell_max: int,
+):
+    """Per-group interaction lists via the dual cell-vs-bbox octree walk.
+
+    Per frontier cell: singletons, theta-accepted cells and max-depth
+    aggregates go to the approx list; close cells with
+    2 <= count <= direct_cell_max go to the direct list as a Morton body
+    range; other close cells open.  Every level runs (the JAX package's
+    dead-level skip is a TPU-time saving with the same result; here it
+    would cost a host sync per level).  Returns ((lx, ly, lz, lm) [G, L]
+    approx list, zero-mass padded; ranges [G, D, 2] (start, count),
+    zero-count padded; overflow [G] bool)."""
+    x0, x1, y0, y1, z0, z1 = bbox
+    g = x0.shape[0]
+    dev = x0.device
+    max_depth = tree.max_depth
+    overflow = torch.zeros((g,), dtype=torch.bool, device=dev)
+
+    leaf_cum = torch.cat([
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+        torch.cumsum(tree.leaf_counts(), 0, dtype=torch.int32),
+    ])
+
+    frontier = torch.zeros((g, 1), dtype=torch.int32, device=dev)  # root
+    fcap = 1
+    octant = torch.arange(8, dtype=torch.int32, device=dev)
+    app = ([], [], [], [], [])  # x, y, z, m, mask
+    dir_s, dir_c, dir_mask = [], [], []
+
+    for level in range(max_depth + 1):
+        valid = frontier >= 0
+        idx = torch.where(valid, frontier, 0)
+        rows = tree.raw[level][idx.long()]  # [G, F, 16]
+        m = rows[..., R3_M]
+        cnt = rows[..., R3_CNT]
+        safe = torch.where(m > 0, m, torch.ones_like(m))
+        com = [torch.where(cnt == 1.0, rows[..., s], rows[..., w] / safe)
+               for s, w in ((R3_SX, R3_MX), (R3_SY, R3_MY), (R3_SZ, R3_MZ))]
+
+        # distance from each sub-bbox to the cell COM (0 if inside)
+        d2all = None
+        for c, lo, hi in zip(com, (x0, y0, z0), (x1, y1, z1)):
+            ce = c[:, None, :]  # [G, 1, F]
+            da = torch.clamp(torch.maximum(lo[:, :, None] - ce,
+                                           ce - hi[:, :, None]), min=0.0)
+            d2all = da * da if d2all is None else d2all + da * da
+        # sqrt after the min over sub-bboxes, as the JAX package takes it:
+        # sqrt is monotone and correctly rounded, so the verdicts are
+        # bit-equal
+        d_min = torch.sqrt(d2all.min(dim=1).values) + softening  # [G, F]
+        size = level_cell_size_3d(tree.bounds, level)
+        theta_ok = size < theta * d_min
+
+        nonempty = valid & (cnt > 0) & (m > MASS_SKIP_THRESHOLD)
+        single = nonempty & (cnt == 1.0)
+        multi = nonempty & (cnt > 1.0)
+        at_leaf = level == max_depth
+        approx = single | (multi & (theta_ok | at_leaf))
+        direct = multi & ~theta_ok & (cnt <= direct_cell_max)
+        if at_leaf:
+            direct = torch.zeros_like(direct)
+
+        for lst, v in zip(app, com + [torch.where(approx, m, 0.0), approx]):
+            lst.append(v)
+        # direct cells ride as their first leaf cell; leaf_cum resolves
+        # them to body ranges once, on the compacted list
+        dir_s.append(idx << (3 * (max_depth - level)))
+        dir_c.append(torch.where(direct, cnt.to(torch.int32), 0))
+        dir_mask.append(direct)
+
+        if at_leaf:
+            break
+
+        open_ = multi & ~theta_ok & ~direct
+        children = (idx[:, :, None] * 8 + octant).reshape(g, -1)
+        occ = rows[..., R3_OCC].to(torch.int32)
+        child_bits = ((occ[:, :, None] >> octant) & 1).reshape(g, -1)
+        cmask = open_.repeat_interleave(8, dim=1) & (child_bits > 0)
+
+        next_cap = min(8 * fcap, frontier_caps[level + 1])
+        if next_cap == 8 * fcap:
+            # the cap cannot bind: carry the children with -1 holes, so
+            # frontier widths and order stay the JAX package's
+            frontier = torch.where(cmask, children, -1)
+        else:
+            (frontier,), ovf = _sort_compact(
+                cmask, [torch.where(cmask, children, -1)], next_cap)
+            overflow = overflow | ovf
+        fcap = next_cap
+
+    (lx, ly, lz, lm), ovf_a = _sort_compact(
+        torch.cat(app[4], 1), [torch.cat(a, 1) for a in app[:4]], list_cap)
+    (dleaf, dc), ovf_d = _sort_compact(
+        torch.cat(dir_mask, 1), [torch.cat(dir_s, 1), torch.cat(dir_c, 1)],
+        direct_cap,
+    )
+    has = dc > 0
+    ds = torch.where(has, leaf_cum[torch.where(has, dleaf, 0).long()], 0)
+    overflow = overflow | ovf_a | ovf_d
+    return (lx, ly, lz, lm), torch.stack([ds, dc], dim=-1), overflow
+
+
+# The JAX package's auto gate for the dense window collector.
+DENSE_COLLECT_MIN_N = 262144
+
+
+def _resolve_collect(collect: str | None, n_sources: int) -> str:
+    """``None``/``"auto"`` -> the N gate (dense at N >= 262,144, gather
+    below); ``"gather"``/``"dense"`` force."""
+    mode = collect or "auto"
+    if mode == "auto":
+        return "dense" if n_sources >= DENSE_COLLECT_MIN_N else "gather"
+    if mode not in ("gather", "dense"):
+        raise ValueError(f"collect must be gather|dense|auto, got {mode!r}")
+    return mode
+
+
+def bh3_accelerations_grouped(
+    positions: torch.Tensor,  # [N, 3]
+    masses: torch.Tensor,  # [N]
+    *,
+    g: float,
+    theta: float = THETA_DEFAULT,
+    max_depth: int | None = None,
+    softening: float = BH_SOFTENING,
+    group_size: int | None = None,
+    frontier_cap: int | None = None,
+    list_cap: int | None = None,
+    direct_cap: int | None = None,
+    direct_cell_max: int | None = None,
+    direct_body_cap: int | None = None,
+    return_diagnostics: bool = False,
+    compensated: bool = False,
+    eval_k_tile: int | None = None,
+    eval_mode: str | None = None,
+    run_cap: int | None = None,
+    split_eval: bool | None = None,
+    seg_pack: int | None = None,
+    collect: str | None = None,
+):
+    """Grouped 3D Barnes-Hut accelerations [N, 3] (+ per-body overflow
+    [N] with ``return_diagnostics``).  ``None`` caps resolve from
+    :func:`cap_defaults_3d`, ``max_depth`` from
+    :func:`tree3d.default_max_depth3`, ``group_size`` from
+    :func:`default_group_size3`."""
+    if positions.shape[1] != 3:
+        raise ValueError("bh3_accelerations_grouped takes [N, 3] positions")
+    n = positions.shape[0]
+    if max_depth is None:
+        max_depth = default_max_depth3(n)
+    tree = build_octree(positions, masses, max_depth=max_depth)
+    src_order = torch.argsort(tree.codes, stable=True)
+    psort = positions[src_order]
+    sorted_srcs = (psort[:, 0].contiguous(), psort[:, 1].contiguous(),
+                   psort[:, 2].contiguous(), g * masses[src_order])
+    return grouped_eval_3d(
+        positions, tree, sorted_srcs=sorted_srcs, g=g, theta=theta,
+        softening=softening, group_size=group_size,
+        frontier_cap=frontier_cap, list_cap=list_cap, direct_cap=direct_cap,
+        direct_cell_max=direct_cell_max, direct_body_cap=direct_body_cap,
+        return_diagnostics=return_diagnostics, target_sorted=psort,
+        target_order=src_order, compensated=compensated,
+        eval_k_tile=eval_k_tile, eval_mode=eval_mode, run_cap=run_cap,
+        split_eval=split_eval, seg_pack=seg_pack, collect=collect,
+    )
+
+
+def grouped_eval_3d(
+    target_positions: torch.Tensor,  # [Nt, 3] bodies to accelerate
+    tree: Octree,
+    *,
+    target_order: torch.Tensor,  # [Nt] targets' stable Morton order
+    target_sorted: torch.Tensor,  # [Nt, 3] targets in that order
+    sorted_srcs,  # (x, y, z, g*m) [Ns] each, all sources in Morton order
+    g: float,
+    theta: float = THETA_DEFAULT,
+    softening: float = BH_SOFTENING,
+    group_size: int | None = None,
+    frontier_cap: int | None = None,
+    list_cap: int | None = None,
+    direct_cap: int | None = None,
+    direct_cell_max: int | None = None,
+    direct_body_cap: int | None = None,
+    return_diagnostics: bool = False,
+    compensated: bool = False,
+    eval_k_tile: int | None = None,
+    eval_mode: str | None = None,
+    run_cap: int | None = None,
+    split_eval: bool | None = None,
+    seg_pack: int | None = None,
+    collect: str | None = None,
+):
+    """Grouped 3D evaluation of targets against a prebuilt octree,
+    through the gather walk and the runs evaluator (K3 or K2 on CUDA,
+    their twin on the CPU).  Options that select a path not yet ported
+    raise ``NotImplementedError`` naming the ROADMAP item instead of
+    quietly running another path."""
+    n = target_positions.shape[0]
+    ns = sorted_srcs[0].shape[0]
+    max_depth = tree.max_depth
+    if compensated:
+        raise NotImplementedError(
+            "compensated grouped Barnes-Hut needs the Kahan grid evaluator "
+            "(kernel K6, list_eval_pallas), not yet ported (ROADMAP "
+            "Queue B, K6)")
+    if eval_mode == "grid":
+        raise NotImplementedError(
+            "eval_mode='grid' (kernel K6, list_eval_pallas) is not yet "
+            "ported (ROADMAP Queue B, K6)")
+    if eval_mode == "dynamic":
+        raise NotImplementedError(
+            "eval_mode='dynamic' (kernel K7, list_eval_dynamic) is not yet "
+            "ported (ROADMAP Queue B, K7)")
+    if eval_mode not in (None, "runs"):
+        raise ValueError(f"unknown eval_mode {eval_mode!r}")
+    if _resolve_collect(collect, ns) == "dense":
+        raise NotImplementedError(
+            "the dense window collector (ops.collect_dense3; collect3="
+            "'dense', or 'auto' at N >= 262,144) is not yet ported "
+            "(ROADMAP A8b); pass collect='gather'")
+
+    defaults = cap_defaults_3d(ns)
+    if group_size is None:
+        group_size = default_group_size3(ns)
+    if direct_cell_max is None:
+        direct_cell_max = direct_cell_max_default(ns)
+    frontier_cap = frontier_cap or defaults["frontier_cap"]
+    list_cap = list_cap or defaults["list_cap"]
+    direct_cap = direct_cap or defaults["direct_cap"]
+    direct_body_cap = direct_body_cap or defaults["direct_body_cap"]
+
+    # groups of gs Morton-consecutive targets, the last padded with
+    # copies of the last body (a tight bbox; results sliced off)
+    gs = min(group_size, max(n, 1))
+    n_pad = ((n + gs - 1) // gs) * gs
+    tsort = torch.cat(
+        [target_sorted, target_sorted[-1:].expand(n_pad - n, 3)], dim=0)
+    pg = tsort.reshape(-1, gs, 3)  # [G, S, 3]
+
+    n_sub = max(4, gs // 128)
+    if gs % n_sub:
+        n_sub = 1
+    sub = pg.reshape(pg.shape[0], n_sub, gs // n_sub, 3)
+    bbox = tuple(f(sub[..., a], 2) for a in range(3)
+                 for f in (torch.amin, torch.amax))
+
+    if split_eval is None:
+        # the JAX package's auto gate: on only for dcm >= 128 at >= 768K
+        split_eval = (gs % 4 == 0 and gs >= 512 and n_sub % 4 == 0
+                      and direct_cell_max >= 128 and ns >= 768 * 1024)
+    if split_eval:
+        raise NotImplementedError(
+            "quarter-split evaluation (kernel K4, list_eval_runs_split; "
+            "the auto gate turns it on at dcm >= 128 and N >= 786,432) is "
+            "not yet ported (ROADMAP A8b, Queue B K4); pass "
+            "split_eval=False")
+
+    (lx, ly, lz, lm), ranges, overflow_g = _collect_lists_3d(
+        bbox, tree, theta=theta, softening=softening,
+        frontier_caps=frontier_schedule_3d(frontier_cap, max_depth, ns),
+        list_cap=list_cap, direct_cap=direct_cap,
+        direct_cell_max=direct_cell_max,
+    )
+
+    # the JAX package's k_tile and seg_pack resolution, kept for
+    # tile-table parity
+    k_tile = min(eval_k_tile or 512, runs_k_max())
+    rc = run_cap or defaults["run_cap"]
+    if seg_pack is None:
+        seg_pack = 4 if direct_cell_max <= 64 and ns >= 131072 else 1
+    if seg_pack > 1 and k_tile % (128 * seg_pack):
+        seg_pack = 1
+    acc, ovf_e = bh_grouped._evaluate_runs(
+        pg, (lx, ly, lz), lm, ranges, sorted_srcs[0:3], sorted_srcs[3],
+        g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
+        t_cap=direct_body_cap // k_tile + 2 * rc, seg_pack=seg_pack,
+    )
+    overflow_g = overflow_g | ovf_e
+
+    # un-sort: ``target_order`` is a permutation, so one scatter restores
+    # body order (unique indices: deterministic)
+    out = torch.empty((n, 3), dtype=acc.dtype, device=acc.device)
+    out[target_order] = acc.reshape(-1, 3)[:n]
+    if return_diagnostics:
+        ovf = torch.empty((n,), dtype=torch.bool, device=acc.device)
+        ovf[target_order] = overflow_g.repeat_interleave(gs)[:n]
+        return out, ovf
+    return out

@@ -11,11 +11,12 @@ for the method and the self-exclusion argument (bit-exact singleton
 COMs, d2 > 0).
 
 Shapes are static, as in the JAX package: every cap is fixed before the
-step and overflowing groups raise a flag, so a step needs no host sync.
-Only the runs evaluator is ported: ``compensated=True`` and
-``eval_mode="grid"`` (kernel K6), ``eval_mode="dynamic"`` (K7) and split
-evaluation (K4) raise ``NotImplementedError``; so does ``seg_pack > 1``
-(K3) in ``list_eval.list_eval_runs``.
+step and overflowing groups raise a flag.  The one host sync of a force
+pass is the segment-packing gate of :func:`_evaluate_runs` when
+``seg_pack > 1`` (kernel K3).  Only the runs evaluator is ported:
+``compensated=True`` and ``eval_mode="grid"`` (kernel K6),
+``eval_mode="dynamic"`` (K7) and split evaluation (K4) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +50,13 @@ _INT_MAX = 2**31 - 1
 
 # 2D default Morton group size (see nbody_tpu.ops.bh_grouped).
 DEFAULT_GROUP_SIZE = 2048
+
+# Segment-packing gate of the runs evaluator: the mean merged-run length
+# (lanes) at or above which ``seg_pack > 1`` takes the packed tables
+# (kernel K3); below it, the plain ones (K2).  The JAX package's value,
+# calibrated on the TPU (nbody_tpu.ops.bh_grouped); a module constant so
+# a test can force either branch.
+SEG_PACK_MIN_RUN_LANES = 112.0
 
 
 def _pow2_ceil(x: int) -> int:
@@ -270,11 +278,19 @@ def _evaluate_runs(
     k_tile: int,
     run_cap: int,
     t_cap: int,
+    seg_pack: int = 1,
 ):
-    """Gather-free evaluation (``_evaluate_pallas_runs`` at seg_pack=1 in
-    the JAX package): builds the approx table [G, 8, A], merges the
-    direct ranges into runs, expands them to the k-tile table and runs
-    ``list_eval_runs``.  Returns (acc [G, S, D], overflow [G])."""
+    """Gather-free evaluation (``_evaluate_pallas_runs`` in the JAX
+    package): builds the approx table [G, 8, A], merges the direct ranges
+    into runs, expands them to the k-tile table and runs
+    ``list_eval_runs``.
+
+    With ``seg_pack = P > 1`` the mean merged-run length decides, as the
+    JAX package's runtime ``cond`` does: at or above
+    ``SEG_PACK_MIN_RUN_LANES`` the runs expand at k_tile/P lanes and P
+    segments pack into each kernel step (K3); below, the plain tables
+    (K2).  Here the decision is made on the host: one ``.item()`` per
+    force pass.  Returns (acc [G, S, D], overflow [G])."""
     from .experiments import merge_ranges  # imports this module
 
     dtype = positions_grouped.dtype
@@ -296,11 +312,27 @@ def _evaluate_runs(
     for d_, c in enumerate(sorted_coords):
         srct[d_, :ns] = c
     srct[dims, :ns] = sorted_gm
-    tiles, n_tiles, ovf_t = _expand_runs_tiles(merged, k_tile, t_cap)
-    lens = torch.stack([(lmp > 0).sum(1).to(torch.int32), n_tiles])
+    a_lanes = (lmp > 0).sum(1).to(torch.int32)
+
+    if seg_pack > 1:
+        counts = merged[:, :, 1]
+        n_runs = (counts > 0).sum().clamp(min=1)
+        mean_len = counts.sum().to(torch.float32) / n_runs.to(torch.float32)
+        if not mean_len.item() >= SEG_PACK_MIN_RUN_LANES:
+            seg_pack = 1
+    if seg_pack > 1:
+        # segment-granular table; the body-volume part of the capacity
+        # scales by P, the per-run slack does not
+        seg_cap = max(t_cap, (t_cap - 2 * run_cap) * seg_pack + 2 * run_cap)
+        tiles, n_segs, ovf_t = _expand_runs_tiles(
+            merged, k_tile // seg_pack, seg_cap)
+        n_tiles = (n_segs + seg_pack - 1) // seg_pack
+    else:
+        tiles, n_tiles, ovf_t = _expand_runs_tiles(merged, k_tile, t_cap)
+    lens = torch.stack([a_lanes, n_tiles])
     acc = list_eval.list_eval_runs(
         positions_grouped, approx, srct, tiles, lens,
-        softening=float(softening), k_tile=k_tile,
+        softening=float(softening), k_tile=k_tile, seg_pack=seg_pack,
     )
     return acc, ovf_m | ovf_t
 
@@ -330,9 +362,9 @@ def bh_accelerations_grouped(
     with ``return_diagnostics``).  ``None`` caps resolve from
     :func:`cap_defaults`."""
     if positions.shape[1] != 2:
-        raise NotImplementedError(
-            "3D grouped Barnes-Hut (ops.bh3d) is not yet ported "
-            "(ROADMAP A8)")
+        raise ValueError(
+            "the 2D grouped engine takes [N, 2] positions; 3D goes through "
+            "ops.bh3d.bh3_accelerations_grouped")
     tree = build_quadtree(positions, masses, max_depth=max_depth)
     src_order = torch.argsort(tree.codes, stable=True)
     psort = positions[src_order]

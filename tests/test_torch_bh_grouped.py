@@ -208,10 +208,12 @@ def test_unported_evaluators_raise(kw):
 
 
 def test_packed_segments_raise():
-    """seg_pack > 1 is kernel K3, not ported: the wrapper says so."""
+    """seg_pack > 1 is kernel K3: its segments are 128-lane multiples, so
+    a k_tile that P segments cannot tile is refused, as in the JAX
+    package (list_eval.py:571)."""
     z = torch.zeros
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="K3"):
         tle.list_eval_runs(z(1, 8, 2), z(1, 8, 256), z(8, 512),
                            z(1, 3, 1, dtype=torch.int32),
                            z(2, 1, dtype=torch.int32), softening=0.0,
-                           k_tile=256, seg_pack=2)
+                           k_tile=256, seg_pack=4)

@@ -87,3 +87,83 @@ def test_grouped_bh_on_card_matches_cpu(cuda):
                                                group_size=512)
     assert int(ovf.sum()) == 0
     assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
+
+
+def _cloud3(n, seed, device):
+    rng = np.random.default_rng(seed)
+    m = (10 ** rng.uniform(-1, np.log10(0.5), n)).astype(np.float32)
+    p = rng.uniform(-0.1, 0.1, (n, 3)).astype(np.float32)
+    return torch.tensor(p, device=device), torch.tensor(m, device=device)
+
+
+@pytest.mark.parametrize("n,soft,comp", [
+    (700, 0.0, False), (4099, 0.0, False), (4099, 1e-3, False),
+    (4099, 0.0, True)])
+def test_k1_3d_matches_twin(cuda, n, soft, comp):
+    p, m = _cloud3(n, n, cuda)
+    before = allpairs.KERNEL_LAUNCHES
+    got = allpairs.allpairs_accelerations_vs(
+        p, p, m, g=G, softening=soft, target_block=128, source_block=512,
+        compensated=comp)
+    want = allpairs.allpairs_accelerations_plain(
+        p, p, m, g=G, softening=soft, source_block=512, compensated=comp)
+    assert allpairs.KERNEL_LAUNCHES == before + 1
+    assert got.shape == (n, 3)
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+def _tables3(p, m, seg_pack, monkeypatch):
+    """The (args, kwargs) one 3D grouped-BH pass hands the runs wrapper,
+    with the run-length gate forced to the wanted branch."""
+    from nbody_tpu_torch.ops import bh3d
+
+    monkeypatch.setattr(bh_grouped, "SEG_PACK_MIN_RUN_LANES",
+                        -1.0 if seg_pack > 1 else float("inf"))
+    seen = {}
+    orig = list_eval.list_eval_runs
+
+    def spy(*a, **kw):
+        seen["a"], seen["kw"] = a, kw
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(list_eval, "list_eval_runs", spy)
+    bh3d.bh3_accelerations_grouped(p, m, g=G, group_size=512, seg_pack=4,
+                                   eval_k_tile=512)
+    monkeypatch.setattr(list_eval, "list_eval_runs", orig)
+    assert seen["kw"]["seg_pack"] == seg_pack
+    return seen["a"], seen["kw"]
+
+
+@pytest.mark.parametrize("seg_pack", [1, 4], ids=["K2-3d", "K3"])
+def test_runs_kernels_3d_match_twin(cuda, monkeypatch, seg_pack):
+    p, m = _cloud3(8192, 4, cuda)
+    a, kw = _tables3(p, m, seg_pack, monkeypatch)
+    counter = "KERNEL_LAUNCHES" if seg_pack == 1 else "PACKED_LAUNCHES"
+    before = getattr(list_eval, counter)
+    got = list_eval.list_eval_runs(*a, **kw)
+    want = list_eval.list_eval_runs_plain(*a, **kw)
+    assert getattr(list_eval, counter) == before + 1
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+def test_k3_matches_k2_on_the_same_runs(cuda, monkeypatch):
+    p, m = _cloud3(8192, 5, cuda)
+    a4, kw4 = _tables3(p, m, 4, monkeypatch)
+    packed = list_eval.list_eval_runs(*a4, **kw4)
+    a, kw = _tables3(p, m, 1, monkeypatch)
+    plain = list_eval.list_eval_runs(*a, **kw)
+    assert (packed - plain).abs().max() <= TOL * plain.abs().max()
+
+
+def test_grouped_bh_3d_on_card_matches_cpu(cuda):
+    from nbody_tpu_torch.ops import bh3d
+
+    p, m = _cloud3(8192, 6, cuda)
+    got, ovf = bh3d.bh3_accelerations_grouped(
+        p, m, g=G, group_size=512, seg_pack=4, eval_k_tile=512,
+        return_diagnostics=True)
+    want = bh3d.bh3_accelerations_grouped(p.cpu(), m.cpu(), g=G,
+                                          group_size=512, seg_pack=4,
+                                          eval_k_tile=512)
+    assert int(ovf.sum()) == 0
+    assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
