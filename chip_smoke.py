@@ -15,17 +15,28 @@ Phases, each printing what it found; the first failure exits non-zero:
    3b. K2 (3D) and K3 (segment-packed) against their twins, and K3
    against K2, on the packed and plain tables of one 3D grouped-BH state
    at N=131,072 (both built from the same merged runs);
+   3c. K4 (quarter-split evaluation) against its twin on the tables of
+   a real 3D state at N=1,048,576 (the default route: dense collector,
+   split on), and K4's 2D instantiation on a 2D state with
+   ``split_eval=True``;
 4. the 2D main path: ``nbody_tpu_torch.cli.main(["run", ...])`` for
    barnes_hut at N=40,960 and allpairs at N=65,536, 10 steps each;
-   4b. the 3D main path: ``run --dims 3`` for barnes_hut at N=131,072,
-   at the smallest N of [131,072, 262,144) whose initial state the
-   run-length gate sends to K3, and at N=65,536 (below the packing N
-   gate: K2), and allpairs at N=65,536 (K1), 10 steps each.
+   4b. the 3D main path below the dense band: ``run --dims 3`` for
+   barnes_hut at N=131,072, at the smallest N of [131,072, 262,144) whose
+   initial state the run-length gate sends to K3, and at N=65,536 (below
+   the packing N gate: K2), and allpairs at N=65,536 (K1), 10 steps each;
+   4c. the 3D default route at scale: ``run --dims 3`` barnes_hut at
+   N=262,144 (dense collector, K2 or K3) and N=1,048,576 (dense
+   collector, K4), printing escaped groups, retried steps and peak
+   device memory.
    Every run has the kernels' launch counters reset just before it and
    read just after; each run is then replayed in lockstep against the
    plain twins;
 5. times on the card (CUDA events, after a warm-up), kernel beside twin;
-   5b. the same for the 3D kernels and the 3D grouped-BH step.
+   5b. the same for the 3D kernels and the 3D grouped-BH step;
+   5c. K4 beside its twin and K2, the 3D step at both sizes, the gates'
+   A/Bs (dense vs gather collector, split on vs off) and a
+   ``torch.profiler`` split of the 1,048,576-body step.
 
 The line before the last is the kernel summary JSON, the last line
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA,
@@ -121,10 +132,11 @@ def spying(module, name: str, seen: list):
         setattr(module, name, orig)
 
 
-def capture_tables(positions, masses, gate=None):
+def capture_tables(positions, masses, gate=None, **kw3):
     """The (args, kwargs) that one grouped-BH force pass hands the runs
     wrapper (K2 or K3), and the mean merged-run length.  ``gate`` forces
-    the 3D run-length gate: "packed", "plain" or None (its own choice)."""
+    the 3D run-length gate: "packed", "plain" or None (its own choice);
+    ``kw3`` goes to the 3D engine."""
     from nbody_tpu_torch.ops import bh3d, bh_grouped, experiments, list_eval
 
     runs, seen = [], []
@@ -136,7 +148,8 @@ def capture_tables(positions, masses, gate=None):
         with spying(list_eval, "list_eval_runs", seen), \
                 spying(experiments, "merge_ranges", runs):
             if positions.shape[1] == 3:
-                bh3d.bh3_accelerations_grouped(positions, masses, g=G)
+                bh3d.bh3_accelerations_grouped(positions, masses, g=G,
+                                               **kw3)
             else:
                 bh_grouped.bh_accelerations_grouped(positions, masses, g=G,
                                                     group_size=2048)
@@ -147,55 +160,126 @@ def capture_tables(positions, masses, gate=None):
     return seen[0][0], seen[0][1], mean_len
 
 
+def capture_split(positions, masses, **kw):
+    """The (args, kwargs) that one grouped-BH force pass hands the K4
+    wrapper: 3D at the resolved defaults, 2D with ``kw`` (split_eval)."""
+    from nbody_tpu_torch.ops import bh3d, bh_grouped, list_eval
+
+    seen = []
+    with spying(list_eval, "list_eval_runs_split", seen):
+        if positions.shape[1] == 3:
+            bh3d.bh3_accelerations_grouped(positions, masses, g=G, **kw)
+        else:
+            bh_grouped.bh_accelerations_grouped(positions, masses, g=G, **kw)
+    if len(seen) != 1:
+        fail(f"one force pass called K4's wrapper {len(seen)} times")
+    return seen[0]
+
+
+def direct_fill(args):
+    """(direct tiles, mean live lanes per direct tile) of a runs or split
+    table."""
+    import torch
+
+    tiles, lens = args[-2], args[-1]
+    t_cap = tiles.shape[2]
+    n_d = lens[-1].clamp(max=t_cap)
+    live = torch.arange(t_cap, device=tiles.device)[None] < n_d[:, None]
+    span = (tiles[:, 2] - tiles[:, 1]).clamp(min=0) * live
+    n = int(n_d.sum())
+    return n, float(span.sum()) / max(n, 1)
+
+
+def lanes_visited(args, k_tile: int, split: bool) -> int:
+    """Source lanes the kernel visits per target, summed over its
+    blocks' targets: pairs evaluated, computed from the tables (K2: per
+    group, approx tiles and direct [lo, hi) lanes; K4: per quarter,
+    approx, extension and direct tiles)."""
+    import torch
+
+    tgt, approx = args[0], args[1]
+    tiles, lens = args[-2], args[-1]
+    a_w, t_cap = approx.shape[2], tiles.shape[2]
+    span = (tiles[:, 2] - tiles[:, 1]).clamp(min=0)  # [rows, T]
+    n_d = lens[-1].clamp(max=t_cap)
+    live = torch.arange(t_cap, device=tiles.device)[None] < n_d[:, None]
+    direct = (span * live).sum(1)
+    approx_l = (-(-lens[0] // k_tile) * k_tile).clamp(max=a_w)
+    total = approx_l + direct
+    per_row = tgt.shape[1]
+    if split:
+        e_w = args[2].shape[2]
+        total = total + (-(-lens[1] // k_tile) * k_tile).clamp(max=e_w)
+        per_row //= 4
+    return int(total.sum()) * per_row
+
+
 @contextlib.contextmanager
 def plain_twins():
     """Route the main path's kernel wrappers to their plain twins."""
     from nbody_tpu_torch.ops import allpairs, list_eval
 
-    orig_vs, orig_runs = (allpairs.allpairs_accelerations_vs,
-                          list_eval.list_eval_runs)
+    orig = (allpairs.allpairs_accelerations_vs, list_eval.list_eval_runs,
+            list_eval.list_eval_runs_split)
     allpairs.allpairs_accelerations_vs = (
         lambda t, s, m, *, target_block, **kw:
         allpairs.allpairs_accelerations_plain(t, s, m, **kw))
     list_eval.list_eval_runs = list_eval.list_eval_runs_plain
+    list_eval.list_eval_runs_split = list_eval.list_eval_runs_split_plain
     try:
         yield
     finally:
-        allpairs.allpairs_accelerations_vs = orig_vs
-        list_eval.list_eval_runs = orig_runs
+        (allpairs.allpairs_accelerations_vs, list_eval.list_eval_runs,
+         list_eval.list_eval_runs_split) = orig
+
+
+COUNTERS = (("k1", "allpairs", "KERNEL_LAUNCHES"),
+            ("k2", "list_eval", "KERNEL_LAUNCHES"),
+            ("k3", "list_eval", "PACKED_LAUNCHES"),
+            ("k4", "list_eval", "SPLIT_LAUNCHES"),
+            ("dense", "collect_dense3", "DENSE_PASSES"),
+            ("escaped", "collect_dense3", "ESCAPED_GROUPS"),
+            ("spills", "collect_dense3", "SPILL_PASSES"))
 
 
 def reset_counts():
-    from nbody_tpu_torch.ops import allpairs, list_eval
+    import importlib
 
-    allpairs.KERNEL_LAUNCHES = 0
-    list_eval.KERNEL_LAUNCHES = 0
-    list_eval.PACKED_LAUNCHES = 0
+    for _, mod, name in COUNTERS:
+        setattr(importlib.import_module(f"nbody_tpu_torch.ops.{mod}"), name,
+                0)
 
 
 def read_counts() -> dict:
-    from nbody_tpu_torch.ops import allpairs, list_eval
+    import importlib
 
-    return {"k1": allpairs.KERNEL_LAUNCHES, "k2": list_eval.KERNEL_LAUNCHES,
-            "k3": list_eval.PACKED_LAUNCHES}
+    return {key: getattr(importlib.import_module(
+        f"nbody_tpu_torch.ops.{mod}"), name) for key, mod, name in COUNTERS}
 
 
 def main_path_run(engine: str, n: int, dims: int, steps: int):
     """One ``run`` through the CLI with the counters reset just before
-    and read just after; returns (final positions, launch counts)."""
+    and read just after; returns (final positions, launch counts).  The
+    counts also carry the steps retried at 4x caps and the peak device
+    memory of the run."""
     import torch
 
     from nbody_tpu_torch import cli
 
-    out = io.StringIO()
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(["run", "--device", "cuda", "--dims", str(dims),
                        "--engine", engine, "--n-bodies", str(n),
                        "--steps", str(steps)])
     counts = read_counts()
+    counts["retried"] = err.getvalue().count("retrying with 4x caps")
+    counts["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     text = out.getvalue()
     print(text.strip())
+    if err.getvalue().strip():
+        print(err.getvalue().strip())
     state = cli.last_simulation.state
     tag = f"{dims}D {engine} N={n}"
     if rc != 0:
@@ -209,7 +293,11 @@ def main_path_run(engine: str, n: int, dims: int, steps: int):
         fail(f"run {tag}: non-finite positions")
     print(f"  {tag}: {steps} steps, overflow 0, positions finite; kernel "
           f"launches K1 {counts['k1']}, K2 {counts['k2']}, K3 "
-          f"{counts['k3']}", flush=True)
+          f"{counts['k3']}, K4 {counts['k4']}; dense collector passes "
+          f"{counts['dense']}, escaped groups {counts['escaped']} (spill "
+          f"passes {counts['spills']}); steps retried at 4x caps "
+          f"{counts['retried']}; peak device memory "
+          f"{counts['peak_gib']:.2f} GiB", flush=True)
     return state.positions.clone(), counts
 
 
@@ -394,6 +482,29 @@ def main() -> int:
                            list_eval.list_eval_runs_plain(*a3k, **kw3k))
     compare(f"K3 against K2 on the same runs, N={n3}", k3_out, k2_out)
 
+    # -- phase 3c: K4 on real 1M tables, and in 2D -------------------------
+    n1m = 1 << 20
+    print(f"phase 3c: K4 (quarter-split runs evaluation) vs plain twin, 3D "
+          f"grouped BH N={n1m} at the resolved defaults (dense collector, "
+          "split on)", flush=True)
+    p1m, m1m = cloud(n1m, seed=19, device=dev, dims=3)
+    a4, kw4 = capture_split(p1m, m1m)
+    print(f"  tables: targets {tuple(a4[0].shape)}, approx "
+          f"{tuple(a4[1].shape)}, ext {tuple(a4[2].shape)}, tiles "
+          f"{tuple(a4[4].shape)}; per quarter max approx / ext lanes / "
+          f"direct tiles {a4[5].max(1).values.tolist()}, k_tile "
+          f"{kw4['k_tile']}", flush=True)
+    err["k4_3d"] = compare(
+        f"K4 3D N={n1m}, all {a4[2].shape[0]} quarters",
+        list_eval.list_eval_runs_split(*a4, **kw4),
+        list_eval.list_eval_runs_split_plain(*a4, **kw4))
+    p2s, m2s = cloud(65536, seed=23, device=dev)
+    a42, kw42 = capture_split(p2s, m2s, group_size=2048, split_eval=True)
+    err["k4_2d"] = compare(
+        "K4 2D N=65536 group_size 2048 split_eval=True",
+        list_eval.list_eval_runs_split(*a42, **kw42),
+        list_eval.list_eval_runs_split_plain(*a42, **kw42))
+
     # -- phase 4: the 2D main path ------------------------------------------
     print("phase 4: 2D main path through nbody_tpu_torch.cli.main",
           flush=True)
@@ -429,6 +540,27 @@ def main() -> int:
         fail("K1 (3D) was never launched in the 3D allpairs run")
     for engine, n in runs3:
         lockstep(engine, n, 3, 10, 3, finals3[(engine, n)], dev)
+
+    # -- phase 4c: the 3D default route at scale --------------------------
+    print("phase 4c: 3D main path at scale: the dense collector at "
+          "N=262144 (K2 or K3) and N=1048576 (K4)", flush=True)
+    runs4c = ((262144, 10), (n1m, 10))
+    for n, steps in runs4c:
+        finals3[("barnes_hut", n)], launches[(3, "barnes_hut", n)] = (
+            main_path_run("barnes_hut", n, 3, steps))
+    c256, c1m = (launches[(3, "barnes_hut", n)] for n, _ in runs4c)
+    if c1m["k4"] <= 0:
+        fail(f"K4 was never launched in the 3D barnes_hut run at N={n1m}")
+    if c256["k4"] != 0:
+        fail("K4 was launched in the 3D barnes_hut run at N=262144 (the "
+             "split gate is off there)")
+    if c256["dense"] <= 0 or c1m["dense"] <= 0:
+        fail("the dense collector was not reached in a 3D run at scale")
+    if c256["k2"] + c256["k3"] <= 0:
+        fail("neither K2 nor K3 ran in the 3D barnes_hut run at N=262144")
+    for n, steps in runs4c:
+        lockstep("barnes_hut", n, 3, steps, 2, finals3[("barnes_hut", n)],
+                 dev)
 
     # -- phase 5: times on the card -------------------------------------------
     print(f"phase 5: times on {card} (CUDA events, mean of reps after a "
@@ -509,6 +641,109 @@ def main() -> int:
               f"  [{card}]", flush=True)
         if n == n3:
             ms["k3_3d"], ms["k2_3d"] = t["k3"], t["k2"]
+    # -- phase 5c: K4, the 3D step at scale, the gates, the profile --------
+    print(f"phase 5c: K4 and the 3D default route at scale on {card}",
+          flush=True)
+    k4_ms = cuda_ms(lambda: list_eval.list_eval_runs_split(*a4, **kw4),
+                    reps=5)
+    twin_ms = cuda_ms(
+        lambda: list_eval.list_eval_runs_split_plain(*a4, **kw4), reps=1)
+    ms["k4_3d"] = (k4_ms, twin_ms)
+    # the same force pass unsplit: K2/K3 on the group-wide direct sets
+    a2u, kw2u, _ = capture_tables(p1m, m1m, split_eval=False)
+    k2u_ms = cuda_ms(lambda: list_eval.list_eval_runs(*a2u, **kw2u), reps=3)
+    pairs4 = lanes_visited(a4, kw4["k_tile"], split=True)
+    pairs2 = lanes_visited(a2u, kw2u["k_tile"], split=False)
+    name2u = "K3" if kw2u["seg_pack"] > 1 else "K2"
+    print(f"  K4 N={n1m}: {k4_ms:.3f} ms for {pairs4 / 1e9:.2f} G pairs = "
+          f"{pairs4 / k4_ms / 1e6:.1f} Gpairs/s; twin {twin_ms:.3f} ms  "
+          f"[{card}]", flush=True)
+    print(f"  the same pass unsplit: {name2u} {k2u_ms:.3f} ms for "
+          f"{pairs2 / 1e9:.2f} G pairs = {pairs2 / k2u_ms / 1e6:.1f} "
+          f"Gpairs/s; split keeps {100 * pairs4 / pairs2:.1f}% of the pairs"
+          f"  [{card}]", flush=True)
+    for name, a in (("K4", a4), (name2u, a2u)):
+        n_t, fill = direct_fill(a)
+        print(f"  {name} direct tiles: {n_t}, {fill:.1f} live lanes per "
+              f"tile of {kw4['k_tile']}", flush=True)
+
+    def step_fn(n, **over):
+        cfg = SimConfig(n_bodies=n, n_dim=3, engine="barnes_hut", **over)
+        st = random_state(SimConfig(n_bodies=n, n_dim=3), device=dev)
+        accel = make_accel_fn(cfg, return_diagnostics=True)
+
+        def step():
+            acc, ovf = accel(st.positions, st.masses)
+            return integrate(st, acc, cfg.dt, overflow=ovf.sum())
+
+        return step
+
+    ab = (("dense vs gather collector", 262144, dict(collect3="gather")),
+          ("dense vs gather collector", n1m, dict(collect3="gather")),
+          ("split on vs off", n1m, dict(split_eval=False)))
+    for what, n, alt in ab:
+        base, other = step_fn(n), step_fn(n, **alt)
+        t = [cuda_ms(f, reps=2) for f in (base, other, other, base)]
+        print(f"  A/B {what}, N={n}: default {t[0]:.2f} / {t[3]:.2f} "
+              f"ms/step, {alt} {t[1]:.2f} / {t[2]:.2f} ms/step (default "
+              f"first and last, tree build included)  [{card}]", flush=True)
+        ms[f"step_{n}"] = (t[0] + t[3]) / 2
+
+    # where the 1M step's time goes: components by CUDA events, the
+    # whole step by the profiler
+    from nbody_tpu_torch.ops import bh3d, collect_dense3, tree3d
+
+    step1m = step_fn(n1m)
+    c_args = []
+    e_args = []
+    with spying(collect_dense3, "collect_lists_3d_dense", c_args), \
+            spying(bh_grouped, "_evaluate_runs_split", e_args):
+        step1m()
+    parts = {
+        "octree + spatial pyramid": lambda: collect_dense3.
+        build_spatial_pyramid(tree3d.build_octree(
+            p1m, m1m, max_depth=tree3d.default_max_depth3(n1m))),
+        "dense collector": lambda: collect_dense3.collect_lists_3d_dense(
+            *c_args[0][0], **c_args[0][1]),
+        "split tables + K4": lambda: bh_grouped._evaluate_runs_split(
+            *e_args[0][0], **e_args[0][1]),
+        "K4 alone": lambda: list_eval.list_eval_runs_split(*a4, **kw4),
+    }
+    step_ms = cuda_ms(step1m, reps=2)
+    print(f"  3D step N={n1m}: {step_ms:.2f} ms (tree build included)",
+          flush=True)
+    for name, fn in parts.items():
+        t = cuda_ms(fn, reps=2)
+        print(f"    {name}: {t:.2f} ms ({100 * t / step_ms:.1f}% of the "
+              "step)", flush=True)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        for _ in range(2):
+            step1m()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) / 2 * 1e3
+    kern = {}  # device kernels only: ops carry their kernels' time too
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kern[e.key] = e.self_device_time_total / 2e3  # ms per step
+    busy = sum(kern.values())
+    if busy > 0:
+        sorts = sum(t for k, t in kern.items() if "sort" in k.lower())
+        k4p = sum(t for k, t in kern.items() if "runs_split_kernel" in k)
+        print(f"  profiler, N={n1m}, 2 steps: wall {wall:.2f} ms/step, "
+              f"device busy {busy:.2f} ms/step, idle share "
+              f"{100 * (1 - busy / wall):.1f}%; K4 {k4p:.2f} ms "
+              f"({100 * k4p / busy:.1f}% of busy), sorts {sorts:.2f} ms "
+              f"({100 * sorts / busy:.1f}%)  [{card}]", flush=True)
+        for k, t in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {t:8.3f} ms/step  {k[:100]}", flush=True)
+    else:
+        print("  profiler: no device time recorded; the CUDA-event split "
+              "above stands alone", flush=True)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -520,6 +755,10 @@ def main() -> int:
                 "plain_ms": ms[key][1]}
 
     ap, le = "nbody_tpu/ops/allpairs.py:49", "nbody_tpu/ops/list_eval.py:333"
+    k4 = entry("runs_eval_k4_3d", "runs_eval.cu",
+               "nbody_tpu/ops/list_eval.py:663", "k4_3d",
+               launches[(3, "barnes_hut", n1m)]["k4"], 3)
+    k4["max_abs_err_2d"] = err["k4_2d"]
     summary = {"kernels": [
         entry("allpairs_k1", "allpairs.cu", ap, "k1_2d",
               launches[(2, "allpairs", 65536)]["k1"], 2),
@@ -533,6 +772,7 @@ def main() -> int:
         entry("runs_eval_k3_3d", "runs_eval.cu", le, "k3_3d",
               sum(c["k3"] for (d_, e_, _), c in launches.items()
                   if d_ == 3 and e_ == "barnes_hut"), 3),
+        k4,
     ]}
     print(f"card: {card}")
     print(json.dumps(summary))

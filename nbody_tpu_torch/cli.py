@@ -17,8 +17,9 @@ import sys
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--n-bodies", type=int, default=1024)
     p.add_argument("--dims", type=int, choices=[2, 3], default=2,
-                   help="spatial dimensions (3: octree Barnes-Hut through "
-                        "the gather walk, up to 262,143 bodies by default)")
+                   help="spatial dimensions (3: octree Barnes-Hut, the "
+                        "gather walk below 262,144 bodies and the dense "
+                        "window collector from there)")
     p.add_argument("--steps", type=int, default=10,
                    help="N_SIMULATIONS analogue (project.cu:9-11)")
     p.add_argument("--dt", type=float, default=1.0)
@@ -65,12 +66,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "2D, N-derived in 3D)")
     p.add_argument("--split-eval", choices=["auto", "on", "off"],
                    default="auto",
-                   help="quarter-split runs evaluation (on: not ported yet)")
+                   help="quarter-split runs evaluation (kernel K4; auto: on "
+                        "at direct_cell_max >= 128 and N >= 786,432)")
     p.add_argument("--collect3", choices=["auto", "gather", "dense"],
                    default=None,
-                   help="3D list collection: gather (the frontier walk) "
-                        "runs; dense, and auto at N >= 262,144, are not "
-                        "ported yet")
+                   help="3D list collection: gather (the frontier walk), "
+                        "dense (the window collector) or auto (dense at "
+                        "N >= 262,144)")
     p.add_argument("--no-adaptive-caps", action="store_true",
                    help="disable the 4x-caps retry of an overflowed step")
     p.add_argument("--init-mode", choices=["uniform", "blobs"],
@@ -120,13 +122,6 @@ last_simulation = None
 
 # flag -> (is it set?, ROADMAP item): what the port cannot honour yet
 _UNPORTED = (
-    ("--collect3 dense with --dims 3",
-     lambda a: a.dims == 3 and a.engine == "barnes_hut"
-     and a.collect3 == "dense", "A8b"),
-    ("--dims 3 at --n-bodies >= 262144 (the auto gate picks the dense "
-     "collector) without --collect3 gather",
-     lambda a: a.dims == 3 and a.engine == "barnes_hut"
-     and a.collect3 in (None, "auto") and a.n_bodies >= 262144, "A8b"),
     ("--bh-mode exact",
      lambda a: a.engine == "barnes_hut" and a.bh_mode == "exact", "A9"),
     ("--devices > 1", lambda a: a.devices > 1, "A11"),
@@ -140,8 +135,6 @@ _UNPORTED = (
     ("--eval-mode grid", lambda a: a.eval_mode == "grid", "Queue B, K6"),
     ("--eval-mode dynamic", lambda a: a.eval_mode == "dynamic",
      "Queue B, K7"),
-    ("--split-eval on", lambda a: a.split_eval == "on",
-     "A8b, Queue B K4"),
 )
 
 

@@ -3,9 +3,9 @@
 Field for field the same dataclasses as :mod:`nbody_tpu.config` (the JAX
 reference package), so a reference config carries across with
 ``SimConfig.from_dict(dataclasses.asdict(cfg))``.  Knobs that only the
-TPU package acts on (``eval_mode="grid"``, ``collect3="dense"``,
-``hbm_bytes``, ...) are kept as fields so configs round-trip; the engines raise
-``NotImplementedError`` where a value asks for a path not yet ported.
+TPU package acts on (``eval_mode="grid"``, ``hbm_bytes``, ...) are kept
+as fields so configs round-trip; the engines raise ``NotImplementedError``
+where a value asks for a path not yet ported.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Force engines: naive dense, all-pairs (kernel K1), grouped Barnes-Hut
-in 2D (kernel K2) and 3D (kernels K3 and K2) — counterpart of
+in 2D (kernel K2, or K4 with quarter-split evaluation) and 3D (kernels
+K2 and K3, or K4) — counterpart of
 ``nbody_tpu.models.engines``.
 
 Every engine is an acceleration function of one signature:

@@ -106,6 +106,9 @@ class _Library:
             ("nbody_runs_eval",
              [p, p, p, p, p, p, i, i, i, ctypes.c_longlong, i, i, f, i, i,
               i, p], i),
+            ("nbody_runs_eval_split",
+             [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
+              f, i, i, p], i),
             ("nbody_cuda_error_string", [i], ctypes.c_char_p),
         ):
             fn = next(getattr(d, name) for d in self._dlls

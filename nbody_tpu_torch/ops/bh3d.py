@@ -1,5 +1,6 @@
 """Grouped Barnes-Hut in 3D over the octree (counterpart of
-``nbody_tpu.ops.bh3d``: the gather walk and the runs evaluator).
+``nbody_tpu.ops.bh3d``: the gather walk, the dense window collector's
+routing, and the runs evaluators).
 
 The same method as the 2D grouped engine (``ops/bh_grouped.py``) with
 eight children and 3-bit Morton shifts: bodies sorted by Morton code,
@@ -7,17 +8,19 @@ fixed-size groups with Q sub-bboxes, one conservative dual walk per group
 over the dense pyramid (accept a cell iff size < theta * d_min, d_min the
 group-bbox to cell-COM distance), close small cells emitted as Morton
 body ranges, and the lists evaluated by the runs kernels: K3 (segment-
-packed) where the run-length gate picks it, K2 otherwise
-(``ops/list_eval.py``).  Self-exclusion is index-free: singleton cells and
+packed) where the run-length gate picks it, K2 otherwise, or K4 per
+Morton quarter where quarter-split evaluation is on
+(``ops/list_eval.py``).  The lists come from the gather walk
+(:func:`_collect_lists_3d`) below N = 262,144 and from the dense window
+collector (``ops/collect_dense3.py``) from there, as the JAX package's
+gates decide.  Self-exclusion is index-free: singleton cells and
 direct-range bodies carry bit-exact positions, so a body meeting itself
 has d2 == 0 and the d2 > 0 guard drops it.
 
 Every default resolves from N exactly as in the JAX package.  Not ported
-yet, and raising ``NotImplementedError`` naming the ROADMAP item: the
-dense window collector (``collect="dense"``, or ``"auto"`` at
-N >= 262,144; A8b), quarter-split evaluation (``split_eval=True`` or its
-auto gate at dcm >= 128 and N >= 786,432; K4, A8b), ``compensated`` and
-``eval_mode="grid"`` (K6), ``eval_mode="dynamic"`` (K7).
+yet, and raising ``NotImplementedError`` naming the ROADMAP item:
+``compensated`` and ``eval_mode="grid"`` (K6), ``eval_mode="dynamic"``
+(K7).
 """
 
 from __future__ import annotations
@@ -29,7 +32,12 @@ import torch
 
 from ..config import BH_SOFTENING, MASS_SKIP_THRESHOLD, THETA_DEFAULT
 from . import bh_grouped
-from .bh_grouped import _pow2_ceil, _sort_compact
+from .bh_grouped import (
+    _pow2_ceil,
+    _quarter_fail_bits,
+    _sort_compact,
+    _theta_distances,
+)
 from .list_eval import runs_k_max
 from .tree3d import (
     R3_CNT,
@@ -136,6 +144,7 @@ def _collect_lists_3d(
     list_cap: int,
     direct_cap: int,
     direct_cell_max: int,
+    quarter_bits: bool = False,
 ):
     """Per-group interaction lists via the dual cell-vs-bbox octree walk.
 
@@ -146,7 +155,10 @@ def _collect_lists_3d(
     dead-level skip is a TPU-time saving with the same result; here it
     would cost a host sync per level).  Returns ((lx, ly, lz, lm) [G, L]
     approx list, zero-mass padded; ranges [G, D, 2] (start, count),
-    zero-count padded; overflow [G] bool)."""
+    zero-count padded; overflow [G] bool), and with ``quarter_bits`` a
+    fourth item, the quarter-split payload of each direct entry:
+    ``dict(bits=[G, D] int32 per-quarter theta-fail masks,
+    com=(x, y, z) [G, D], mass=[G, D])``."""
     x0, x1, y0, y1, z0, z1 = bbox
     g = x0.shape[0]
     dev = x0.device
@@ -163,6 +175,7 @@ def _collect_lists_3d(
     octant = torch.arange(8, dtype=torch.int32, device=dev)
     app = ([], [], [], [], [])  # x, y, z, m, mask
     dir_s, dir_c, dir_mask = [], [], []
+    dir_q = ([], [], [], [], [])  # quarter_bits payload: bits, x, y, z, m
 
     for level in range(max_depth + 1):
         valid = frontier >= 0
@@ -174,17 +187,8 @@ def _collect_lists_3d(
         com = [torch.where(cnt == 1.0, rows[..., s], rows[..., w] / safe)
                for s, w in ((R3_SX, R3_MX), (R3_SY, R3_MY), (R3_SZ, R3_MZ))]
 
-        # distance from each sub-bbox to the cell COM (0 if inside)
-        d2all = None
-        for c, lo, hi in zip(com, (x0, y0, z0), (x1, y1, z1)):
-            ce = c[:, None, :]  # [G, 1, F]
-            da = torch.clamp(torch.maximum(lo[:, :, None] - ce,
-                                           ce - hi[:, :, None]), min=0.0)
-            d2all = da * da if d2all is None else d2all + da * da
-        # sqrt after the min over sub-bboxes, as the JAX package takes it:
-        # sqrt is monotone and correctly rounded, so the verdicts are
-        # bit-equal
-        d_min = torch.sqrt(d2all.min(dim=1).values) + softening  # [G, F]
+        d_min, d_q = _theta_distances(com, (x0, y0, z0), (x1, y1, z1),
+                                      softening, quarter_bits)
         size = level_cell_size_3d(tree.bounds, level)
         theta_ok = size < theta * d_min
 
@@ -204,6 +208,11 @@ def _collect_lists_3d(
         dir_s.append(idx << (3 * (max_depth - level)))
         dir_c.append(torch.where(direct, cnt.to(torch.int32), 0))
         dir_mask.append(direct)
+        if quarter_bits:
+            bits = _quarter_fail_bits(size, theta, d_q)
+            for lst, v in zip(dir_q, [torch.where(direct, bits, 0), *com,
+                                      torch.where(direct, m, 0.0)]):
+                lst.append(v)
 
         if at_leaf:
             break
@@ -227,14 +236,20 @@ def _collect_lists_3d(
 
     (lx, ly, lz, lm), ovf_a = _sort_compact(
         torch.cat(app[4], 1), [torch.cat(a, 1) for a in app[:4]], list_cap)
-    (dleaf, dc), ovf_d = _sort_compact(
-        torch.cat(dir_mask, 1), [torch.cat(dir_s, 1), torch.cat(dir_c, 1)],
-        direct_cap,
-    )
+    payload = [torch.cat(dir_s, 1), torch.cat(dir_c, 1)]
+    if quarter_bits:
+        payload += [torch.cat(a, 1) for a in dir_q]
+    compacted, ovf_d = _sort_compact(torch.cat(dir_mask, 1), payload,
+                                     direct_cap)
+    dleaf, dc = compacted[:2]
     has = dc > 0
     ds = torch.where(has, leaf_cum[torch.where(has, dleaf, 0).long()], 0)
     overflow = overflow | ovf_a | ovf_d
-    return (lx, ly, lz, lm), torch.stack([ds, dc], dim=-1), overflow
+    out = ((lx, ly, lz, lm), torch.stack([ds, dc], dim=-1), overflow)
+    if quarter_bits:
+        out += (dict(bits=compacted[2], com=tuple(compacted[3:6]),
+                     mass=compacted[6]),)
+    return out
 
 
 # The JAX package's auto gate for the dense window collector.
@@ -286,6 +301,11 @@ def bh3_accelerations_grouped(
     if max_depth is None:
         max_depth = default_max_depth3(n)
     tree = build_octree(positions, masses, max_depth=max_depth)
+    spyr = None
+    if _resolve_collect(collect, n) == "dense":
+        from .collect_dense3 import build_spatial_pyramid
+
+        spyr = build_spatial_pyramid(tree)
     src_order = torch.argsort(tree.codes, stable=True)
     psort = positions[src_order]
     sorted_srcs = (psort[:, 0].contiguous(), psort[:, 1].contiguous(),
@@ -299,6 +319,7 @@ def bh3_accelerations_grouped(
         target_order=src_order, compensated=compensated,
         eval_k_tile=eval_k_tile, eval_mode=eval_mode, run_cap=run_cap,
         split_eval=split_eval, seg_pack=seg_pack, collect=collect,
+        spyr=spyr,
     )
 
 
@@ -326,12 +347,18 @@ def grouped_eval_3d(
     split_eval: bool | None = None,
     seg_pack: int | None = None,
     collect: str | None = None,
+    spyr=None,
 ):
-    """Grouped 3D evaluation of targets against a prebuilt octree,
-    through the gather walk and the runs evaluator (K3 or K2 on CUDA,
-    their twin on the CPU).  Options that select a path not yet ported
-    raise ``NotImplementedError`` naming the ROADMAP item instead of
-    quietly running another path."""
+    """Grouped 3D evaluation of targets against a prebuilt octree.
+
+    The lists come from the dense window collector where ``collect``
+    resolves to ``"dense"`` (it needs ``spyr``, the spatial pyramid of
+    ``tree``: ``collect_dense3.build_spatial_pyramid``), else from the
+    gather walk; they are evaluated per quarter (K4) where ``split_eval``
+    resolves on, else by the runs evaluator (K3 or K2); on the CPU the
+    kernels' twins.  Options that select a path not yet ported raise
+    ``NotImplementedError`` naming the ROADMAP item instead of quietly
+    running another path."""
     n = target_positions.shape[0]
     ns = sorted_srcs[0].shape[0]
     max_depth = tree.max_depth
@@ -350,11 +377,11 @@ def grouped_eval_3d(
             "ported (ROADMAP Queue B, K7)")
     if eval_mode not in (None, "runs"):
         raise ValueError(f"unknown eval_mode {eval_mode!r}")
-    if _resolve_collect(collect, ns) == "dense":
-        raise NotImplementedError(
-            "the dense window collector (ops.collect_dense3; collect3="
-            "'dense', or 'auto' at N >= 262,144) is not yet ported "
-            "(ROADMAP A8b); pass collect='gather'")
+    use_dense = _resolve_collect(collect, ns) == "dense"
+    if use_dense and spyr is None:
+        raise ValueError(
+            "the dense collector (collect='dense', or 'auto' at N >= "
+            "262,144) needs spyr=collect_dense3.build_spatial_pyramid(tree)")
 
     defaults = cap_defaults_3d(ns)
     if group_size is None:
@@ -385,33 +412,42 @@ def grouped_eval_3d(
         # the JAX package's auto gate: on only for dcm >= 128 at >= 768K
         split_eval = (gs % 4 == 0 and gs >= 512 and n_sub % 4 == 0
                       and direct_cell_max >= 128 and ns >= 768 * 1024)
-    if split_eval:
-        raise NotImplementedError(
-            "quarter-split evaluation (kernel K4, list_eval_runs_split; "
-            "the auto gate turns it on at dcm >= 128 and N >= 786,432) is "
-            "not yet ported (ROADMAP A8b, Queue B K4); pass "
-            "split_eval=False")
+    elif split_eval and (gs % 4 or n_sub % 4):
+        raise ValueError(
+            "split_eval=True requires group_size and n_sub divisible by 4 "
+            f"(got {gs}, {n_sub})")
 
-    (lx, ly, lz, lm), ranges, overflow_g = _collect_lists_3d(
-        bbox, tree, theta=theta, softening=softening,
+    walk = dict(
+        theta=theta, softening=softening,
         frontier_caps=frontier_schedule_3d(frontier_cap, max_depth, ns),
         list_cap=list_cap, direct_cap=direct_cap,
-        direct_cell_max=direct_cell_max,
-    )
+        direct_cell_max=direct_cell_max, quarter_bits=split_eval)
+    if use_dense:
+        from .collect_dense3 import collect_lists_3d_dense
+
+        collected = collect_lists_3d_dense(bbox, tree, spyr, **walk)
+    else:
+        collected = _collect_lists_3d(bbox, tree, **walk)
+    (lx, ly, lz, lm), ranges, overflow_g = collected[:3]
 
     # the JAX package's k_tile and seg_pack resolution, kept for
     # tile-table parity
     k_tile = min(eval_k_tile or 512, runs_k_max())
     rc = run_cap or defaults["run_cap"]
-    if seg_pack is None:
-        seg_pack = 4 if direct_cell_max <= 64 and ns >= 131072 else 1
-    if seg_pack > 1 and k_tile % (128 * seg_pack):
-        seg_pack = 1
-    acc, ovf_e = bh_grouped._evaluate_runs(
-        pg, (lx, ly, lz), lm, ranges, sorted_srcs[0:3], sorted_srcs[3],
-        g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
-        t_cap=direct_body_cap // k_tile + 2 * rc, seg_pack=seg_pack,
-    )
+    kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
+              t_cap=direct_body_cap // k_tile + 2 * rc)
+    if split_eval:
+        acc, ovf_e = bh_grouped._evaluate_runs_split(
+            pg, (lx, ly, lz), lm, ranges, collected[3], sorted_srcs[0:3],
+            sorted_srcs[3], **kw)
+    else:
+        if seg_pack is None:
+            seg_pack = 4 if direct_cell_max <= 64 and ns >= 131072 else 1
+        if seg_pack > 1 and k_tile % (128 * seg_pack):
+            seg_pack = 1
+        acc, ovf_e = bh_grouped._evaluate_runs(
+            pg, (lx, ly, lz), lm, ranges, sorted_srcs[0:3], sorted_srcs[3],
+            seg_pack=seg_pack, **kw)
     overflow_g = overflow_g | ovf_e
 
     # un-sort: ``target_order`` is a permutation, so one scatter restores

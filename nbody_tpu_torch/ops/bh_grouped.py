@@ -1,21 +1,22 @@
 """Grouped Barnes-Hut: Morton-sorted body groups share one traversal
-(counterpart of ``nbody_tpu.ops.bh_grouped``, runs evaluator only).
+(counterpart of ``nbody_tpu.ops.bh_grouped``, runs evaluators only).
 
 Bodies are sorted by Morton code and cut into groups; each group walks
 the pyramid once with a conservative acceptance test (cell size over the
 distance from the group's sub-bboxes to the cell COM), emitting an
 approx list of accepted cells and the body ranges of close cells; the
 ranges are merged into Morton runs and the list is evaluated by kernel
-K2 (``ops/list_eval.list_eval_runs``).  See the JAX module's docstring
+K2 (``ops/list_eval.list_eval_runs``), or, with quarter-split evaluation,
+per Morton quarter of each group by kernel K4
+(``ops/list_eval.list_eval_runs_split``).  See the JAX module's docstring
 for the method and the self-exclusion argument (bit-exact singleton
 COMs, d2 > 0).
 
 Shapes are static, as in the JAX package: every cap is fixed before the
 step and overflowing groups raise a flag.  The one host sync of a force
 pass is the segment-packing gate of :func:`_evaluate_runs` when
-``seg_pack > 1`` (kernel K3).  Only the runs evaluator is ported:
-``compensated=True`` and ``eval_mode="grid"`` (kernel K6),
-``eval_mode="dynamic"`` (K7) and split evaluation (K4) raise
+``seg_pack > 1`` (kernel K3).  ``compensated=True`` and
+``eval_mode="grid"`` (kernel K6) and ``eval_mode="dynamic"`` (K7) raise
 ``NotImplementedError``.
 """
 
@@ -114,6 +115,47 @@ def _sort_compact(mask: torch.Tensor, arrays, cap: int):
     return out, mask.sum(1) > cap
 
 
+def _theta_distances(coms, lows, highs, softening: float, quarters: bool):
+    """Distance from each cell COM to its group's nearest sub-bbox, plus
+    the softening: ``d_min`` [G, F], and with ``quarters`` the same per
+    Morton quarter of the Q sub-bboxes (quarter q = sub-bboxes
+    [qQ/4, (q+1)Q/4)), [G, 4, F].
+
+    coms: D arrays [G, F]; lows, highs: D arrays [G, Q].  The squared
+    distances are taken a quarter of the sub-bboxes at a time, so
+    [G, Q/4, F] is the largest live tensor, and ``sqrt`` comes after the
+    min, as the JAX package takes it: min is exact and sqrt monotone and
+    correctly rounded, so every verdict is bit-equal to its one-shot
+    [G, Q, F] form."""
+    q = lows[0].shape[1]
+    parts = 4 if q % 4 == 0 else 1
+    if quarters and parts != 4:
+        raise ValueError(f"quarter bits need Q % 4 == 0 sub-bboxes, got {q}")
+    mins = []
+    for k in range(parts):
+        sl = slice(k * q // parts, (k + 1) * q // parts)
+        d2 = None
+        for c, lo, hi in zip(coms, lows, highs):
+            ce = c[:, None, :]  # [G, 1, F]
+            da = torch.clamp(torch.maximum(lo[:, sl, None] - ce,
+                                           ce - hi[:, sl, None]), min=0.0)
+            d2 = da * da if d2 is None else d2 + da * da
+        mins.append(d2.min(dim=1).values)
+    dq = torch.stack(mins, dim=1)  # [G, parts, F]
+    d_min = torch.sqrt(dq.min(dim=1).values) + softening
+    return d_min, (torch.sqrt(dq) + softening if quarters else None)
+
+
+def _quarter_fail_bits(size: torch.Tensor, theta: float,
+                       d_q: torch.Tensor) -> torch.Tensor:
+    """Per-quarter theta verdicts [G, 4, F] -> int32 masks [G, F]: bit q
+    set where the cell is too close for quarter q's own bodies
+    (``size >= theta * d_q``)."""
+    bit = 1 << torch.arange(4, dtype=torch.int32, device=d_q.device)
+    fail = size >= theta * d_q
+    return torch.where(fail, bit[None, :, None], 0).sum(1, dtype=torch.int32)
+
+
 def _collect_lists(
     bbox: Tuple[torch.Tensor, ...],  # 4 x [G, Q]: x0, x1, y0, y1
     tree: Quadtree,
@@ -124,6 +166,7 @@ def _collect_lists(
     list_cap: int,
     direct_cap: int,
     direct_cell_max: int,
+    quarter_bits: bool = False,
 ):
     """Per-group interaction lists via a dual (cell-vs-group-bbox) walk.
 
@@ -132,7 +175,10 @@ def _collect_lists(
     2 <= count <= direct_cell_max go to the direct list as a Morton body
     range; other close cells open.  Returns ((lx, ly, lm) [G, L] approx
     list, zero-mass padded; ranges [G, D, 2] (start, count), zero-count
-    padded; overflow [G] bool)."""
+    padded; overflow [G] bool), and with ``quarter_bits`` a fourth item,
+    the quarter-split payload of each direct entry: ``dict(bits=[G, D]
+    int32 per-quarter theta-fail masks, com=(x, y) [G, D], mass=[G, D])``
+    (a direct cell fails theta for at least one quarter)."""
     x0, x1, y0, y1 = bbox
     g = x0.shape[0]
     dev = x0.device
@@ -150,6 +196,7 @@ def _collect_lists(
     quad = torch.arange(4, dtype=torch.int32, device=dev)
     app_x, app_y, app_m, app_mask = [], [], [], []
     dir_s, dir_c, dir_mask = [], [], []
+    dir_q = ([], [], [], [])  # quarter_bits payload: bits, x, y, m
 
     for level in range(max_depth + 1):
         valid = frontier >= 0
@@ -161,13 +208,8 @@ def _collect_lists(
         cx = torch.where(cnt == 1.0, rows[..., RAW_SX], rows[..., RAW_MX] / safe)
         cy = torch.where(cnt == 1.0, rows[..., RAW_SY], rows[..., RAW_MY] / safe)
 
-        cxe, cye = cx[:, None, :], cy[:, None, :]  # [G, 1, F]
-        dx = torch.clamp(torch.maximum(x0[:, :, None] - cxe,
-                                       cxe - x1[:, :, None]), min=0.0)
-        dy = torch.clamp(torch.maximum(y0[:, :, None] - cye,
-                                       cye - y1[:, :, None]), min=0.0)
-        d2all = dx * dx + dy * dy  # [G, Q, F]
-        d_min = torch.sqrt(d2all.min(dim=1).values) + softening  # [G, F]
+        d_min, d_q = _theta_distances((cx, cy), (x0, y0), (x1, y1),
+                                      softening, quarter_bits)
         size = level_cell_size(tree.bounds, level)
         theta_ok = size < theta * d_min
 
@@ -189,6 +231,11 @@ def _collect_lists(
         dir_s.append(idx << (2 * (max_depth - level)))
         dir_c.append(torch.where(direct, cnt.to(torch.int32), 0))
         dir_mask.append(direct)
+        if quarter_bits:
+            bits = _quarter_fail_bits(size, theta, d_q)
+            for lst, v in zip(dir_q, (torch.where(direct, bits, 0), cx, cy,
+                                      torch.where(direct, m, 0.0))):
+                lst.append(v)
 
         if at_leaf:
             break
@@ -214,14 +261,20 @@ def _collect_lists(
         [torch.cat(app_x, 1), torch.cat(app_y, 1), torch.cat(app_m, 1)],
         list_cap,
     )
-    (dleaf, dc), ovf_d = _sort_compact(
-        torch.cat(dir_mask, 1), [torch.cat(dir_s, 1), torch.cat(dir_c, 1)],
-        direct_cap,
-    )
+    payload = [torch.cat(dir_s, 1), torch.cat(dir_c, 1)]
+    if quarter_bits:
+        payload += [torch.cat(a, 1) for a in dir_q]
+    compacted, ovf_d = _sort_compact(torch.cat(dir_mask, 1), payload,
+                                     direct_cap)
+    dleaf, dc = compacted[:2]
     has = dc > 0
     ds = torch.where(has, leaf_cum[torch.where(has, dleaf, 0).long()], 0)
     overflow = overflow | ovf_a | ovf_d
-    return (lx, ly, lm), torch.stack([ds, dc], dim=-1), overflow
+    out = ((lx, ly, lm), torch.stack([ds, dc], dim=-1), overflow)
+    if quarter_bits:
+        out += (dict(bits=compacted[2], com=tuple(compacted[3:5]),
+                     mass=compacted[5]),)
+    return out
 
 
 def _expand_runs_tiles(runs: torch.Tensor, k_tile: int, t_cap: int):
@@ -265,6 +318,37 @@ def _expand_runs_tiles(runs: torch.Tensor, k_tile: int, t_cap: int):
             total > t_cap)
 
 
+def _approx_table(coord_lists, lm: torch.Tensor, g_const: float,
+                  k_tile: int):
+    """Approx lists -> the evaluators' table [G, 8, A] (rows: coordinates,
+    g*m, zero rows; A padded to a multiple of k_tile) and the occupied
+    lanes per group [G] int32."""
+    dims = len(coord_lists)
+    apad = (-coord_lists[0].shape[1]) % k_tile
+    cl = [torch.nn.functional.pad(a, (0, apad)) for a in coord_lists]
+    lmp = torch.nn.functional.pad(lm, (0, apad))
+    gg, a_width = cl[0].shape
+    approx = torch.cat(
+        [torch.stack(cl + [g_const * lmp], dim=1),
+         torch.zeros((gg, 8 - dims - 1, a_width), dtype=lm.dtype,
+                     device=lm.device)],
+        dim=1,
+    )
+    return approx, (lmp > 0).sum(1).to(torch.int32)
+
+
+def _source_table(sorted_coords, sorted_gm: torch.Tensor, k_tile: int):
+    """All sorted sources transposed, [8, Ns + k_tile]: coordinates, g*m,
+    zero rows; the tail pad keeps every tile start < Ns in bounds."""
+    ns = sorted_coords[0].shape[0]
+    srct = torch.zeros((8, ns + k_tile), dtype=sorted_gm.dtype,
+                       device=sorted_gm.device)
+    for d_, c in enumerate(sorted_coords):
+        srct[d_, :ns] = c
+    srct[len(sorted_coords), :ns] = sorted_gm
+    return srct
+
+
 def _evaluate_runs(
     positions_grouped: torch.Tensor,  # [G, S, D]
     coord_lists,  # D approx coordinate arrays [G, L]
@@ -293,26 +377,9 @@ def _evaluate_runs(
     force pass.  Returns (acc [G, S, D], overflow [G])."""
     from .experiments import merge_ranges  # imports this module
 
-    dtype = positions_grouped.dtype
-    dev = positions_grouped.device
-    dims = positions_grouped.shape[-1]
-    apad = (-coord_lists[0].shape[1]) % k_tile
-    cl = [torch.nn.functional.pad(a, (0, apad)) for a in coord_lists]
-    lmp = torch.nn.functional.pad(lm, (0, apad))
-    gg, a_width = cl[0].shape
-    approx = torch.cat(
-        [torch.stack(cl + [g_const * lmp], dim=1),
-         torch.zeros((gg, 8 - dims - 1, a_width), dtype=dtype, device=dev)],
-        dim=1,
-    )  # [G, 8, A]: coordinates, g*m, zero rows
-
+    approx, a_lanes = _approx_table(coord_lists, lm, g_const, k_tile)
     merged, ovf_m = merge_ranges(ranges, cap=run_cap)
-    ns = sorted_coords[0].shape[0]
-    srct = torch.zeros((8, ns + k_tile), dtype=dtype, device=dev)
-    for d_, c in enumerate(sorted_coords):
-        srct[d_, :ns] = c
-    srct[dims, :ns] = sorted_gm
-    a_lanes = (lmp > 0).sum(1).to(torch.int32)
+    srct = _source_table(sorted_coords, sorted_gm, k_tile)
 
     if seg_pack > 1:
         counts = merged[:, :, 1]
@@ -335,6 +402,76 @@ def _evaluate_runs(
         softening=float(softening), k_tile=k_tile, seg_pack=seg_pack,
     )
     return acc, ovf_m | ovf_t
+
+
+def _evaluate_runs_split(
+    positions_grouped: torch.Tensor,  # [G, S, D]
+    coord_lists,  # D approx coordinate arrays [G, L]
+    lm: torch.Tensor,  # [G, L] approx masses (zero-padded)
+    ranges: torch.Tensor,  # [G, D_cells, 2] direct body ranges
+    quarters: dict,  # the collectors' quarter_bits payload
+    sorted_coords,  # D arrays [Ns]: all sources, Morton order
+    sorted_gm: torch.Tensor,  # [Ns]
+    *,
+    g_const: float,
+    softening: float,
+    k_tile: int,
+    run_cap: int,
+    t_cap: int,
+):
+    """Quarter-split gather-free evaluation
+    (``_evaluate_pallas_runs_split`` in the JAX package), on kernel K4.
+
+    Per quarter q of each group (i = 4g + q): the group's direct cells
+    whose theta bit q is set stay direct (the other cells' counts are
+    zeroed before the runs merge), and the rest of the group's direct
+    cells serve the quarter as plain COMs from its extension table,
+    compacted to a prefix by a stable sort on ``~use`` (gm = 0 pads).
+    Builds approx [G, 8, A], ext [4G, 8, E], tiles [4G, 3, T] and
+    lens [3, 4G] = (approx lanes repeated 4x, ext lanes, direct tiles).
+    Returns (acc [G, S, D], overflow [G])."""
+    from .experiments import merge_ranges  # imports this module
+
+    dims = positions_grouped.shape[-1]
+    approx, a_lanes = _approx_table(coord_lists, lm, g_const, k_tile)
+    gg = approx.shape[0]
+    bits = quarters["bits"]  # [G, E]
+    dc = ranges[:, :, 1]
+    e_raw = bits.shape[1]
+    gm_all = g_const * quarters["mass"]
+    ext_q, elen_q = [], []
+    for q in range(4):
+        use = (dc > 0) & (((bits >> q) & 1) == 0)
+        cols, _ = _sort_compact(
+            use, list(quarters["com"]) + [torch.where(use, gm_all, 0.0)],
+            e_raw)
+        ext_q.append(torch.cat(
+            [torch.stack(cols, dim=1),
+             torch.zeros((gg, 8 - dims - 1, e_raw), dtype=gm_all.dtype,
+                         device=gm_all.device)], dim=1))  # [G, 8, E]
+        elen_q.append(use.sum(1).to(torch.int32))
+    ext = torch.stack(ext_q, dim=1).reshape(4 * gg, 8, e_raw)
+    ext = torch.nn.functional.pad(ext, (0, (-e_raw) % k_tile))
+
+    # per-quarter direct ranges: counts zeroed where the quarter's theta
+    # passes (the cell serves it from the extension table instead)
+    qsel = ((bits[:, None, :] >> torch.arange(
+        4, dtype=torch.int32, device=bits.device)[None, :, None]) & 1) > 0
+    rq = torch.stack(
+        [ranges[:, None, :, 0].expand(gg, 4, -1),
+         torch.where(qsel, dc[:, None, :], 0)], dim=-1,
+    ).reshape(4 * gg, ranges.shape[1], 2)
+    merged, ovf_m = merge_ranges(rq, cap=run_cap)
+    tiles, n_tiles, ovf_t = _expand_runs_tiles(merged, k_tile, t_cap)
+
+    srct = _source_table(sorted_coords, sorted_gm, k_tile)
+    lens = torch.stack([a_lanes.repeat_interleave(4),
+                        torch.stack(elen_q, dim=1).reshape(-1), n_tiles])
+    acc = list_eval.list_eval_runs_split(
+        positions_grouped, approx, ext, srct, tiles, lens,
+        softening=float(softening), k_tile=k_tile,
+    )
+    return acc, (ovf_m | ovf_t).reshape(gg, 4).any(1)
 
 
 def bh_accelerations_grouped(
@@ -408,7 +545,8 @@ def grouped_eval(
     split_eval: bool | None = None,
 ):
     """Grouped evaluation of targets against a prebuilt tree, through the
-    runs evaluator (kernel K2 on CUDA, its twin on the CPU).
+    runs evaluator (kernel K2 on CUDA, its twin on the CPU), or per Morton
+    quarter (K4) where ``split_eval`` resolves on.
 
     Options that select an evaluator not yet ported raise
     ``NotImplementedError`` naming the ROADMAP kernel instead of quietly
@@ -462,25 +600,30 @@ def grouped_eval(
         # the JAX package's auto gate: on only for dcm >= 128 at >= 768K
         split_eval = (gs % 4 == 0 and gs >= 512 and n_sub % 4 == 0
                       and direct_cell_max >= 128 and ns >= 768 * 1024)
-    if split_eval:
-        raise NotImplementedError(
-            "quarter-split evaluation (kernel K4, list_eval_runs_split) is "
-            "not yet ported (ROADMAP Queue B, K4); pass split_eval=False")
+    elif split_eval and (gs % 4 or n_sub % 4):
+        raise ValueError(
+            "split_eval=True requires group_size and n_sub divisible by 4 "
+            f"(got {gs}, {n_sub})")
 
-    (lx, ly, lm), ranges, overflow_g = _collect_lists(
+    collected = _collect_lists(
         bbox, tree, theta=theta, softening=softening,
         frontier_caps=frontier_schedule(frontier_cap, tree.max_depth, ns),
         list_cap=list_cap, direct_cap=direct_cap,
-        direct_cell_max=direct_cell_max,
+        direct_cell_max=direct_cell_max, quarter_bits=split_eval,
     )
+    (lx, ly, lm), ranges, overflow_g = collected[:3]
     # the JAX package's k_tile resolution, kept for tile-table parity
     k_tile = min(eval_k_tile or 256, list_eval.runs_k_max())
     rc = run_cap or defaults["run_cap"]
-    acc, ovf_e = _evaluate_runs(
-        pg, (lx, ly), lm, ranges, (sorted_x, sorted_y), sorted_gm,
-        g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
-        t_cap=direct_body_cap // k_tile + 2 * rc,
-    )
+    kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
+              t_cap=direct_body_cap // k_tile + 2 * rc)
+    if split_eval:
+        acc, ovf_e = _evaluate_runs_split(
+            pg, (lx, ly), lm, ranges, collected[3], (sorted_x, sorted_y),
+            sorted_gm, **kw)
+    else:
+        acc, ovf_e = _evaluate_runs(
+            pg, (lx, ly), lm, ranges, (sorted_x, sorted_y), sorted_gm, **kw)
     overflow_g = overflow_g | ovf_e
 
     # un-sort: ``target_order`` is a permutation, so one scatter restores

@@ -332,10 +332,9 @@ def test_whole_3d_force_pass_matches_jax(force_ref, gate, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(collect="dense"), "A8b"), (dict(split_eval=True), "K4"),
     (dict(compensated=True), "K6"), (dict(eval_mode="grid"), "K6"),
     (dict(eval_mode="dynamic"), "K7"),
-], ids=["dense", "split", "compensated", "grid", "dynamic"])
+], ids=["compensated", "grid", "dynamic"])
 def test_unported_3d_routes_raise(kw, match):
     m, p = _cloud("uniform", 1, n=256)
     with pytest.raises(NotImplementedError, match=match):
@@ -483,10 +482,10 @@ def test_cli_run_3d_prints_timing_lines():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--collect3", "dense"], "A8b"),
-    (["--split-eval", "on"], "K4"),
-    (["--n-bodies", "262144"], "A8b"),
-], ids=["collect3-dense", "split-eval-on", "n262144-auto-dense"])
+    (["--compensated"], "K6"),
+    (["--eval-mode", "grid"], "K6"),
+    (["--eval-mode", "dynamic"], "K7"),
+], ids=["compensated", "eval-mode-grid", "eval-mode-dynamic"])
 def test_cli_3d_refusals(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["run", "--device", "cpu", "--dims", "3", "--engine",

@@ -198,8 +198,8 @@ def test_cap_calibration_matches_jax(n):
 
 @pytest.mark.parametrize("kw", [
     dict(compensated=True), dict(eval_mode="grid"),
-    dict(eval_mode="dynamic"), dict(split_eval=True),
-], ids=["compensated", "grid", "dynamic", "split"])
+    dict(eval_mode="dynamic"),
+], ids=["compensated", "grid", "dynamic"])
 def test_unported_evaluators_raise(kw):
     m, p = _cloud("uniform", 1, n=256)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -167,3 +167,115 @@ def test_grouped_bh_3d_on_card_matches_cpu(cuda):
                                           eval_k_tile=512)
     assert int(ovf.sum()) == 0
     assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
+
+
+def _split_tables(dims, seed, device):
+    """Synthetic K4 tables with ragged lens: per quarter, approx, ext and
+    direct sections each empty, partial or full; direct entries whose
+    windows leave real bodies outside [lo, hi); lens past the tables."""
+    rng = np.random.default_rng(seed)
+    g, s, a_w, e_w, ns, k = 3, 512, 700, 300, 8192, 256
+    targets = rng.uniform(-0.1, 0.1, (g, s, dims)).astype(np.float32)
+    approx = np.zeros((g, 8, a_w), np.float32)
+    approx[:, :dims] = rng.uniform(-0.1, 0.1, (g, dims, a_w))
+    approx[:, dims] = G * rng.uniform(0.1, 0.5, (g, a_w))
+    ext = np.zeros((4 * g, 8, e_w), np.float32)
+    ext[:, :dims] = rng.uniform(-0.1, 0.1, (4 * g, dims, e_w))
+    srct = np.zeros((8, ns + k), np.float32)
+    srct[:dims, :ns] = rng.uniform(-0.1, 0.1, (dims, ns))
+    srct[dims, :ns] = G * rng.uniform(0.1, 0.5, ns)
+    srct[:dims, 300] = targets[1, 7]  # excluded by d2 > 0
+    t_cap = 6
+    tiles = np.zeros((4 * g, 3, t_cap), np.int32)
+    lens = np.zeros((3, 4 * g), np.int32)
+    for i in range(4 * g):
+        lens[0, i] = (0, 123, a_w, 5 * a_w)[(i // 4) % 4]  # per group
+        lens[1, i] = (0, 1, 257, e_w, 4 * e_w)[i % 5]  # past E: clamped
+        ext[i, dims, :min(lens[1, i], e_w)] = G * rng.uniform(
+            0.1, 0.5, min(lens[1, i], e_w))
+        n_d = (0, 2, t_cap, t_cap + 3)[i % 4]  # past T: clamped
+        for j in range(min(n_d, t_cap)):
+            start = 128 * int(rng.integers(0, ns // 128))
+            lo = int(rng.integers(0, k // 2))
+            tiles[i, :, j] = (start, lo, int(rng.integers(lo, k + 1)))
+        lens[2, i] = n_d
+    return [torch.tensor(a, device=device)
+            for a in (targets, approx, ext, srct, tiles, lens)], k
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_k4_matches_twin_on_ragged_tables(cuda, dims):
+    args, k = _split_tables(dims, dims, cuda)
+    before = list_eval.SPLIT_LAUNCHES
+    got = list_eval.list_eval_runs_split(*args, softening=1e-15, k_tile=k)
+    want = list_eval.list_eval_runs_split_plain(*args, softening=1e-15,
+                                                k_tile=k)
+    torch.cuda.synchronize()
+    assert list_eval.SPLIT_LAUNCHES == before + 1
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+def _split_engine_tables(p, m, monkeypatch):
+    """The (args, kwargs) one 3D dense + split grouped-BH pass hands K4."""
+    from nbody_tpu_torch.ops import bh3d
+
+    seen = {}
+    orig = list_eval.list_eval_runs_split
+
+    def spy(*a, **kw):
+        seen["a"], seen["kw"] = a, kw
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(list_eval, "list_eval_runs_split", spy)
+    bh3d.bh3_accelerations_grouped(p, m, g=G, group_size=512,
+                                   collect="dense", split_eval=True)
+    monkeypatch.setattr(list_eval, "list_eval_runs_split", orig)
+    return seen["a"], seen["kw"]
+
+
+def test_k4_matches_twin_on_engine_tables(cuda, monkeypatch):
+    p, m = _cloud3(32768, 7, cuda)
+    a, kw = _split_engine_tables(p, m, monkeypatch)
+    assert a[2].shape[0] == 4 * a[0].shape[0]  # [4G, 8, E]
+    before = list_eval.SPLIT_LAUNCHES
+    got = list_eval.list_eval_runs_split(*a, **kw)
+    want = list_eval.list_eval_runs_split_plain(*a, **kw)
+    assert list_eval.SPLIT_LAUNCHES == before + 1
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+def test_cuda_tensors_never_reach_the_twins(cuda, monkeypatch):
+    """The split pass on the card launches K4 and never a twin; on the
+    CPU the same pass is the twins'; the two agree."""
+    from nbody_tpu_torch.ops import bh3d
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain twin")
+
+    p, m = _cloud3(8192, 8, cuda)
+    want = bh3d.bh3_accelerations_grouped(p.cpu(), m.cpu(), g=G,
+                                          group_size=512, collect="dense",
+                                          split_eval=True)
+    for name in ("list_eval_runs_plain", "list_eval_runs_split_plain"):
+        monkeypatch.setattr(list_eval, name, refuse)
+    before = list_eval.SPLIT_LAUNCHES
+    got, ovf = bh3d.bh3_accelerations_grouped(
+        p, m, g=G, group_size=512, collect="dense", split_eval=True,
+        return_diagnostics=True)
+    torch.cuda.synchronize()
+    assert list_eval.SPLIT_LAUNCHES == before + 1
+    assert int(ovf.sum()) == 0
+    assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
+
+
+def test_k4_rejects_what_it_cannot_take(cuda):
+    args, k = _split_tables(3, 0, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        list_eval.list_eval_runs_split(*args[:5], args[5].long(),
+                                       softening=0.0, k_tile=k)
+    with pytest.raises(ValueError, match="shared memory"):
+        list_eval.list_eval_runs_split(*args, softening=0.0, k_tile=1 << 15)
+    with pytest.raises(ValueError, match="4G"):
+        list_eval.list_eval_runs_split(args[0], args[1], args[2][:4],
+                                       *args[3:], softening=0.0, k_tile=k)
