@@ -10,6 +10,8 @@ Phases, each printing what it found; the first failure exits non-zero:
    source, started together, sm_90a);
 2. kernel K1 (all-pairs) against its plain PyTorch twin on the card;
    2b. K1's 3D instantiation, at N=65,536 and a ragged N;
+   2c. K5 (the potential) against its twin in 2D and 3D at N=65,536 and
+   a ragged N, and ``physics.potential_energy_scalable`` on the card;
 3. kernel K2 (grouped Barnes-Hut runs evaluation) against its twin on
    the tables of a real 2D grouped-BH state;
    3b. K2 (3D) and K3 (segment-packed) against their twins, and K3
@@ -19,6 +21,10 @@ Phases, each printing what it found; the first failure exits non-zero:
    a real 3D state at N=1,048,576 (the default route: dense collector,
    split on), and K4's 2D instantiation on a 2D state with
    ``split_eval=True``;
+   3d. K6, K6 compensated and K7 (the padded two-section list
+   evaluators) against their twins on the packed lists of a real 2D
+   state at N=40,960 and a 3D state at N=131,072, and K6 against K7
+   against the default runs route on the whole force pass;
 4. the 2D main path: ``nbody_tpu_torch.cli.main(["run", ...])`` for
    barnes_hut at N=40,960 and allpairs at N=65,536, 10 steps each;
    4b. the 3D main path below the dense band: ``run --dims 3`` for
@@ -28,7 +34,14 @@ Phases, each printing what it found; the first failure exits non-zero:
    4c. the 3D default route at scale: ``run --dims 3`` barnes_hut at
    N=262,144 (dense collector, K2 or K3) and N=1,048,576 (dense
    collector, K4), printing escaped groups, retried steps and peak
-   device memory.
+   device memory;
+   4d. the diagnostics: ``run`` barnes_hut 2D at N=40,960 with
+   ``--metrics-csv`` and ``--checkpoint-every 5`` (11 rows, K5 launched
+   11 times), 5 steps and 5 more from ``--resume`` bit-equal to the 10
+   straight steps, and ``run --dims 3`` at N=262,144 with ``--metrics-csv``;
+   4e. the padded-list evaluators on the main path: ``run`` barnes_hut
+   with ``--eval-mode grid``, ``--eval-mode dynamic`` and ``--compensated``
+   at 2D N=40,960 and 3D N=131,072 (K6 or K7 launched, K2-K4 not).
    Every run has the kernels' launch counters reset just before it and
    read just after; each run is then replayed in lockstep against the
    plain twins;
@@ -36,7 +49,16 @@ Phases, each printing what it found; the first failure exits non-zero:
    5b. the same for the 3D kernels and the 3D grouped-BH step;
    5c. K4 beside its twin and K2, the 3D step at both sizes, the gates'
    A/Bs (dense vs gather collector, split on vs off) and a
-   ``torch.profiler`` split of the 1,048,576-body step.
+   ``torch.profiler`` split of the 1,048,576-body step;
+   5d. K5, K6, K6 compensated and K7 beside their twins and K2, and one
+   3D force pass at N=1,048,576 on the dynamic route (K7) against the
+   default (K4), with peak memory.
+
+The summary gives each kernel its bound: the larger of the FP32 work
+over 67 TFLOP/s, the special-function work (rsqrt, and the reciprocal of
+an IEEE divide) over 16 per SM per clock at the SM clock ``nvidia-smi``
+reads, and the bytes each input is read and each output written once
+over 3.35 TB/s, for the pairs this run's inputs need.
 
 The line before the last is the kernel summary JSON, the last line
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA,
@@ -50,6 +72,8 @@ import contextlib
 import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -69,6 +93,36 @@ KERNEL_TOL = 1e-5
 # and the positions after the last compared step within
 # KERNEL_TOL x max|a| x dt^2 plus 4 ulp of the largest coordinate (the
 # rounding of p + v dt).
+
+
+# The card's peaks the bounds are taken against (NVIDIA's H100 SXM data
+# sheet): FP32 outside the tensor cores, HBM3 bandwidth, and the special
+# function units, 16 results per SM per clock on 132 SMs.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+SFU_PER_SM_CLOCK = 16 * 132
+# FP32 operations and special-function operations per pair, by kernel
+# family and dimension: all-pairs (K1, softening 0: D subtractions, 2D - 1
+# for d2, 3 for gm * inv_d^3, 2D for the sums; one rsqrt), the potential
+# (K5: D, 2D - 1, one product, one add; one rsqrt) and the Barnes-Hut
+# pair (K2-K4, K6, K7: D, 2D - 1, d, d + eps, d2 * (...), the divide,
+# 2D for the sums; rsqrt and the divide's reciprocal).
+PAIR_OPS = {"allpairs": (lambda d: 5 * d + 2, 1),
+            "potential": (lambda d: 3 * d + 1, 1),
+            "bh": (lambda d: 5 * d + 3, 2)}
+OUT_DIR = os.path.join("build", "chip_smoke")
+
+
+def bound(kind: str, dims: int, pairs: int, nbytes: int,
+          sm_clock_hz: float):
+    """(bound_ms, bound_by) of ``pairs`` pair evaluations moving
+    ``nbytes``: the larger of the operations' and the bytes' times."""
+    flops, sfu = PAIR_OPS[kind]
+    t_ops = max(pairs * flops(dims) / PEAK_FP32,
+                pairs * sfu / (SFU_PER_SM_CLOCK * sm_clock_hz))
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
 
 
 def fail(msg: str) -> None:
@@ -190,18 +244,18 @@ def direct_fill(args):
     return n, float(span.sum()) / max(n, 1)
 
 
-def lanes_visited(args, k_tile: int, split: bool) -> int:
+def lanes_visited(args, k_tile: int, split: bool, seg_pack: int = 1) -> int:
     """Source lanes the kernel visits per target, summed over its
-    blocks' targets: pairs evaluated, computed from the tables (K2: per
-    group, approx tiles and direct [lo, hi) lanes; K4: per quarter,
-    approx, extension and direct tiles)."""
+    blocks' targets: pairs evaluated, computed from the tables (K2/K3:
+    per group, approx tiles and direct [lo, hi) lanes of lens[1] x P
+    entries; K4: per quarter, approx, extension and direct tiles)."""
     import torch
 
     tgt, approx = args[0], args[1]
     tiles, lens = args[-2], args[-1]
     a_w, t_cap = approx.shape[2], tiles.shape[2]
     span = (tiles[:, 2] - tiles[:, 1]).clamp(min=0)  # [rows, T]
-    n_d = lens[-1].clamp(max=t_cap)
+    n_d = (lens[-1] * seg_pack).clamp(max=t_cap)
     live = torch.arange(t_cap, device=tiles.device)[None] < n_d[:, None]
     direct = (span * live).sum(1)
     approx_l = (-(-lens[0] // k_tile) * k_tile).clamp(max=a_w)
@@ -214,29 +268,87 @@ def lanes_visited(args, k_tile: int, split: bool) -> int:
     return int(total.sum()) * per_row
 
 
+def runs_bytes(args) -> int:
+    """Bytes a runs or split evaluation must move: targets and outputs
+    once, the coordinate and gm rows of its lists and source table, its
+    tile tables and lens."""
+    tgt = args[0]
+    rows = tgt.shape[2] + 1
+    lists = sum(a.shape[0] * rows * a.shape[2] for a in args[1:-3])
+    srct = rows * args[-3].shape[1]
+    return 4 * (2 * tgt.numel() + lists + srct + args[-2].numel()
+                + args[-1].numel())
+
+
+def capture_padded(positions, masses, mode: str, **kw):
+    """The (args, kwargs) of every call one grouped-BH force pass makes to
+    the K6 or K7 wrapper: ``mode`` is "grid", "dynamic" or "compensated";
+    ``kw`` goes to the engine."""
+    from nbody_tpu_torch.ops import bh3d, bh_grouped, list_eval
+
+    name = "list_eval_dynamic" if mode == "dynamic" else "list_eval_pallas"
+    kw = dict(kw, **({"compensated": True} if mode == "compensated"
+                     else {"eval_mode": mode}))
+    seen = []
+    with spying(list_eval, name, seen):
+        if positions.shape[1] == 3:
+            bh3d.bh3_accelerations_grouped(positions, masses, g=G, **kw)
+        else:
+            bh_grouped.bh_accelerations_grouped(positions, masses, g=G,
+                                                group_size=2048, **kw)
+    return seen
+
+
+def padded_work(args, kw, dynamic: bool):
+    """(pairs, bytes) of one K6/K7 call: every visited k-tile's lanes
+    (inside K) against every target, the visited lanes' coordinate and
+    gm rows, the targets and outputs once."""
+    from nbody_tpu_torch.ops import list_eval
+
+    tgt, src, lens = args
+    g, s, dims = tgt.shape
+    k = src.shape[2]
+    k_tile, n_k = list_eval.resolve_list_tiles(
+        s, k, kw["section_offset"], kw.get("k_tile", 2048))
+    lanes = 0
+    for a_n, d_n in lens.t().tolist():
+        for j in list_eval._occupied_tiles(
+                a_n, d_n, k_tile, kw["section_offset"] // k_tile, n_k,
+                dynamic):
+            lanes += min(k_tile, k - j * k_tile)
+    return lanes * s, 4 * (lanes * (dims + 1) + 2 * tgt.numel()
+                           + lens.numel())
+
+
 @contextlib.contextmanager
 def plain_twins():
     """Route the main path's kernel wrappers to their plain twins."""
     from nbody_tpu_torch.ops import allpairs, list_eval
 
-    orig = (allpairs.allpairs_accelerations_vs, list_eval.list_eval_runs,
-            list_eval.list_eval_runs_split)
+    names = ("list_eval_runs", "list_eval_runs_split", "list_eval_pallas",
+             "list_eval_dynamic")
+    orig = [allpairs.allpairs_accelerations_vs] + [
+        getattr(list_eval, n) for n in names]
     allpairs.allpairs_accelerations_vs = (
         lambda t, s, m, *, target_block, **kw:
         allpairs.allpairs_accelerations_plain(t, s, m, **kw))
-    list_eval.list_eval_runs = list_eval.list_eval_runs_plain
-    list_eval.list_eval_runs_split = list_eval.list_eval_runs_split_plain
+    for n in names:
+        setattr(list_eval, n, getattr(list_eval, f"{n}_plain"))
     try:
         yield
     finally:
-        (allpairs.allpairs_accelerations_vs, list_eval.list_eval_runs,
-         list_eval.list_eval_runs_split) = orig
+        allpairs.allpairs_accelerations_vs = orig[0]
+        for n, fn in zip(names, orig[1:]):
+            setattr(list_eval, n, fn)
 
 
 COUNTERS = (("k1", "allpairs", "KERNEL_LAUNCHES"),
             ("k2", "list_eval", "KERNEL_LAUNCHES"),
             ("k3", "list_eval", "PACKED_LAUNCHES"),
             ("k4", "list_eval", "SPLIT_LAUNCHES"),
+            ("k5", "allpairs", "POTENTIAL_LAUNCHES"),
+            ("k6", "list_eval", "GRID_LAUNCHES"),
+            ("k7", "list_eval", "DYNAMIC_LAUNCHES"),
             ("dense", "collect_dense3", "DENSE_PASSES"),
             ("escaped", "collect_dense3", "ESCAPED_GROUPS"),
             ("spills", "collect_dense3", "SPILL_PASSES"))
@@ -257,11 +369,12 @@ def read_counts() -> dict:
         f"nbody_tpu_torch.ops.{mod}"), name) for key, mod, name in COUNTERS}
 
 
-def main_path_run(engine: str, n: int, dims: int, steps: int):
-    """One ``run`` through the CLI with the counters reset just before
-    and read just after; returns (final positions, launch counts).  The
-    counts also carry the steps retried at 4x caps and the peak device
-    memory of the run."""
+def main_path_run(engine: str, n: int, dims: int, steps: int,
+                  flags=()):
+    """One ``run`` through the CLI (``flags`` appended) with the counters
+    reset just before and read just after; returns (final positions,
+    launch counts).  The counts also carry the steps retried at 4x caps
+    and the peak device memory of the run."""
     import torch
 
     from nbody_tpu_torch import cli
@@ -272,7 +385,7 @@ def main_path_run(engine: str, n: int, dims: int, steps: int):
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(["run", "--device", "cuda", "--dims", str(dims),
                        "--engine", engine, "--n-bodies", str(n),
-                       "--steps", str(steps)])
+                       "--steps", str(steps), *flags])
     counts = read_counts()
     counts["retried"] = err.getvalue().count("retrying with 4x caps")
     counts["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -281,7 +394,7 @@ def main_path_run(engine: str, n: int, dims: int, steps: int):
     if err.getvalue().strip():
         print(err.getvalue().strip())
     state = cli.last_simulation.state
-    tag = f"{dims}D {engine} N={n}"
+    tag = f"{dims}D {engine} N={n}{' ' if flags else ''}{' '.join(flags)}"
     if rc != 0:
         fail(f"run {tag} exited {rc}")
     if "GPU total computation took" not in text or (
@@ -293,7 +406,8 @@ def main_path_run(engine: str, n: int, dims: int, steps: int):
         fail(f"run {tag}: non-finite positions")
     print(f"  {tag}: {steps} steps, overflow 0, positions finite; kernel "
           f"launches K1 {counts['k1']}, K2 {counts['k2']}, K3 "
-          f"{counts['k3']}, K4 {counts['k4']}; dense collector passes "
+          f"{counts['k3']}, K4 {counts['k4']}, K5 {counts['k5']}, K6 "
+          f"{counts['k6']}, K7 {counts['k7']}; dense collector passes "
           f"{counts['dense']}, escaped groups {counts['escaped']} (spill "
           f"passes {counts['spills']}); steps retried at 4x caps "
           f"{counts['retried']}; peak device memory "
@@ -302,12 +416,12 @@ def main_path_run(engine: str, n: int, dims: int, steps: int):
 
 
 def lockstep(engine: str, n: int, dims: int, steps: int, twin_steps: int,
-             final, device) -> None:
+             final, device, **over) -> None:
     """Replay a main-path run as ``run_contract`` steps it (a step whose
     caps overflow is recomputed with every cap at 4x, through the gather
     walk): every step through the kernels, the first ``twin_steps`` also
     through the twins; the replay must end at the CLI run's positions bit
-    for bit."""
+    for bit.  ``over`` sets config fields the run's flags set."""
     import torch
 
     from nbody_tpu_torch.config import SimConfig
@@ -315,7 +429,8 @@ def lockstep(engine: str, n: int, dims: int, steps: int, twin_steps: int,
     from nbody_tpu_torch.physics import integrate
     from nbody_tpu_torch.rng import random_state
 
-    cfg = SimConfig(n_bodies=n, n_dim=dims, n_steps=steps, engine=engine)
+    cfg = SimConfig(n_bodies=n, n_dim=dims, n_steps=steps, engine=engine,
+                    **over)
     accel = make_accel_fn(cfg, return_diagnostics=True)
     accel4 = None
     state = random_state(cfg, device=device)
@@ -354,7 +469,8 @@ def lockstep(engine: str, n: int, dims: int, steps: int, twin_steps: int,
     if not torch.equal(state.positions, final):
         fail(f"{dims}D {engine}: replaying the run did not reproduce the CLI "
              "run's final positions bit for bit")
-    print(f"  {dims}D {engine} N={n}: {twin_steps} lockstep force passes "
+    print(f"  {dims}D {engine} N={n} {over or ''}: {twin_steps} lockstep "
+          "force passes "
           f"within {worst:.3e} x max|a| (bound {KERNEL_TOL:g}); positions "
           f"after step {twin_steps - 1} kernels vs twins {d:.3e} (bound "
           f"{bound:.3e}); the {steps}-step replay ({retries} steps retried "
@@ -395,7 +511,8 @@ def main() -> int:
     from nbody_tpu_torch.models.engines import make_accel_fn
     from nbody_tpu_torch.physics import integrate
     from nbody_tpu_torch.rng import random_state
-    from nbody_tpu_torch.ops import _cuda, allpairs, bh_grouped, list_eval
+    from nbody_tpu_torch.ops import (_cuda, allpairs, bh3d, bh_grouped,
+                                     list_eval)
     from nbody_tpu_torch.utils.occupancy import resolve_tiles
 
     dev = torch.device("cuda", 0)
@@ -410,7 +527,18 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else (
         "nvidia-smi unavailable")
     kind = torch.cuda.get_device_name(0)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    try:
+        sm_clock_hz = float(clk.stdout.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no SM clock: {clk.stdout!r} {clk.stderr!r}")
     print(f"phase 0: card: {card}", flush=True)
+    print(f"phase 0: max SM clock {sm_clock_hz / 1e6:.0f} MHz (the "
+          "special-function units' rate in the bounds)", flush=True)
     print(f"phase 0: torch {torch.__version__} CUDA {torch.version.cuda} "
           f"device {kind}, count {torch.cuda.device_count()}", flush=True)
 
@@ -443,6 +571,31 @@ def main() -> int:
             e = compare(f"{dims}D N={n} eps={soft:g} compensated={comp}",
                         got, want)
             err.setdefault(f"k1_{dims}d", e)  # the main path's shape
+
+    # -- phase 2c: K5 against its twin, and the potential energy ---------
+    from nbody_tpu_torch import physics
+    from nbody_tpu_torch.state import make_state
+
+    print("phase 2c: K5 (potential) vs plain twin; bound 1e-5 x max|phi|",
+          flush=True)
+    for dims in (2, 3):
+        for n in (65536, 40000):
+            p, m = cloud(n, seed=31 + n + dims, device=dev, dims=dims)
+            got = allpairs.allpairs_potential(p, m, g=G)
+            want = allpairs.allpairs_potential_plain(p, m, g=G)
+            torch.cuda.synchronize()
+            e = compare(f"K5 {dims}D N={n}", got, want)
+            err.setdefault(f"k5_{dims}d", e)
+            if n == 65536:
+                st = make_state(m, p, torch.zeros_like(p), device=dev)
+                pe = float(physics.potential_energy_scalable(st, G))
+                pe_t = float(0.5 * (m * want).sum())
+                rel = abs(pe - pe_t) / abs(pe_t)
+                print(f"  potential_energy_scalable {dims}D N={n} on the "
+                      f"card {pe:.9e}, twin's {pe_t:.9e}: relative "
+                      f"{rel:.2e} (bound 1e-05)", flush=True)
+                if not rel <= 1e-5:
+                    fail("potential_energy_scalable disagrees with K5's twin")
 
     # -- phase 3: K2 against its twin on real 2D tables -------------------
     print("phase 3: K2 (runs evaluation, 2D) vs plain twin, grouped BH "
@@ -505,6 +658,44 @@ def main() -> int:
         list_eval.list_eval_runs_split(*a42, **kw42),
         list_eval.list_eval_runs_split_plain(*a42, **kw42))
 
+    # -- phase 3d: K6, K6 compensated and K7 on real packed lists ---------
+    print("phase 3d: K6, K6 compensated and K7 (padded two-section lists) "
+          "vs plain twins, 2D N=40960 (group 2048) and 3D N=131072",
+          flush=True)
+    padded = {}  # (dims, mode) -> [(args, kwargs)] of the force pass
+    pads = {2: random_state(SimConfig(n_bodies=40960), device=dev),
+            3: random_state(SimConfig(n_bodies=n3, n_dim=3), device=dev)}
+    names = {"grid": "k6", "compensated": "k6c", "dynamic": "k7"}
+    for dims, st in pads.items():
+        accs = {}
+        for mode, key in names.items():
+            calls = capture_padded(st.positions, st.masses, mode)
+            padded[(dims, mode)] = calls
+            args, kw = calls[0]
+            wrap = (list_eval.list_eval_dynamic if mode == "dynamic"
+                    else list_eval.list_eval_pallas)
+            twin = (list_eval.list_eval_dynamic_plain if mode == "dynamic"
+                    else list_eval.list_eval_pallas_plain)
+            err[f"{key}_{dims}d"] = compare(
+                f"{key.upper()} {dims}D N={st.masses.shape[0]}, packed "
+                f"{tuple(args[1].shape)}, section offset "
+                f"{kw['section_offset']}, {len(calls)} call(s)",
+                wrap(*args, **kw), twin(*args, **kw))
+            if mode != "compensated":
+                fn = (bh3d.bh3_accelerations_grouped if dims == 3 else
+                      bh_grouped.bh_accelerations_grouped)
+                accs[mode] = fn(st.positions, st.masses, g=G,
+                                eval_mode=mode)
+        fn = (bh3d.bh3_accelerations_grouped if dims == 3 else
+              bh_grouped.bh_accelerations_grouped)
+        accs["runs"] = fn(st.positions, st.masses, g=G)
+        compare(f"whole {dims}D pass: K6 route against the runs route",
+                accs["grid"], accs["runs"])
+        compare(f"whole {dims}D pass: K7 route against the runs route",
+                accs["dynamic"], accs["runs"])
+        compare(f"whole {dims}D pass: K6 route against the K7 route",
+                accs["grid"], accs["dynamic"])
+
     # -- phase 4: the 2D main path ------------------------------------------
     print("phase 4: 2D main path through nbody_tpu_torch.cli.main",
           flush=True)
@@ -562,10 +753,89 @@ def main() -> int:
         lockstep("barnes_hut", n, 3, steps, 2, finals3[("barnes_hut", n)],
                  dev)
 
+    # -- phase 4d: the diagnostics on the main path -------------------------
+    print("phase 4d: metrics CSV (K5), checkpoints and --resume through "
+          "nbody_tpu_torch.cli.main", flush=True)
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    more = {}  # launch counts of the runs of phases 4d and 4e
+
+    def check_csv(path, rows, tag):
+        import csv
+
+        with open(path, newline="") as f:
+            got = list(csv.DictReader(f))
+        bad = [r["step"] for r in got if not all(
+            math.isfinite(float(r[k])) for k in (
+                "kinetic_energy", "potential_energy", "total_energy",
+                "momentum_x", "momentum_y"))
+            or not int(r["tree_nodes"]) > 1 or not int(r["tree_max_depth"])]
+        if len(got) != rows or bad:
+            fail(f"{tag}: metrics CSV has {len(got)} rows (want {rows}); "
+                 f"rows with a non-finite value or an empty tree column: "
+                 f"{bad}")
+        print(f"  {tag}: {rows} rows, finite energies and momenta, tree "
+              f"columns filled; total energy step 0 "
+              f"{float(got[0]['total_energy']):.9e}, step {rows - 1} "
+              f"{float(got[-1]['total_energy']):.9e}; tree nodes "
+              f"{got[0]['tree_nodes']} -> {got[-1]['tree_nodes']}",
+              flush=True)
+
+    d = {k: os.path.join(OUT_DIR, k) for k in ("m10", "c5", "r5", "m3d")}
+    fin10, more["metrics_2d"] = main_path_run(
+        "barnes_hut", 40960, 2, 10,
+        ["--metrics-csv", "m.csv", "--checkpoint-every", "5",
+         "--output-dir", d["m10"]])
+    check_csv(os.path.join(d["m10"], "m.csv"), 11, "2D N=40960 10 steps")
+    if more["metrics_2d"]["k5"] != 11:
+        fail(f"K5 launched {more['metrics_2d']['k5']} times in the 2D "
+             "metrics run (11 recorded steps)")
+    if not torch.equal(fin10, finals["barnes_hut"]):
+        fail("recording metrics changed the 2D run's final positions")
+    fin5, _ = main_path_run("barnes_hut", 40960, 2, 5,
+                            ["--checkpoint-every", "5", "--output-dir",
+                             d["c5"]])
+    finr, _ = main_path_run(
+        "barnes_hut", 40960, 2, 5,
+        ["--resume", os.path.join(d["c5"], "checkpoint.npz"),
+         "--output-dir", d["r5"]])
+    if not torch.equal(finr, fin10):
+        fail("5 steps + 5 resumed steps differ from 10 straight steps")
+    print("  5 steps, checkpoint, 5 resumed steps: final positions bit-equal "
+          "to the 10 straight steps (and to phase 4's run without metrics) "
+          "-> ok", flush=True)
+    fin3m, more["metrics_3d"] = main_path_run(
+        "barnes_hut", 262144, 3, 10,
+        ["--metrics-csv", "m.csv", "--output-dir", d["m3d"]])
+    check_csv(os.path.join(d["m3d"], "m.csv"), 11, "3D N=262144 10 steps")
+    if more["metrics_3d"]["k5"] != 11:
+        fail(f"K5 launched {more['metrics_3d']['k5']} times in the 3D "
+             "metrics run")
+    if not torch.equal(fin3m, finals3[("barnes_hut", 262144)]):
+        fail("recording metrics changed the 3D run's final positions")
+
+    # -- phase 4e: the padded-list evaluators on the main path -------------
+    print("phase 4e: --eval-mode grid / dynamic and --compensated through "
+          "nbody_tpu_torch.cli.main", flush=True)
+    modes4e = {"grid": (["--eval-mode", "grid"], {"eval_mode": "grid"}),
+               "dynamic": (["--eval-mode", "dynamic"],
+                           {"eval_mode": "dynamic"}),
+               "compensated": (["--compensated"], {"compensated": True})}
+    for dims, n, twin_steps in ((2, 40960, 3), (3, n3, 2)):
+        for mode, (flags, over) in modes4e.items():
+            fin, c = main_path_run("barnes_hut", n, dims, 10, flags)
+            more[(dims, mode)] = c
+            want = "k7" if mode == "dynamic" else "k6"
+            if c[want] <= 0 or c["k2"] + c["k3"] + c["k4"] + c[
+                    "k7" if want == "k6" else "k6"] != 0:
+                fail(f"{dims}D {mode} run launched {c}: want {want.upper()} "
+                     "only")
+            lockstep("barnes_hut", n, dims, 10, twin_steps, fin, dev, **over)
+
     # -- phase 5: times on the card -------------------------------------------
     print(f"phase 5: times on {card} (CUDA events, mean of reps after a "
           "warm-up)", flush=True)
     ms = {}
+    tables = {}  # the (args, kwargs) each timed runs kernel took
     for dims in (2, 3):
         n = 65536
         p, m = cloud(n, seed=11 + dims, device=dev, dims=dims)
@@ -602,6 +872,7 @@ def main() -> int:
               f"[{card}]", flush=True)
         if n == 40960:
             ms["k2_2d"] = (kern, plain)
+            tables["k2_2d"] = (a, kw)
 
     # -- phase 5b: 3D times ----------------------------------------------------
     for n in dict.fromkeys((n3, nk3)):
@@ -641,6 +912,7 @@ def main() -> int:
               f"  [{card}]", flush=True)
         if n == n3:
             ms["k3_3d"], ms["k2_3d"] = t["k3"], t["k2"]
+            tables["k3_3d"], tables["k2_3d"] = pk, kk
     # -- phase 5c: K4, the 3D step at scale, the gates, the profile --------
     print(f"phase 5c: K4 and the 3D default route at scale on {card}",
           flush=True)
@@ -744,15 +1016,85 @@ def main() -> int:
     else:
         print("  profiler: no device time recorded; the CUDA-event split "
               "above stands alone", flush=True)
+
+    # -- phase 5d: K5, K6, K7 and the 1M dynamic route ----------------------
+    print(f"phase 5d: K5, K6, K6 compensated and K7 on {card}", flush=True)
+    work = {}  # key -> (pair family, dims, pairs, bytes)
+    for dims in (2, 3):
+        n = 65536
+        p, m = cloud(n, seed=41 + dims, device=dev, dims=dims)
+        k = cuda_ms(lambda: allpairs.allpairs_potential(p, m, g=G), reps=10)
+        plain = cuda_ms(lambda: allpairs.allpairs_potential_plain(p, m, g=G),
+                        reps=2)
+        ms[f"k5_{dims}d"] = (k, plain)
+        work[f"k5_{dims}d"] = ("potential", dims, n * n,
+                               4 * (n * (dims + 1) + n))
+        print(f"  K5 {dims}D N={n}: kernel {k:.3f} ms = "
+              f"{n * n / k / 1e6:.1f} Gpairs/s; plain twin {plain:.3f} ms"
+              f"  [{card}]", flush=True)
+    for dims, st in pads.items():
+        a_r, kw_r, _ = capture_tables(st.positions, st.masses)
+        k2 = cuda_ms(lambda: list_eval.list_eval_runs(*a_r, **kw_r), reps=10)
+        name_r = "K3" if kw_r["seg_pack"] > 1 else "K2"
+        pairs_r = lanes_visited(a_r, kw_r["k_tile"], False, kw_r["seg_pack"])
+        print(f"  {dims}D N={st.masses.shape[0]}: {name_r} (the runs route) "
+              f"{k2:.3f} ms for {pairs_r / 1e9:.3f} G pairs  [{card}]",
+              flush=True)
+        for mode, key in names.items():
+            calls = padded[(dims, mode)]
+            dyn = mode == "dynamic"
+            wrap = (list_eval.list_eval_dynamic if dyn
+                    else list_eval.list_eval_pallas)
+            twin = (list_eval.list_eval_dynamic_plain if dyn
+                    else list_eval.list_eval_pallas_plain)
+            k = cuda_ms(lambda: [wrap(*a, **kw) for a, kw in calls], reps=10)
+            plain = cuda_ms(lambda: [twin(*a, **kw) for a, kw in calls],
+                            reps=1)
+            pairs = nbytes = 0
+            for a, kw in calls:
+                pp, bb = padded_work(a, kw, dyn)
+                pairs, nbytes = pairs + pp, nbytes + bb
+            ms[f"{key}_{dims}d"] = (k, plain)
+            work[f"{key}_{dims}d"] = ("bh", dims, pairs, nbytes)
+            print(f"  {key.upper()} {dims}D: kernel {k:.3f} ms for "
+                  f"{pairs / 1e9:.3f} G pairs = {pairs / k / 1e6:.1f} "
+                  f"Gpairs/s ({k / k2:.2f}x {name_r}); plain twin "
+                  f"{plain:.3f} ms  [{card}]", flush=True)
+    dyn1m, base1m = step_fn(n1m, eval_mode="dynamic"), step_fn(n1m)
+    t = [cuda_ms(f, reps=2) for f in (base1m, dyn1m, dyn1m, base1m)]
+    peak = {}
+    for name, f in (("default", base1m), ("dynamic", dyn1m)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        f()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  3D step N={n1m}: default route (dense collector, K4) "
+          f"{t[0]:.2f} / {t[3]:.2f} ms, --eval-mode dynamic (K7, 64-group "
+          f"chunks) {t[1]:.2f} / {t[2]:.2f} ms (default first and last); "
+          f"peak device memory {peak['default']:.2f} / {peak['dynamic']:.2f}"
+          f" GiB  [{card}]", flush=True)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    # bounds of the earlier kernels, from the tables they were timed on
+    for key, dims in (("k1_2d", 2), ("k1_3d", 3)):
+        n = 65536
+        work[key] = ("allpairs", dims, n * n, 4 * n * (2 * dims + 1))
+    for key, split in (("k2_2d", False), ("k2_3d", False),
+                       ("k3_3d", False), ("k4_3d", True)):
+        a, kw = tables[key] if key != "k4_3d" else (a4, kw4)
+        work[key] = ("bh", a[0].shape[2], lanes_visited(
+            a, kw["k_tile"], split, kw.get("seg_pack", 1)), runs_bytes(a))
+
     def entry(name, source, replaces, key, n_launch, dims):
+        b_ms, b_by = bound(*work[key], sm_clock_hz)
         return {"name": name, "route": "cuda",
                 "source": f"nbody_tpu_torch/csrc/{source}",
                 "replaces": replaces, "dims": dims, "launches": n_launch,
                 "max_abs_err": err[key], "ms": ms[key][0],
-                "plain_ms": ms[key][1]}
+                "plain_ms": ms[key][1], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
 
     ap, le = "nbody_tpu/ops/allpairs.py:49", "nbody_tpu/ops/list_eval.py:333"
     k4 = entry("runs_eval_k4_3d", "runs_eval.cu",
@@ -774,6 +1116,23 @@ def main() -> int:
                   if d_ == 3 and e_ == "barnes_hut"), 3),
         k4,
     ]}
+    pot, grid, dyn = ("nbody_tpu/ops/allpairs.py:288",
+                      "nbody_tpu/ops/list_eval.py:55",
+                      "nbody_tpu/ops/list_eval.py:136")
+    for dims, sfx in ((2, ""), (3, "_3d")):
+        n_pad = 40960 if dims == 2 else n3
+        summary["kernels"] += [
+            entry(f"potential_k5{sfx}", "allpairs.cu", pot, f"k5_{dims}d",
+                  more[f"metrics_{dims}d"]["k5"], dims),
+            entry(f"list_eval_k6{sfx}", "list_eval.cu", grid, f"k6_{dims}d",
+                  more[(dims, "grid")]["k6"], dims),
+            entry(f"list_eval_k6_compensated{sfx}", "list_eval.cu", grid,
+                  f"k6c_{dims}d", more[(dims, "compensated")]["k6"], dims),
+            entry(f"list_eval_k7{sfx}", "list_eval.cu", dyn, f"k7_{dims}d",
+                  more[(dims, "dynamic")]["k7"], dims),
+        ]
+        for e in summary["kernels"][-3:]:
+            e["n_bodies"] = n_pad
     print(f"card: {card}")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

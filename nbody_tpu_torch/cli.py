@@ -42,8 +42,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--precision", choices=["float32", "float64", "bfloat16"],
                    default="float32")
     p.add_argument("--compensated", action="store_true",
-                   help="Kahan-compensated accumulation in the all-pairs "
-                        "kernel (Barnes-Hut: not ported yet)")
+                   help="Kahan-compensated accumulation: in the all-pairs "
+                        "kernel (K1), and for barnes_hut in the grid list "
+                        "evaluator (K6, which it forces)")
     p.add_argument("--target-block", type=int, default=None,
                    help="all-pairs threads per block (default: "
                         "utils.occupancy)")
@@ -57,10 +58,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "schedule from measured demand)")
     p.add_argument("--eval-mode", choices=["grid", "dynamic", "runs"],
                    default=None,
-                   help="grouped-BH list evaluator (only runs is ported)")
+                   help="grouped-BH list evaluator: runs (default; K2/K3, "
+                        "K4 when split), grid (padded lists, K6) or dynamic "
+                        "(padded lists, occupied tiles only, K7)")
     p.add_argument("--eval-k-tile", type=int, default=None,
-                   help="list-evaluator k-tile width (default 256 in 2D, "
-                        "512 in 3D)")
+                   help="list-evaluator k-tile width (runs: default 256 "
+                        "in 2D, 512 in 3D; dynamic: default 2048; grid "
+                        "always takes 2048)")
     p.add_argument("--run-cap", type=int, default=None,
                    help="merged Morton runs per group (default 256 in "
                         "2D, N-derived in 3D)")
@@ -89,17 +93,23 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="quadtree dumps (not ported yet)")
     p.add_argument("--output-dir", default=".")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="not ported yet")
+                   help="write OUTPUT_DIR/checkpoint.npz every K steps "
+                        "(0: never)")
     p.add_argument("--metrics-csv", default=None, metavar="FILE",
-                   help="not ported yet")
-    p.add_argument("--no-metrics-tree", action="store_true")
+                   help="per-step energies, momentum and tree statistics "
+                        "to OUTPUT_DIR/FILE (step 0 included; the potential "
+                        "runs on kernel K5 above 4,096 bodies)")
+    p.add_argument("--no-metrics-tree", action="store_true",
+                   help="skip the per-step tree statistics in the metrics "
+                        "CSV (one tree build per recorded step)")
     p.add_argument("--check-overflow", action="store_true",
                    help="barnes_hut: one diagnostic force pass before the "
                         "run, warning if any traversal/list cap overflowed")
     p.add_argument("--fused", action="store_true",
                    help="whole loop as one program (not ported yet)")
     p.add_argument("--resume", metavar="NPZ", default=None,
-                   help="resume from a checkpoint (not ported yet)")
+                   help="resume from a checkpoint file (takes precedence "
+                        "over --load-init)")
     p.add_argument("--devices", type=int, default=1,
                    help="number of devices (only 1 is ported)")
     p.add_argument(
@@ -127,14 +137,6 @@ _UNPORTED = (
     ("--devices > 1", lambda a: a.devices > 1, "A11"),
     ("--fused", lambda a: a.fused, "A3"),
     ("--save-tree-dumps", lambda a: a.save_tree_dumps, "A6"),
-    ("--metrics-csv", lambda a: a.metrics_csv, "A10"),
-    ("--checkpoint-every", lambda a: a.checkpoint_every, "A10"),
-    ("--resume", lambda a: a.resume, "A10"),
-    ("--compensated with --engine barnes_hut",
-     lambda a: a.compensated and a.engine == "barnes_hut", "Queue B, K6"),
-    ("--eval-mode grid", lambda a: a.eval_mode == "grid", "Queue B, K6"),
-    ("--eval-mode dynamic", lambda a: a.eval_mode == "dynamic",
-     "Queue B, K7"),
 )
 
 
@@ -190,6 +192,11 @@ def _make_state(args, config):
     from .rng import random_state
     from .state import make_state
 
+    if args.resume:
+        from .utils.checkpoint import load_checkpoint
+
+        return load_checkpoint(args.resume, dtype=config.torch_dtype(),
+                               device=args.device)
     if args.load_init:
         from .utils.textio import load_init_triplet
 

@@ -1,4 +1,5 @@
-// All-pairs gravity on Hopper (sm_90a), kernel K1 of the port.
+// All-pairs gravity on Hopper (sm_90a): kernels K1 (accelerations) and K5
+// (potential) of the port.
 //
 // Replaces the TPU kernel nbody_tpu/ops/allpairs.py::_allpairs_kernel
 // (entered through allpairs_accelerations_vs / allpairs_accelerations),
@@ -26,6 +27,15 @@
 // running sum (or Kahan-chained), mirroring the TPU kernel's per-tile
 // lane reduction.  No atomics: each thread owns its target's sum, so the
 // result is deterministic.
+//
+// K5 (potential_kernel) replaces nbody_tpu/ops/allpairs.py::_potential_kernel
+// (entered through allpairs_potential, the metrics CSV's potential energy
+// at N > 4096), for DIMS = 2 and 3: phi_i = sum_j -gm_j / d_ij, unsoftened,
+// under (d2 > 0) & (gm > 0).  Bound like K1 by arithmetic: ~7 FP32
+// instructions (2D; 2 more in 3D) and one SFU rsqrtf per pair, and the SFU's
+// 16 rsqrt per SM per clock set the floor; bytes are N * 16 B staged once
+// per block.  Design: K1's loop, one thread per target, one float4 source
+// tile in shared memory, per-tile partial sums added to the running sum.
 
 #include <cuda_runtime.h>
 
@@ -142,7 +152,86 @@ cudaError_t dispatch(const float* tgt, int nt, const float* src, int ns,
       : launch<DIMS, false, false>(tgt, nt, src, ns, 0.f, threads, tile, out, s);
 }
 
+// K5: phi_i = sum_j -gm_j * rsqrt(d2_ij) under (d2 > 0) & (gm > 0),
+// unsoftened.  The same staging as K1; the per-tile partial is added to
+// the running sum, as the TPU kernel adds each source tile's lane sum.
+// A thread past nt holds the far sentinel the TPU wrapper pads targets
+// with (its result is never written); sources past ns are never staged,
+// which is what the sentinel's gm = 0 padding gives on the TPU.
+template <int DIMS>
+__global__ void potential_kernel(const float* __restrict__ tgt,  // [nt, DIMS]
+                                 const int nt,
+                                 const float* __restrict__ src,  // [DIMS+1, ns]
+                                 const int ns, const int tile,
+                                 float* __restrict__ out) {  // [nt]
+  extern __shared__ float4 stile[];
+  const float kPadSentinel = 1e15f;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < nt;
+  const float px = live ? tgt[DIMS * i] : kPadSentinel;
+  const float py = live ? tgt[DIMS * i + 1] : kPadSentinel;
+  const float pz = DIMS == 3 ? (live ? tgt[DIMS * i + 2] : kPadSentinel) : 0.f;
+  float phi = 0.f;
+  for (int base = 0; base < ns; base += tile) {
+    const int cnt = min(tile, ns - base);
+    for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
+      stile[j] = make_float4(src[base + j], src[ns + base + j],
+                             DIMS == 3 ? src[2 * ns + base + j] : 0.f,
+                             src[DIMS * ns + base + j]);
+    }
+    __syncthreads();
+    float t = 0.f;
+    for (int j = 0; j < cnt; ++j) {
+      const float4 s = stile[j];
+      const float dx = s.x - px;
+      const float dy = s.y - py;
+      const float dz = s.z - pz;
+      float d2 = dx * dx + dy * dy;
+      if (DIMS == 3) d2 += dz * dz;
+      const float v = -s.w * rsqrtf(d2);
+      t += (d2 > 0.f && s.w > 0.f) ? v : 0.f;
+    }
+    phi += t;
+    __syncthreads();
+  }
+  if (live) out[i] = phi;
+}
+
+template <int DIMS>
+cudaError_t launch_potential(const float* tgt, int nt, const float* src,
+                             int ns, int threads, int tile, float* out,
+                             cudaStream_t stream) {
+  const size_t smem = sizeof(float4) * static_cast<size_t>(tile);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        potential_kernel<DIMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (nt + threads - 1) / threads;
+  potential_kernel<DIMS><<<blocks, threads, smem, stream>>>(tgt, nt, src, ns,
+                                                            tile, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int nbody_allpairs_potential(const float* tgt, int nt,
+                                        const float* src, int ns, float* out,
+                                        int threads, int tile, int dims,
+                                        void* stream) {
+  if (nt == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dims == 3) {
+    e = launch_potential<3>(tgt, nt, src, ns, threads, tile, out, s);
+  } else if (dims == 2) {
+    e = launch_potential<2>(tgt, nt, src, ns, threads, tile, out, s);
+  } else {
+    e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
+}
 
 extern "C" int nbody_allpairs_accel(const float* tgt, int nt,
                                     const float* src, int ns, float* out,

@@ -64,21 +64,12 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_eval.cuh"
+
 namespace {
 
-// Stage lanes [lo, hi) of the window at column c0 of a [DIMS + 1, pitch]
-// row-major list (coordinates, then gm) into dst[lo, hi).
-template <int DIMS>
-__device__ __forceinline__ void stage(float4* dst, const float* src,
-                                      long long pitch, long long c0, int lo,
-                                      int hi) {
-  for (int j = lo + static_cast<int>(threadIdx.x); j < hi; j += blockDim.x) {
-    const long long c = c0 + j;
-    dst[j] = make_float4(src[c], src[pitch + c],
-                         DIMS == 3 ? src[2 * pitch + c] : 0.f,
-                         src[DIMS * pitch + c]);
-  }
-}
+using nbody::pair_window;
+using nbody::stage;
 
 // Direct entry e of one table row tb [3, T]: its start and its [lo, hi)
 // lanes within a window of sw, clipped to the source table (npad).
@@ -95,30 +86,6 @@ __device__ __forceinline__ void direct_entry(const int* tb, int T, int e,
     if (h_ll > npad - *start) h_ll = npad - *start;  // table tail
     *hi = static_cast<int>(h_ll);
     *lo = max(tb[T + e], 0);
-  }
-}
-
-// The pair force of staged lanes [lo, hi) on the target (px, py, pz),
-// added to (tx, ty, tz).
-template <int DIMS>
-__device__ __forceinline__ void pair_window(const float4* stile, int lo,
-                                            int hi, float px, float py,
-                                            float pz, float eps, float* tx,
-                                            float* ty, float* tz) {
-  for (int j = lo; j < hi; ++j) {
-    const float4 s = stile[j];
-    const float dx = s.x - px;
-    const float dy = s.y - py;
-    const float dz = s.z - pz;
-    float d2 = dx * dx + dy * dy;
-    if (DIMS == 3) d2 += dz * dz;
-    const float inv_d = rsqrtf(d2);
-    const float dist = d2 * inv_d;
-    float w = s.w / (d2 * (dist + eps));
-    w = (d2 > 0.f && s.w > 0.f) ? w : 0.f;
-    *tx += w * dx;
-    *ty += w * dy;
-    if (DIMS == 3) *tz += w * dz;
   }
 }
 

@@ -1,6 +1,7 @@
 """Force engines: naive dense, all-pairs (kernel K1), grouped Barnes-Hut
 in 2D (kernel K2, or K4 with quarter-split evaluation) and 3D (kernels
-K2 and K3, or K4) — counterpart of
+K2 and K3, or K4), each with the padded-list evaluators K6 (grid,
+compensated) and K7 (dynamic) on request — counterpart of
 ``nbody_tpu.models.engines``.
 
 Every engine is an acceleration function of one signature:

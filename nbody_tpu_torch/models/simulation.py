@@ -6,12 +6,15 @@
 "parallel" stopwatch and the whole loop in the total timer
 (project.cu:985-1007, 1083-1102), surfaces per-step cap overflow from
 ``state.overflow`` and, for Barnes-Hut, retries an overflowed step with
-every cap at 4x.  The port runs eagerly: CUDA launches are asynchronous,
-so each stopwatch bracket ends in ``torch.cuda.synchronize()``.
+every cap at 4x.  With ``metrics_csv`` it records one metrics row for
+step 0 before the total clock starts and one after every step inside the
+total timer but outside the parallel stopwatch; with ``checkpoint_every``
+it writes a checkpoint every that many steps.  The port runs eagerly:
+CUDA launches are asynchronous, so each stopwatch bracket ends in
+``torch.cuda.synchronize()``.
 
 Not ported yet (the constructor raises): the fused ``lax.scan`` runs
-(ROADMAP A3), quadtree dumps (A6), the metrics CSV and checkpoints (A10)
-and multi-device steps (A11).
+(ROADMAP A3), quadtree dumps (A6) and multi-device steps (A11).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from ..config import SimConfig
 from ..physics import integrate
 from ..rng import random_state
 from ..state import SimState
+from ..utils.checkpoint import save_checkpoint
+from ..utils.metrics import MetricsWriter, tree_stats, tree_stats_3d
 from ..utils.textio import PositionsWriter
 from ..utils.timing import RunTiming, Stopwatch
 from .engines import make_accel_fn, resolved_caps
@@ -37,10 +42,6 @@ def _unported(config: SimConfig) -> Optional[str]:
         return "multi-device runs, --devices > 1 (ROADMAP A11)"
     if config.save_tree_dumps:
         return "--save-tree-dumps (ROADMAP A6)"
-    if config.metrics_csv:
-        return "--metrics-csv (ROADMAP A10)"
-    if config.checkpoint_every:
-        return "--checkpoint-every (ROADMAP A10)"
     return None
 
 
@@ -81,7 +82,7 @@ class Simulation:
         device = state.device
         timing = RunTiming()
         watch = Stopwatch()
-        if cfg.save_positions:
+        if cfg.save_positions or cfg.metrics_csv:
             os.makedirs(cfg.output_dir or ".", exist_ok=True)
 
         writer = None
@@ -89,6 +90,15 @@ class Simulation:
             writer = PositionsWriter(
                 os.path.join(cfg.output_dir, "positions.txt"))
             writer.append(float(state.time), state.positions.cpu().numpy())
+
+        metrics = None
+        if cfg.metrics_csv:
+            metrics = MetricsWriter(
+                os.path.join(cfg.output_dir, cfg.metrics_csv), g=cfg.g)
+            # tree stats only mean something for the tree engine, and
+            # rebuild the tree once per recorded step
+            record_tree = cfg.metrics_tree and cfg.engine == "barnes_hut"
+            metrics.record(state, self._tree_stats(state, record_tree))
 
         if device.type == "cuda":
             # build the kernels before the clock starts, as the
@@ -129,6 +139,11 @@ class Simulation:
             if writer is not None:
                 writer.append(float(state.time),
                               state.positions.cpu().numpy())
+            if metrics is not None:
+                metrics.record(state, self._tree_stats(state, record_tree))
+            if cfg.checkpoint_every and (
+                    step_idx + 1) % cfg.checkpoint_every == 0:
+                save_checkpoint(self._checkpoint_path(), state)
 
         if overflow_steps > 3:
             print(
@@ -140,6 +155,8 @@ class Simulation:
         timing.parallel_us = watch.accum_us
         if writer is not None:
             writer.flush()
+        if metrics is not None:
+            metrics.flush()
         self.state = state
         return state, timing
 
@@ -153,3 +170,15 @@ class Simulation:
             self._step_fallback = self._make_step(
                 self.config.replace(collect3="gather", **caps))
         return self._step_fallback
+
+    def _tree_stats(self, state: SimState, enabled: bool):
+        if not enabled:
+            return None
+        stats = tree_stats_3d if state.positions.shape[1] == 3 else tree_stats
+        return stats(state.positions, state.masses,
+                     max_depth=self.config.resolved_max_depth)
+
+    def _checkpoint_path(self) -> str:
+        cfg = self.config
+        return cfg.checkpoint_path or os.path.join(cfg.output_dir,
+                                                   "checkpoint.npz")

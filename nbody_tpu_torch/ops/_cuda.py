@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("allpairs.cu", "runs_eval.cu")
+SOURCES = ("allpairs.cu", "runs_eval.cu", "list_eval.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,6 +56,8 @@ def _nvcc() -> str:
 def _target(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # included by the sources
+        h.update(header.read_bytes())
     return build_dir() / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -103,6 +105,10 @@ class _Library:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, argtypes, restype in (
             ("nbody_allpairs_accel", [p, i, p, i, p, f, i, i, i, i, p], i),
+            ("nbody_allpairs_potential", [p, i, p, i, p, i, i, i, p], i),
+            ("nbody_list_eval",
+             [p, p, p, p, i, i, ctypes.c_longlong, i, i, i, f, i, i, i, p],
+             i),
             ("nbody_runs_eval",
              [p, p, p, p, p, p, i, i, i, ctypes.c_longlong, i, i, f, i, i,
               i, p], i),

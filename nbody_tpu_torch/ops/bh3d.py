@@ -17,10 +17,10 @@ gates decide.  Self-exclusion is index-free: singleton cells and
 direct-range bodies carry bit-exact positions, so a body meeting itself
 has d2 == 0 and the d2 > 0 guard drops it.
 
-Every default resolves from N exactly as in the JAX package.  Not ported
-yet, and raising ``NotImplementedError`` naming the ROADMAP item:
-``compensated`` and ``eval_mode="grid"`` (K6), ``eval_mode="dynamic"``
-(K7).
+With ``eval_mode="grid"`` / ``"dynamic"`` (or ``compensated``) the
+direct ranges expand to 8-body superblocks and each group's padded
+two-section list goes to kernel K6 / K7, as in 2D, 64 groups at a time.
+Every default resolves from N exactly as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,7 +38,6 @@ from .bh_grouped import (
     _sort_compact,
     _theta_distances,
 )
-from .list_eval import runs_k_max
 from .tree3d import (
     R3_CNT,
     R3_M,
@@ -252,6 +251,12 @@ def _collect_lists_3d(
     return out
 
 
+# Groups per packed-list chunk on the grid / dynamic route: 3D direct
+# sections are wide (one [64, 8, K] chunk is ~1.5 GB at N=1M), so the
+# lists are built and evaluated this many groups at a time, as in the JAX
+# package's _evaluate_pallas_3d.
+EVAL_CHUNK_3D = 64
+
 # The JAX package's auto gate for the dense window collector.
 DENSE_COLLECT_MIN_N = 262144
 
@@ -356,27 +361,15 @@ def grouped_eval_3d(
     ``tree``: ``collect_dense3.build_spatial_pyramid``), else from the
     gather walk; they are evaluated per quarter (K4) where ``split_eval``
     resolves on, else by the runs evaluator (K3 or K2); on the CPU the
-    kernels' twins.  Options that select a path not yet ported raise
-    ``NotImplementedError`` naming the ROADMAP item instead of quietly
-    running another path."""
+    kernels' twins.  With ``eval_mode="grid"`` or ``"dynamic"`` (and
+    ``compensated``, which forces grid) the lists are packed per group
+    with their gathered superblocks, 64 groups at a time, and evaluated
+    by K6 or K7, behind either collector."""
     n = target_positions.shape[0]
     ns = sorted_srcs[0].shape[0]
     max_depth = tree.max_depth
-    if compensated:
-        raise NotImplementedError(
-            "compensated grouped Barnes-Hut needs the Kahan grid evaluator "
-            "(kernel K6, list_eval_pallas), not yet ported (ROADMAP "
-            "Queue B, K6)")
-    if eval_mode == "grid":
-        raise NotImplementedError(
-            "eval_mode='grid' (kernel K6, list_eval_pallas) is not yet "
-            "ported (ROADMAP Queue B, K6)")
-    if eval_mode == "dynamic":
-        raise NotImplementedError(
-            "eval_mode='dynamic' (kernel K7, list_eval_dynamic) is not yet "
-            "ported (ROADMAP Queue B, K7)")
-    if eval_mode not in (None, "runs"):
-        raise ValueError(f"unknown eval_mode {eval_mode!r}")
+    eval_mode, k_tile = bh_grouped.resolve_eval(eval_mode, compensated,
+                                                eval_k_tile, 512)
     use_dense = _resolve_collect(collect, ns) == "dense"
     if use_dense and spyr is None:
         raise ValueError(
@@ -409,13 +402,16 @@ def grouped_eval_3d(
                  for f in (torch.amin, torch.amax))
 
     if split_eval is None:
-        # the JAX package's auto gate: on only for dcm >= 128 at >= 768K
-        split_eval = (gs % 4 == 0 and gs >= 512 and n_sub % 4 == 0
-                      and direct_cell_max >= 128 and ns >= 768 * 1024)
+        # the JAX package's auto gate: on only for the runs evaluator at
+        # dcm >= 128 and >= 768K bodies
+        split_eval = (eval_mode == "runs" and gs % 4 == 0 and gs >= 512
+                      and n_sub % 4 == 0 and direct_cell_max >= 128
+                      and ns >= 768 * 1024)
     elif split_eval and (gs % 4 or n_sub % 4):
         raise ValueError(
             "split_eval=True requires group_size and n_sub divisible by 4 "
             f"(got {gs}, {n_sub})")
+    split_eval = split_eval and eval_mode == "runs"
 
     walk = dict(
         theta=theta, softening=softening,
@@ -430,13 +426,20 @@ def grouped_eval_3d(
         collected = _collect_lists_3d(bbox, tree, **walk)
     (lx, ly, lz, lm), ranges, overflow_g = collected[:3]
 
-    # the JAX package's k_tile and seg_pack resolution, kept for
-    # tile-table parity
-    k_tile = min(eval_k_tile or 512, runs_k_max())
     rc = run_cap or defaults["run_cap"]
     kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
               t_cap=direct_body_cap // k_tile + 2 * rc)
-    if split_eval:
+    if eval_mode != "runs":
+        sb_idx, sb_lo, sb_hi, ovf_e = bh_grouped._expand_ranges_superblocks(
+            ranges, direct_cell_max,
+            direct_body_cap // bh_grouped._SB + direct_cap)
+        acc = bh_grouped._evaluate_pallas(
+            pg, (lx, ly, lz), lm, (sb_idx, sb_lo, sb_hi),
+            bh_grouped._superblock_pack(sorted_srcs), g_const=g,
+            softening=softening, compensated=compensated,
+            dynamic=eval_mode == "dynamic", k_tile=k_tile,
+            eval_chunk=EVAL_CHUNK_3D)
+    elif split_eval:
         acc, ovf_e = bh_grouped._evaluate_runs_split(
             pg, (lx, ly, lz), lm, ranges, collected[3], sorted_srcs[0:3],
             sorted_srcs[3], **kw)

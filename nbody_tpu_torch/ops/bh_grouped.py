@@ -1,5 +1,5 @@
 """Grouped Barnes-Hut: Morton-sorted body groups share one traversal
-(counterpart of ``nbody_tpu.ops.bh_grouped``, runs evaluators only).
+(counterpart of ``nbody_tpu.ops.bh_grouped``, its kernel routes).
 
 Bodies are sorted by Morton code and cut into groups; each group walks
 the pyramid once with a conservative acceptance test (cell size over the
@@ -12,12 +12,16 @@ per Morton quarter of each group by kernel K4
 for the method and the self-exclusion argument (bit-exact singleton
 COMs, d2 > 0).
 
+With ``eval_mode="grid"`` or ``"dynamic"`` (and with ``compensated``,
+which forces grid) the direct ranges expand instead to 8-body
+superblocks and each group's approx cells and gathered direct bodies are
+packed into one padded two-section list, evaluated by kernel K6 (grid,
+Kahan-compensated on request) or K7 (dynamic) (``ops/list_eval``).
+
 Shapes are static, as in the JAX package: every cap is fixed before the
 step and overflowing groups raise a flag.  The one host sync of a force
 pass is the segment-packing gate of :func:`_evaluate_runs` when
-``seg_pack > 1`` (kernel K3).  ``compensated=True`` and
-``eval_mode="grid"`` (kernel K6) and ``eval_mode="dynamic"`` (K7) raise
-``NotImplementedError``.
+``seg_pack > 1`` (kernel K3).
 """
 
 from __future__ import annotations
@@ -474,6 +478,138 @@ def _evaluate_runs_split(
     return acc, (ovf_m | ovf_t).reshape(gg, 4).any(1)
 
 
+_SB = 8  # bodies per superblock (one packed gather row)
+
+
+def _expand_ranges_superblocks(ranges: torch.Tensor, direct_cell_max: int,
+                               sb_cap: int):
+    """Direct cell ranges -> a compact per-group list of 8-body
+    *superblocks* (the grid and dynamic evaluators' direct sources; see
+    ``nbody_tpu.ops.bh_grouped._expand_ranges_superblocks``).  A range
+    [start, start + count) covers at most
+    (direct_cell_max + 2 * (SB - 1)) // SB + 1 superblocks; each keeps the
+    range's [lo, hi) body bounds for the lane mask.
+
+    ranges: [G, D, 2] (start, count).  Returns (sb_idx [G, C], lo [G, C],
+    hi [G, C], overflow [G]); empty entries have sb_idx == -1, hi == 0."""
+    g, d, _ = ranges.shape
+    t_sb = (direct_cell_max + 2 * (_SB - 1)) // _SB + 1
+    starts, counts = ranges[:, :, 0], ranges[:, :, 1]
+    ends = starts + counts
+    first = starts >> 3
+    last = (ends - 1) >> 3  # arithmetic shift: count == 0 -> last < first
+    offs = torch.arange(t_sb, dtype=torch.int32, device=ranges.device)
+    sb = (first[:, :, None] + offs).reshape(g, d * t_sb)
+    mask = (offs[None, None, :] <= (last - first)[:, :, None]).reshape(
+        g, d * t_sb)
+    lo = starts[:, :, None].expand(g, d, t_sb).reshape(g, -1)
+    hi = ends[:, :, None].expand(g, d, t_sb).reshape(g, -1)
+    (sb_c, lo_c, hi_c), overflow = _sort_compact(
+        mask, [torch.where(mask, sb, -1), lo, torch.where(mask, hi, 0)],
+        sb_cap)
+    return sb_c, lo_c, hi_c, overflow
+
+
+def _superblock_pack(sorted_cols) -> torch.Tensor:
+    """Morton-sorted source columns (coordinates, then g*m; [Ns] each) ->
+    [Nsb, 8 * len(cols)] rows of 8 bodies: x*8 | y*8 | (z*8 |) gm*8, the
+    zero-padded tail included."""
+    pad = (-sorted_cols[0].shape[0]) % _SB
+    return torch.cat([torch.nn.functional.pad(c, (0, pad)).reshape(-1, _SB)
+                      for c in sorted_cols], dim=1)
+
+
+def _padded_lists(coord_lists, lm, direct_sb, sb_packed, g_const: float):
+    """The grid/dynamic evaluators' packed list [G, 8, K] and lens [2, G]:
+    the approx section (coordinates, g * lm) in lanes [0, L), the gathered
+    superblock bodies in [L, K), lanes outside their range's [lo, hi) or
+    of empty entries at gm = 0; lens = (approx cells with mass, 8 x valid
+    superblocks)."""
+    dims = len(coord_lists)
+    sb_idx, lo, hi = direct_sb
+    gg, c = sb_idx.shape
+    dmask = sb_idx >= 0
+    safe = torch.where(dmask, sb_idx, 0)
+    rows = sb_packed[safe.long()].reshape(gg, c, dims + 1, _SB)
+    body = safe[:, :, None] * _SB + torch.arange(
+        _SB, dtype=torch.int32, device=sb_idx.device)
+    lane_ok = dmask[:, :, None] & (body >= lo[:, :, None]) & (
+        body < hi[:, :, None])
+    direct = rows.permute(0, 2, 1, 3).reshape(gg, dims + 1, c * _SB)
+    direct[:, dims] = torch.where(lane_ok.reshape(gg, -1), direct[:, dims],
+                                  0.0)
+    approx = torch.stack(list(coord_lists) + [g_const * lm], dim=1)
+    src = torch.cat([torch.cat([approx, direct], dim=2),
+                     torch.zeros((gg, 8 - dims - 1, approx.shape[2] + c * _SB),
+                                 dtype=lm.dtype, device=lm.device)], dim=1)
+    lens = torch.stack([(lm > 0).sum(1), _SB * dmask.sum(1)]).to(torch.int32)
+    return src, lens
+
+
+def _evaluate_pallas(
+    positions_grouped: torch.Tensor,  # [G, S, D]
+    coord_lists,  # D approx coordinate arrays [G, L]
+    lm: torch.Tensor,  # [G, L] approx masses (zero-padded)
+    direct_sb,  # (sb_idx, lo, hi) [G, C] each
+    sb_packed: torch.Tensor,  # [Nsb, 8 * (D + 1)] packed sorted sources
+    *,
+    g_const: float,
+    softening: float,
+    compensated: bool = False,
+    dynamic: bool = True,
+    k_tile: int = 2048,
+    eval_chunk: int | None = None,
+) -> torch.Tensor:
+    """The grid / dynamic route (``_evaluate_pallas`` and
+    ``_evaluate_pallas_3d`` in the JAX package): pad the approx section to
+    a multiple of 2048 (a narrower compaction must still tile at k_tile),
+    pack each group's list with its gathered superblocks and evaluate it
+    with K7 (``dynamic``) or K6 (which ``compensated`` forces; it takes its
+    default k_tile, as in the JAX package).  With ``eval_chunk`` (3D: 64
+    groups) the packed lists are built and evaluated that many groups at a
+    time, which bounds their memory.  Returns acc [G, S, D]."""
+    apad = (-lm.shape[1]) % 2048
+    coord_lists = [torch.nn.functional.pad(a, (0, apad)) for a in coord_lists]
+    lm = torch.nn.functional.pad(lm, (0, apad))
+    section = lm.shape[1]
+    gg = lm.shape[0]
+    chunk = min(eval_chunk or gg, gg)
+    out = []
+    for c0 in range(0, gg, chunk):
+        sl = slice(c0, c0 + chunk)
+        src, lens = _padded_lists([a[sl] for a in coord_lists], lm[sl],
+                                  [a[sl] for a in direct_sb], sb_packed,
+                                  g_const)
+        tgt = positions_grouped[sl].float()
+        if dynamic and not compensated:
+            out.append(list_eval.list_eval_dynamic(
+                tgt, src, lens, softening=float(softening),
+                section_offset=section, k_tile=k_tile))
+        else:
+            out.append(list_eval.list_eval_pallas(
+                tgt, src, lens, softening=float(softening),
+                section_offset=section, compensated=compensated))
+    return torch.cat(out)
+
+
+def resolve_eval(eval_mode, compensated: bool, eval_k_tile,
+                 runs_k_tile: int):
+    """The JAX package's evaluator resolution on its kernel route:
+    ``None`` -> "runs"; ``compensated`` forces "grid" (the Kahan path lives
+    in K6); k_tile defaults to ``runs_k_tile`` for runs (capped at
+    ``list_eval.runs_k_max``) and 2048 for grid / dynamic.  Returns
+    (eval_mode, k_tile)."""
+    eval_mode = eval_mode or "runs"
+    if eval_mode not in ("runs", "grid", "dynamic"):
+        raise ValueError(f"unknown eval_mode {eval_mode!r}")
+    if compensated:
+        eval_mode = "grid"
+    if eval_mode == "runs":
+        return eval_mode, min(eval_k_tile or runs_k_tile,
+                              list_eval.runs_k_max())
+    return eval_mode, eval_k_tile or 2048
+
+
 def bh_accelerations_grouped(
     positions: torch.Tensor,
     masses: torch.Tensor,
@@ -545,31 +681,14 @@ def grouped_eval(
     split_eval: bool | None = None,
 ):
     """Grouped evaluation of targets against a prebuilt tree, through the
-    runs evaluator (kernel K2 on CUDA, its twin on the CPU), or per Morton
-    quarter (K4) where ``split_eval`` resolves on.
-
-    Options that select an evaluator not yet ported raise
-    ``NotImplementedError`` naming the ROADMAP kernel instead of quietly
-    running another path."""
+    runs evaluator (kernel K2 on CUDA, its twin on the CPU), per Morton
+    quarter (K4) where ``split_eval`` resolves on, or through the padded
+    two-section lists: K6 with ``eval_mode="grid"`` or ``compensated``,
+    K7 with ``eval_mode="dynamic"``."""
     n = target_sorted.shape[0]
     ns = sorted_x.shape[0]
-    if compensated:
-        raise NotImplementedError(
-            "compensated grouped Barnes-Hut needs the Kahan grid evaluator "
-            "(kernel K6, list_eval_pallas), not yet ported (ROADMAP "
-            "Queue B, K6)")
-    if eval_mode is None:
-        eval_mode = "runs"
-    if eval_mode == "grid":
-        raise NotImplementedError(
-            "eval_mode='grid' (kernel K6, list_eval_pallas) is not yet "
-            "ported (ROADMAP Queue B, K6)")
-    if eval_mode == "dynamic":
-        raise NotImplementedError(
-            "eval_mode='dynamic' (kernel K7, list_eval_dynamic) is not yet "
-            "ported (ROADMAP Queue B, K7)")
-    if eval_mode != "runs":
-        raise ValueError(f"unknown eval_mode {eval_mode!r}")
+    eval_mode, k_tile = resolve_eval(eval_mode, compensated, eval_k_tile,
+                                     256)
 
     if group_size is None:
         group_size = DEFAULT_GROUP_SIZE
@@ -597,13 +716,16 @@ def grouped_eval(
             sub[..., 1].amin(2), sub[..., 1].amax(2))
 
     if split_eval is None:
-        # the JAX package's auto gate: on only for dcm >= 128 at >= 768K
-        split_eval = (gs % 4 == 0 and gs >= 512 and n_sub % 4 == 0
-                      and direct_cell_max >= 128 and ns >= 768 * 1024)
+        # the JAX package's auto gate: on only for the runs evaluator at
+        # dcm >= 128 and >= 768K bodies
+        split_eval = (eval_mode == "runs" and gs % 4 == 0 and gs >= 512
+                      and n_sub % 4 == 0 and direct_cell_max >= 128
+                      and ns >= 768 * 1024)
     elif split_eval and (gs % 4 or n_sub % 4):
         raise ValueError(
             "split_eval=True requires group_size and n_sub divisible by 4 "
             f"(got {gs}, {n_sub})")
+    split_eval = split_eval and eval_mode == "runs"
 
     collected = _collect_lists(
         bbox, tree, theta=theta, softening=softening,
@@ -612,12 +734,18 @@ def grouped_eval(
         direct_cell_max=direct_cell_max, quarter_bits=split_eval,
     )
     (lx, ly, lm), ranges, overflow_g = collected[:3]
-    # the JAX package's k_tile resolution, kept for tile-table parity
-    k_tile = min(eval_k_tile or 256, list_eval.runs_k_max())
     rc = run_cap or defaults["run_cap"]
     kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
               t_cap=direct_body_cap // k_tile + 2 * rc)
-    if split_eval:
+    if eval_mode != "runs":
+        sb_idx, sb_lo, sb_hi, ovf_e = _expand_ranges_superblocks(
+            ranges, direct_cell_max, direct_body_cap // _SB + direct_cap)
+        acc = _evaluate_pallas(
+            pg, (lx, ly), lm, (sb_idx, sb_lo, sb_hi),
+            _superblock_pack((sorted_x, sorted_y, sorted_gm)), g_const=g,
+            softening=softening, compensated=compensated,
+            dynamic=eval_mode == "dynamic", k_tile=k_tile)
+    elif split_eval:
         acc, ovf_e = _evaluate_runs_split(
             pg, (lx, ly), lm, ranges, collected[3], (sorted_x, sorted_y),
             sorted_gm, **kw)

@@ -103,5 +103,46 @@ def potential_energy(state: SimState, g: float) -> torch.Tensor:
     return 0.5 * pe.sum()
 
 
+def potential_per_body_chunked(
+    positions: torch.Tensor,
+    masses: torch.Tensor,
+    g: float,
+    chunk: int | None = None,
+) -> torch.Tensor:
+    """phi_i = sum_{j != i} -g*m_j/d_ij, ``chunk`` targets at a time
+    (peak memory chunk x N): the CPU / float64 path of
+    :func:`potential_energy_scalable` and the plain twin of kernel K5."""
+    n = positions.shape[0]
+    if chunk is None:
+        chunk = max(128, min(n, (1 << 24) // max(n, 1)))
+    out = []
+    for t0 in range(0, n, chunk):
+        disp = positions[None, :, :] - positions[t0:t0 + chunk, None, :]
+        d2 = (disp * disp).sum(-1)  # [C, N]
+        valid = d2 > 0.0
+        inv_d = torch.rsqrt(torch.where(valid, d2, torch.ones_like(d2)))
+        phi = torch.where(valid, -g * masses[None, :] * inv_d,
+                          torch.zeros_like(d2))
+        out.append(phi.sum(-1))
+    return torch.cat(out)
+
+
+def potential_energy_scalable(state: SimState, g: float) -> torch.Tensor:
+    """Pairwise potential energy at any N: the dense diagnostic up to
+    4,096 bodies; a CUDA float32 state through kernel K5
+    (``ops.allpairs.allpairs_potential``); anything else (CPU, float64)
+    through the chunked path, which bounds memory and keeps float64."""
+    n = state.masses.shape[0]
+    if n <= 4096:
+        return potential_energy(state, g)
+    if state.positions.is_cuda and state.dtype == torch.float32:
+        from .ops.allpairs import allpairs_potential
+
+        phi = allpairs_potential(state.positions, state.masses, g=g)
+    else:
+        phi = potential_per_body_chunked(state.positions, state.masses, g)
+    return 0.5 * (state.masses * phi).sum()
+
+
 def total_momentum(state: SimState) -> torch.Tensor:
     return (state.masses[:, None] * state.velocities).sum(0)

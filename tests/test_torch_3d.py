@@ -40,7 +40,6 @@ from nbody_tpu.ops import list_eval as jle
 from nbody_tpu.ops import tree3d as jt
 from nbody_tpu.state import to_numpy as jax_to_numpy
 from nbody_tpu.utils import textio as jtext
-from nbody_tpu_torch import cli
 from nbody_tpu_torch import physics as tphys
 from nbody_tpu_torch import rng as trng
 from nbody_tpu_torch.models.engines import make_accel_fn, resolved_caps
@@ -331,17 +330,6 @@ def test_whole_3d_force_pass_matches_jax(force_ref, gate, monkeypatch):
                                atol=FORCE_TOL * np.abs(want).max())
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(compensated=True), "K6"), (dict(eval_mode="grid"), "K6"),
-    (dict(eval_mode="dynamic"), "K7"),
-], ids=["compensated", "grid", "dynamic"])
-def test_unported_3d_routes_raise(kw, match):
-    m, p = _cloud("uniform", 1, n=256)
-    with pytest.raises(NotImplementedError, match=match):
-        tb.bh3_accelerations_grouped(torch.tensor(p), torch.tensor(m), g=G,
-                                     group_size=128, **kw)
-
-
 def test_exact_bh_mode_is_2d_only():
     cfg = nbody_tpu_torch.SimConfig(n_dim=3, engine="barnes_hut",
                                     bh_mode="exact")
@@ -479,17 +467,6 @@ def test_cli_run_3d_prints_timing_lines():
     ).stdout
     for r in TIMING_RE:
         assert r.search(out), out
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--compensated"], "K6"),
-    (["--eval-mode", "grid"], "K6"),
-    (["--eval-mode", "dynamic"], "K7"),
-], ids=["compensated", "eval-mode-grid", "eval-mode-dynamic"])
-def test_cli_3d_refusals(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["run", "--device", "cpu", "--dims", "3", "--engine",
-                  "barnes_hut", "--n-bodies", "64", "--steps", "1"] + flags)
 
 
 def test_3d_modules_import_without_jax():

@@ -196,17 +196,6 @@ def test_cap_calibration_matches_jax(n):
     assert tle.runs_k_max() == jle.runs_k_max()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(compensated=True), dict(eval_mode="grid"),
-    dict(eval_mode="dynamic"),
-], ids=["compensated", "grid", "dynamic"])
-def test_unported_evaluators_raise(kw):
-    m, p = _cloud("uniform", 1, n=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.bh_accelerations_grouped(torch.tensor(p), torch.tensor(m), g=G,
-                                    group_size=128, **kw)
-
-
 def test_packed_segments_raise():
     """seg_pack > 1 is kernel K3: its segments are 128-lane multiples, so
     a k_tile that P segments cannot tile is refused, as in the JAX

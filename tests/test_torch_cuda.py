@@ -279,3 +279,148 @@ def test_k4_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="4G"):
         list_eval.list_eval_runs_split(args[0], args[1], args[2][:4],
                                        *args[3:], softening=0.0, k_tile=k)
+
+
+# -- K5, K6 and K7 ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1037, 65536])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_k5_matches_twin(cuda, dims, n):
+    rng = np.random.default_rng(n + dims)
+    p = torch.tensor(rng.uniform(-0.1, 0.1, (n, dims)), dtype=torch.float32,
+                     device=cuda)
+    m = torch.tensor(10 ** rng.uniform(-1, np.log10(0.5), n),
+                     dtype=torch.float32, device=cuda)
+    before = allpairs.POTENTIAL_LAUNCHES
+    got = allpairs.allpairs_potential(p, m, g=G)
+    want = allpairs.allpairs_potential_plain(p, m, g=G)
+    assert allpairs.POTENTIAL_LAUNCHES == before + 1
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+def test_potential_energy_scalable_takes_k5_on_the_card(cuda):
+    from nbody_tpu_torch import physics
+    from nbody_tpu_torch.state import from_numpy
+
+    rng = np.random.default_rng(3)
+    n = 8192
+    st = from_numpy(10 ** rng.uniform(-1, np.log10(0.5), n),
+                    rng.uniform(-0.1, 0.1, (n, 3)), np.zeros((n, 3)))
+    want = physics.potential_energy_scalable(st, G)
+    before = allpairs.POTENTIAL_LAUNCHES
+    got = physics.potential_energy_scalable(
+        from_numpy(st.masses, st.positions, st.velocities, device=cuda), G)
+    assert allpairs.POTENTIAL_LAUNCHES == before + 1
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+
+
+def _packed_lists(dims, seed, device, g=9, s=300, off=4096, width=6144):
+    """A two-section packed list [G, 8, K] with random occupied lengths,
+    zero gm past each length inside its tile and data in later tiles."""
+    rng = np.random.default_rng(seed)
+    tgt = rng.uniform(-1, 1, (g, s, dims)).astype(np.float32)
+    src = np.zeros((g, 8, off + width), np.float32)
+    src[:, :dims] = rng.uniform(-1, 1, (g, dims, off + width))
+    src[:, dims] = rng.uniform(1e-4, 1e-3, (g, off + width))
+    a_n = rng.integers(0, off + 1, g)
+    d_n = rng.integers(0, width + 1, g)
+    a_n[0], d_n[0] = 0, 0
+    for gi in range(g):
+        src[gi, dims, a_n[gi]:-(-a_n[gi] // 2048) * 2048] = 0.0
+        src[gi, dims, off + d_n[gi]:off + -(-d_n[gi] // 2048) * 2048] = 0.0
+    lens = np.stack([a_n, d_n]).astype(np.int32)
+    return [torch.tensor(a, device=device) for a in (tgt, src, lens)], off
+
+
+PADDED = {
+    "K6": (lambda *a, **kw: list_eval.list_eval_pallas(*a, **kw),
+           lambda *a, **kw: list_eval.list_eval_pallas_plain(*a, **kw),
+           "GRID_LAUNCHES", {}),
+    "K6-compensated": (
+        lambda *a, **kw: list_eval.list_eval_pallas(*a, **kw),
+        lambda *a, **kw: list_eval.list_eval_pallas_plain(*a, **kw),
+        "GRID_LAUNCHES", {"compensated": True}),
+    "K7": (lambda *a, **kw: list_eval.list_eval_dynamic(*a, **kw),
+           lambda *a, **kw: list_eval.list_eval_dynamic_plain(*a, **kw),
+           "DYNAMIC_LAUNCHES", {}),
+}
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("kernel", sorted(PADDED))
+def test_padded_list_kernels_match_twin(cuda, kernel, dims):
+    fn, twin, counter, extra = PADDED[kernel]
+    args, off = _packed_lists(dims, dims, cuda)
+    kw = dict(softening=1e-15, section_offset=off, k_tile=2048, **extra)
+    before = getattr(list_eval, counter)
+    got = fn(*args, **kw)
+    want = twin(*args, **kw)
+    assert getattr(list_eval, counter) == before + 1
+    assert torch.all(got[0] == 0.0)  # the empty group
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+def test_k6_compensation_against_float64(cuda):
+    """On the card, as tests/test_torch_list_eval.py checks the twin:
+    Kahan across 2,048 tiles of 128 lanes is at least as close to a
+    float64 evaluation as the plain running sum."""
+    rng = np.random.default_rng(7)
+    s, k = 64, 1 << 18
+    tgt = np.full((1, s, 2), -4.0, np.float32)
+    tgt[0, :, 0] += rng.uniform(-1, 1, s)
+    src = np.zeros((1, 8, k), np.float32)
+    src[0, :2] = rng.uniform(0, 1, (2, k))
+    src[0, 2] = rng.uniform(1e-3, 2e-3, k)
+    args = [torch.tensor(a, device=cuda) for a in (
+        tgt, src, np.array([[k], [0]], np.int32))]
+    kw = dict(softening=1e-15, section_offset=k, k_tile=128)
+    plain = list_eval.list_eval_pallas(*args, **kw).double().cpu().numpy()
+    comp = list_eval.list_eval_pallas(*args, compensated=True, **kw)
+    comp = comp.double().cpu().numpy()
+    x = src[0].astype(np.float64)
+    disp = x[None, :2, :] - tgt[0, :, :, None].astype(np.float64)
+    d2 = (disp ** 2).sum(1)
+    exact = ((x[2] / (d2 * (np.sqrt(d2) + 1e-15)))[:, None, :]
+             * disp).sum(-1)[None]
+    err_p, err_c = (np.abs(a - exact).max() for a in (plain, comp))
+    assert err_c <= err_p and err_c <= 1e-6 * np.abs(exact).max()
+
+
+@pytest.mark.parametrize("mode", ["grid", "dynamic", "compensated"])
+def test_padded_routes_never_reach_the_twins(cuda, monkeypatch, mode):
+    """A 3D force pass on the grid / dynamic / compensated route launches
+    K6 or K7 on the card and never a twin; it agrees with the CPU pass."""
+    from nbody_tpu_torch.ops import bh3d
+
+    p, m = _cloud3(8192, 9, cuda)
+    kw = dict(g=G, group_size=512, eval_mode=None if mode == "compensated"
+              else mode, compensated=mode == "compensated")
+    want = bh3d.bh3_accelerations_grouped(p.cpu(), m.cpu(), **kw)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain twin")
+
+    for name in ("list_eval_pallas_plain", "list_eval_dynamic_plain",
+                 "list_eval_runs_plain"):
+        monkeypatch.setattr(list_eval, name, refuse)
+    counter = "DYNAMIC_LAUNCHES" if mode == "dynamic" else "GRID_LAUNCHES"
+    before = getattr(list_eval, counter), list_eval.KERNEL_LAUNCHES
+    got, ovf = bh3d.bh3_accelerations_grouped(p, m, return_diagnostics=True,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert getattr(list_eval, counter) == before[0] + 1
+    assert list_eval.KERNEL_LAUNCHES == before[1]
+    assert int(ovf.sum()) == 0
+    assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
+
+
+def test_padded_list_kernels_reject_what_they_cannot_take(cuda):
+    args, off = _packed_lists(2, 1, cuda)
+    kw = dict(softening=0.0, section_offset=off)
+    with pytest.raises(ValueError, match="int32"):
+        list_eval.list_eval_pallas(*args[:2], args[2].long(), **kw)
+    with pytest.raises(ValueError, match="float32"):
+        list_eval.list_eval_dynamic(args[0].double(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="not tileable"):
+        list_eval.list_eval_dynamic(*args, softening=0.0, section_offset=100)

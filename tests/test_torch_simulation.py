@@ -106,13 +106,8 @@ def test_cli_in_process_save_outputs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    # 3D runs, dense collector and split evaluation included; its grid
-    # evaluator (kernel K6) does not yet
-    pytest.param(["--dims", "3", "--eval-mode", "grid"], id="--dims_3"),
     ["--bh-mode", "exact"], ["--devices", "2"],
-    ["--fused"], ["--save-tree-dumps"], ["--metrics-csv", "m.csv"],
-    ["--checkpoint-every", "2"], ["--resume", "x.npz"], ["--compensated"],
-    ["--eval-mode", "grid"], ["--eval-mode", "dynamic"],
+    ["--fused"], ["--save-tree-dumps"],
 ], ids=lambda f: "_".join(f))
 def test_unported_flag_raises(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
