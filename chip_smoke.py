@@ -39,6 +39,8 @@ Phases, each printing what it found; the first failure exits non-zero:
    ``--metrics-csv`` and ``--checkpoint-every 5`` (11 rows, K5 launched
    11 times), 5 steps and 5 more from ``--resume`` bit-equal to the 10
    straight steps, and ``run --dims 3`` at N=262,144 with ``--metrics-csv``;
+   K5 against its twin on each metrics run's first and last states, and
+   the CSV's potential energy of those steps against the twin's;
    4e. the padded-list evaluators on the main path: ``run`` barnes_hut
    with ``--eval-mode grid``, ``--eval-mode dynamic`` and ``--compensated``
    at 2D N=40,960 and 3D N=131,072 (K6 or K7 launched, K2-K4 not).
@@ -50,15 +52,17 @@ Phases, each printing what it found; the first failure exits non-zero:
    5c. K4 beside its twin and K2, the 3D step at both sizes, the gates'
    A/Bs (dense vs gather collector, split on vs off) and a
    ``torch.profiler`` split of the 1,048,576-body step;
-   5d. K5, K6, K6 compensated and K7 beside their twins and K2, and one
-   3D force pass at N=1,048,576 on the dynamic route (K7) against the
-   default (K4), with peak memory.
+   5d. K5 (on the metrics runs' last states), K6, K6 compensated and K7
+   beside their twins and K2 (with the share of K6/K7's visited pairs
+   that are padding), and one 3D force pass at N=1,048,576 on the
+   dynamic route (K7) against the default (K4), with peak memory.
 
 The summary gives each kernel its bound: the larger of the FP32 work
 over 67 TFLOP/s, the special-function work (rsqrt, and the reciprocal of
 an IEEE divide) over 16 per SM per clock at the SM clock ``nvidia-smi``
 reads, and the bytes each input is read and each output written once
-over 3.35 TB/s, for the pairs this run's inputs need.
+over 3.35 TB/s, for the pairs this run's inputs need (no tile padding:
+approx lanes, direct [lo, hi) lanes, no self-pairs).
 
 The line before the last is the kernel summary JSON, the last line
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA,
@@ -244,11 +248,11 @@ def direct_fill(args):
     return n, float(span.sum()) / max(n, 1)
 
 
-def lanes_visited(args, k_tile: int, split: bool, seg_pack: int = 1) -> int:
-    """Source lanes the kernel visits per target, summed over its
-    blocks' targets: pairs evaluated, computed from the tables (K2/K3:
-    per group, approx tiles and direct [lo, hi) lanes of lens[1] x P
-    entries; K4: per quarter, approx, extension and direct tiles)."""
+def pairs_needed(args, split: bool, seg_pack: int = 1) -> int:
+    """Pairs a runs or split evaluation needs, from its tables: per group
+    (K2/K3) or quarter (K4), each target against the approx lanes and the
+    direct [lo, hi) lanes of lens[-1] x P entries (K4 also the extension
+    lanes); no lane a tile's padding adds."""
     import torch
 
     tgt, approx = args[0], args[1]
@@ -257,13 +261,10 @@ def lanes_visited(args, k_tile: int, split: bool, seg_pack: int = 1) -> int:
     span = (tiles[:, 2] - tiles[:, 1]).clamp(min=0)  # [rows, T]
     n_d = (lens[-1] * seg_pack).clamp(max=t_cap)
     live = torch.arange(t_cap, device=tiles.device)[None] < n_d[:, None]
-    direct = (span * live).sum(1)
-    approx_l = (-(-lens[0] // k_tile) * k_tile).clamp(max=a_w)
-    total = approx_l + direct
+    total = lens[0].clamp(max=a_w) + (span * live).sum(1)
     per_row = tgt.shape[1]
     if split:
-        e_w = args[2].shape[2]
-        total = total + (-(-lens[1] // k_tile) * k_tile).clamp(max=e_w)
+        total = total + lens[1].clamp(max=args[2].shape[2])
         per_row //= 4
     return int(total.sum()) * per_row
 
@@ -300,24 +301,34 @@ def capture_padded(positions, masses, mode: str, **kw):
 
 
 def padded_work(args, kw, dynamic: bool):
-    """(pairs, bytes) of one K6/K7 call: every visited k-tile's lanes
-    (inside K) against every target, the visited lanes' coordinate and
-    gm rows, the targets and outputs once."""
+    """(pairs needed, pairs visited, bytes) of one K6/K7 call.  Needed:
+    each target against the lanes with gm > 0 inside the approx section
+    [0, a_n) and the direct section [off, off + d_n), that is the approx
+    cells and the superblock lanes inside their range's [lo, hi) (K2's
+    direct lanes); the bytes are those lanes' coordinates and gm, the
+    targets and the outputs once.  Visited: every lane of every k-tile
+    the kernel stages, the zero-gm padding included."""
+    import torch
+
     from nbody_tpu_torch.ops import list_eval
 
     tgt, src, lens = args
     g, s, dims = tgt.shape
     k = src.shape[2]
-    k_tile, n_k = list_eval.resolve_list_tiles(
-        s, k, kw["section_offset"], kw.get("k_tile", 2048))
-    lanes = 0
-    for a_n, d_n in lens.t().tolist():
-        for j in list_eval._occupied_tiles(
-                a_n, d_n, k_tile, kw["section_offset"] // k_tile, n_k,
-                dynamic):
-            lanes += min(k_tile, k - j * k_tile)
-    return lanes * s, 4 * (lanes * (dims + 1) + 2 * tgt.numel()
-                           + lens.numel())
+    off = kw["section_offset"]
+    lane = torch.arange(k, device=src.device)[None]
+    a_n, d_n = lens[0, :, None], lens[1, :, None]
+    inside = (lane < a_n) | ((lane >= off) & (lane < off + d_n))
+    needed = int(((src[:, dims] > 0) & inside).sum())
+    k_tile, n_k = list_eval.resolve_list_tiles(s, k, off,
+                                               kw.get("k_tile", 2048))
+    visited = 0
+    for a, d in lens.t().tolist():
+        for j in list_eval._occupied_tiles(a, d, k_tile, off // k_tile, n_k,
+                                           dynamic):
+            visited += min(k_tile, k - j * k_tile)
+    return (needed * s, visited * s,
+            4 * (needed * (dims + 1) + 2 * tgt.numel() + lens.numel()))
 
 
 @contextlib.contextmanager
@@ -584,8 +595,7 @@ def main() -> int:
             got = allpairs.allpairs_potential(p, m, g=G)
             want = allpairs.allpairs_potential_plain(p, m, g=G)
             torch.cuda.synchronize()
-            e = compare(f"K5 {dims}D N={n}", got, want)
-            err.setdefault(f"k5_{dims}d", e)
+            compare(f"K5 {dims}D N={n}", got, want)
             if n == 65536:
                 st = make_state(m, p, torch.zeros_like(p), device=dev)
                 pe = float(physics.potential_energy_scalable(st, G))
@@ -780,6 +790,30 @@ def main() -> int:
               f"{got[0]['tree_nodes']} -> {got[-1]['tree_nodes']}",
               flush=True)
 
+    def check_potential(st0, fin, path, dims):
+        """K5 against its twin on a metrics run's first and last states
+        (its main-path inputs), and the CSV's potential energy of those
+        steps against the twin's."""
+        import csv
+
+        with open(path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        m, worst = st0.masses, 0.0
+        for row, pos in ((rows[0], st0.positions), (rows[-1], fin)):
+            tag = f"K5 {dims}D N={m.shape[0]} step {row['step']}"
+            want = allpairs.allpairs_potential_plain(pos, m, g=G)
+            worst = max(worst, compare(
+                tag, allpairs.allpairs_potential(pos, m, g=G), want))
+            pe_t = float(0.5 * (m * want).sum())
+            rel = abs(float(row["potential_energy"]) - pe_t) / abs(pe_t)
+            print(f"  {tag}: the CSV's potential energy "
+                  f"{float(row['potential_energy']):.9e}, the twin's "
+                  f"{pe_t:.9e}: relative {rel:.2e} (bound 1e-05)", flush=True)
+            if not rel <= 1e-5:
+                fail(f"{tag}: the CSV's potential energy disagrees with "
+                     "K5's twin")
+        err[f"k5_{dims}d"] = worst
+
     d = {k: os.path.join(OUT_DIR, k) for k in ("m10", "c5", "r5", "m3d")}
     fin10, more["metrics_2d"] = main_path_run(
         "barnes_hut", 40960, 2, 10,
@@ -791,6 +825,7 @@ def main() -> int:
              "metrics run (11 recorded steps)")
     if not torch.equal(fin10, finals["barnes_hut"]):
         fail("recording metrics changed the 2D run's final positions")
+    check_potential(pads[2], fin10, os.path.join(d["m10"], "m.csv"), 2)
     fin5, _ = main_path_run("barnes_hut", 40960, 2, 5,
                             ["--checkpoint-every", "5", "--output-dir",
                              d["c5"]])
@@ -812,6 +847,8 @@ def main() -> int:
              "metrics run")
     if not torch.equal(fin3m, finals3[("barnes_hut", 262144)]):
         fail("recording metrics changed the 3D run's final positions")
+    st3m = random_state(SimConfig(n_bodies=262144, n_dim=3), device=dev)
+    check_potential(st3m, fin3m, os.path.join(d["m3d"], "m.csv"), 3)
 
     # -- phase 4e: the padded-list evaluators on the main path -------------
     print("phase 4e: --eval-mode grid / dynamic and --compensated through "
@@ -924,8 +961,8 @@ def main() -> int:
     # the same force pass unsplit: K2/K3 on the group-wide direct sets
     a2u, kw2u, _ = capture_tables(p1m, m1m, split_eval=False)
     k2u_ms = cuda_ms(lambda: list_eval.list_eval_runs(*a2u, **kw2u), reps=3)
-    pairs4 = lanes_visited(a4, kw4["k_tile"], split=True)
-    pairs2 = lanes_visited(a2u, kw2u["k_tile"], split=False)
+    pairs4 = pairs_needed(a4, split=True)
+    pairs2 = pairs_needed(a2u, False, kw2u["seg_pack"])
     name2u = "K3" if kw2u["seg_pack"] > 1 else "K2"
     print(f"  K4 N={n1m}: {k4_ms:.3f} ms for {pairs4 / 1e9:.2f} G pairs = "
           f"{pairs4 / k4_ms / 1e6:.1f} Gpairs/s; twin {twin_ms:.3f} ms  "
@@ -1020,23 +1057,24 @@ def main() -> int:
     # -- phase 5d: K5, K6, K7 and the 1M dynamic route ----------------------
     print(f"phase 5d: K5, K6, K6 compensated and K7 on {card}", flush=True)
     work = {}  # key -> (pair family, dims, pairs, bytes)
-    for dims in (2, 3):
-        n = 65536
-        p, m = cloud(n, seed=41 + dims, device=dev, dims=dims)
+    pad_share = {}  # K6/K7: the share of visited pairs that are padding
+    for dims, p, m in ((2, fin10, pads[2].masses),
+                       (3, fin3m, st3m.masses)):
+        n = m.shape[0]
         k = cuda_ms(lambda: allpairs.allpairs_potential(p, m, g=G), reps=10)
         plain = cuda_ms(lambda: allpairs.allpairs_potential_plain(p, m, g=G),
-                        reps=2)
+                        reps=1)
         ms[f"k5_{dims}d"] = (k, plain)
-        work[f"k5_{dims}d"] = ("potential", dims, n * n,
+        work[f"k5_{dims}d"] = ("potential", dims, n * (n - 1),
                                4 * (n * (dims + 1) + n))
-        print(f"  K5 {dims}D N={n}: kernel {k:.3f} ms = "
-              f"{n * n / k / 1e6:.1f} Gpairs/s; plain twin {plain:.3f} ms"
-              f"  [{card}]", flush=True)
+        print(f"  K5 {dims}D N={n} (the metrics run's last state): kernel "
+              f"{k:.3f} ms = {n * n / k / 1e6:.1f} Gpairs/s; plain twin "
+              f"{plain:.3f} ms  [{card}]", flush=True)
     for dims, st in pads.items():
         a_r, kw_r, _ = capture_tables(st.positions, st.masses)
         k2 = cuda_ms(lambda: list_eval.list_eval_runs(*a_r, **kw_r), reps=10)
         name_r = "K3" if kw_r["seg_pack"] > 1 else "K2"
-        pairs_r = lanes_visited(a_r, kw_r["k_tile"], False, kw_r["seg_pack"])
+        pairs_r = pairs_needed(a_r, False, kw_r["seg_pack"])
         print(f"  {dims}D N={st.masses.shape[0]}: {name_r} (the runs route) "
               f"{k2:.3f} ms for {pairs_r / 1e9:.3f} G pairs  [{card}]",
               flush=True)
@@ -1050,16 +1088,20 @@ def main() -> int:
             k = cuda_ms(lambda: [wrap(*a, **kw) for a, kw in calls], reps=10)
             plain = cuda_ms(lambda: [twin(*a, **kw) for a, kw in calls],
                             reps=1)
-            pairs = nbytes = 0
+            pairs = visited = nbytes = 0
             for a, kw in calls:
-                pp, bb = padded_work(a, kw, dyn)
-                pairs, nbytes = pairs + pp, nbytes + bb
+                pp, vv, bb = padded_work(a, kw, dyn)
+                pairs, visited, nbytes = pairs + pp, visited + vv, nbytes + bb
             ms[f"{key}_{dims}d"] = (k, plain)
             work[f"{key}_{dims}d"] = ("bh", dims, pairs, nbytes)
+            pad_share[f"{key}_{dims}d"] = 1 - pairs / visited
             print(f"  {key.upper()} {dims}D: kernel {k:.3f} ms for "
-                  f"{pairs / 1e9:.3f} G pairs = {pairs / k / 1e6:.1f} "
-                  f"Gpairs/s ({k / k2:.2f}x {name_r}); plain twin "
-                  f"{plain:.3f} ms  [{card}]", flush=True)
+                  f"{pairs / 1e9:.3f} G pairs needed = "
+                  f"{pairs / k / 1e6:.1f} Gpairs/s ({k / k2:.2f}x "
+                  f"{name_r}, which needs {pairs_r / 1e9:.3f} G); it visits "
+                  f"{visited / 1e9:.3f} G, {100 * (1 - pairs / visited):.1f}%"
+                  f" of them padding; plain twin {plain:.3f} ms  [{card}]",
+                  flush=True)
     dyn1m, base1m = step_fn(n1m, eval_mode="dynamic"), step_fn(n1m)
     t = [cuda_ms(f, reps=2) for f in (base1m, dyn1m, dyn1m, base1m)]
     peak = {}
@@ -1080,21 +1122,21 @@ def main() -> int:
     # bounds of the earlier kernels, from the tables they were timed on
     for key, dims in (("k1_2d", 2), ("k1_3d", 3)):
         n = 65536
-        work[key] = ("allpairs", dims, n * n, 4 * n * (2 * dims + 1))
+        work[key] = ("allpairs", dims, n * (n - 1), 4 * n * (2 * dims + 1))
     for key, split in (("k2_2d", False), ("k2_3d", False),
                        ("k3_3d", False), ("k4_3d", True)):
         a, kw = tables[key] if key != "k4_3d" else (a4, kw4)
-        work[key] = ("bh", a[0].shape[2], lanes_visited(
-            a, kw["k_tile"], split, kw.get("seg_pack", 1)), runs_bytes(a))
+        work[key] = ("bh", a[0].shape[2], pairs_needed(
+            a, split, kw.get("seg_pack", 1)), runs_bytes(a))
 
-    def entry(name, source, replaces, key, n_launch, dims):
+    def entry(name, source, replaces, key, n_launch, dims, **extra):
         b_ms, b_by = bound(*work[key], sm_clock_hz)
         return {"name": name, "route": "cuda",
                 "source": f"nbody_tpu_torch/csrc/{source}",
                 "replaces": replaces, "dims": dims, "launches": n_launch,
                 "max_abs_err": err[key], "ms": ms[key][0],
                 "plain_ms": ms[key][1], "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None}
+                "library_ms": None, **extra}
 
     ap, le = "nbody_tpu/ops/allpairs.py:49", "nbody_tpu/ops/list_eval.py:333"
     k4 = entry("runs_eval_k4_3d", "runs_eval.cu",
@@ -1121,18 +1163,21 @@ def main() -> int:
                       "nbody_tpu/ops/list_eval.py:136")
     for dims, sfx in ((2, ""), (3, "_3d")):
         n_pad = 40960 if dims == 2 else n3
+
+        def padded_entry(name, replaces, key, mode, counter):
+            return entry(f"list_eval_{name}{sfx}", "list_eval.cu", replaces,
+                         f"{key}_{dims}d", more[(dims, mode)][counter], dims,
+                         n_bodies=n_pad,
+                         padding_share=pad_share[f"{key}_{dims}d"])
+
         summary["kernels"] += [
             entry(f"potential_k5{sfx}", "allpairs.cu", pot, f"k5_{dims}d",
-                  more[f"metrics_{dims}d"]["k5"], dims),
-            entry(f"list_eval_k6{sfx}", "list_eval.cu", grid, f"k6_{dims}d",
-                  more[(dims, "grid")]["k6"], dims),
-            entry(f"list_eval_k6_compensated{sfx}", "list_eval.cu", grid,
-                  f"k6c_{dims}d", more[(dims, "compensated")]["k6"], dims),
-            entry(f"list_eval_k7{sfx}", "list_eval.cu", dyn, f"k7_{dims}d",
-                  more[(dims, "dynamic")]["k7"], dims),
+                  more[f"metrics_{dims}d"]["k5"], dims,
+                  n_bodies=40960 if dims == 2 else 262144),
+            padded_entry("k6", grid, "k6", "grid", "k6"),
+            padded_entry("k6_compensated", grid, "k6c", "compensated", "k6"),
+            padded_entry("k7", dyn, "k7", "dynamic", "k7"),
         ]
-        for e in summary["kernels"][-3:]:
-            e["n_bodies"] = n_pad
     print(f"card: {card}")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

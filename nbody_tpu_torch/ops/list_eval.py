@@ -338,8 +338,8 @@ def list_eval_runs_split(
 
 # -- K6 and K7: the padded two-section list evaluators ---------------------
 
-def resolve_list_tiles(s: int, k: int, section_offset: int, k_tile: int,
-                       s_tile: int = 512) -> tuple:
+def resolve_list_tiles(s: int, k: int, section_offset: int,
+                       k_tile: int) -> tuple:
     """The JAX wrappers' tile resolution for a [G, S, D] x [G, 8, K] call
     (``list_eval_pallas`` and ``list_eval_dynamic`` alike): the target
     tile divides S, k_tile is clamped to the TPU's VMEM budget, then to a
@@ -347,14 +347,13 @@ def resolve_list_tiles(s: int, k: int, section_offset: int, k_tile: int,
     and K is padded to a whole number of k-tiles.  Returns (k_tile,
     n_k_tiles); the tile boundaries decide which tiles ``lens`` marks
     occupied."""
+    s_tile = 512  # the JAX wrappers' default target tile, for tile parity
     if s % s_tile:
         s_tile = s if s < s_tile else math.gcd(s, s_tile)
+    if k_tile < 128:
+        raise ValueError(f"k_tile={k_tile}: tiles are multiples of 128 lanes")
     k_tile = min(k_tile, max(128, _VMEM_BUDGET // (_LIVE * s_tile * 4)))
     k_tile = k_tile // 128 * 128
-    if k_tile < 128:
-        raise ValueError(
-            f"target tile {s_tile} too large for the "
-            f"{_VMEM_BUDGET // 2**20} MB VMEM budget; reduce s_tile")
     if section_offset % k_tile:
         k_tile = math.gcd(section_offset, k_tile)
         if k_tile % 128:
@@ -382,10 +381,10 @@ def _occupied_tiles(a_n: int, d_n: int, k_tile: int, off_tile: int,
 
 
 def _list_eval_plain(targets, sources, lens, *, softening, section_offset,
-                     k_tile, s_tile, compensated, dynamic):
+                     k_tile, compensated, dynamic):
     g_n, s, dims = targets.shape
     k_tile, n_k_tiles = resolve_list_tiles(s, sources.shape[2],
-                                           section_offset, k_tile, s_tile)
+                                           section_offset, k_tile)
     rows = dims + 1
     src = torch.nn.functional.pad(
         sources[:, :rows], (0, n_k_tiles * k_tile - sources.shape[2]),
@@ -419,7 +418,6 @@ def list_eval_pallas_plain(
     softening: float,
     section_offset: int,
     k_tile: int = 2048,
-    s_tile: int = 512,
     compensated: bool = False,
 ) -> torch.Tensor:
     """K6's plain twin: per group, every k-tile overlapping either section
@@ -428,7 +426,7 @@ def list_eval_pallas_plain(
     ``compensated``, their Kahan chain."""
     return _list_eval_plain(
         targets, sources, lens, softening=softening,
-        section_offset=section_offset, k_tile=k_tile, s_tile=s_tile,
+        section_offset=section_offset, k_tile=k_tile,
         compensated=compensated, dynamic=False)
 
 
@@ -440,19 +438,18 @@ def list_eval_dynamic_plain(
     softening: float,
     section_offset: int,
     k_tile: int = 2048,
-    s_tile: int = 512,
 ) -> torch.Tensor:
     """K7's plain twin: per group, the ceil(a_n / k) approx tiles and the
     ceil(d_n / k) direct tiles, per-tile partial sums, then their running
     sum in tile order."""
     return _list_eval_plain(
         targets, sources, lens, softening=softening,
-        section_offset=section_offset, k_tile=k_tile, s_tile=s_tile,
+        section_offset=section_offset, k_tile=k_tile,
         compensated=False, dynamic=True)
 
 
 def _launch_list_eval(targets, sources, lens, *, softening, section_offset,
-                      k_tile, s_tile, mode: int, name: str) -> torch.Tensor:
+                      k_tile, mode: int, name: str) -> torch.Tensor:
     dev = targets.device
     g, s, dims = targets.shape
     if dims not in (2, 3):
@@ -462,8 +459,7 @@ def _launch_list_eval(targets, sources, lens, *, softening, section_offset,
     _cuda.require(targets, "targets", torch.float32, (g, s, dims), dev)
     _cuda.require(sources, "sources", torch.float32, (g, 8, k), dev)
     _cuda.require(lens, "lens", torch.int32, (2, g), dev)
-    k_tile, n_k_tiles = resolve_list_tiles(s, k, section_offset, k_tile,
-                                           s_tile)
+    k_tile, n_k_tiles = resolve_list_tiles(s, k, section_offset, k_tile)
     if 16 * k_tile > _MAX_SMEM:
         raise ValueError(
             f"k_tile={k_tile}: the staged tile must fit {_MAX_SMEM} bytes "
@@ -491,7 +487,6 @@ def list_eval_pallas(
     softening: float,
     section_offset: int,  # start of the second (direct) section in K
     k_tile: int = 2048,
-    s_tile: int = 512,
     compensated: bool = False,
 ) -> torch.Tensor:
     """Accelerations [G, S, D] of each group's bodies due to its packed
@@ -506,12 +501,12 @@ def list_eval_pallas(
     if not targets.is_cuda:
         return list_eval_pallas_plain(
             targets, sources, lens, softening=softening,
-            section_offset=section_offset, k_tile=k_tile, s_tile=s_tile,
+            section_offset=section_offset, k_tile=k_tile,
             compensated=compensated)
     global GRID_LAUNCHES
     out = _launch_list_eval(
         targets, sources, lens, softening=softening,
-        section_offset=section_offset, k_tile=k_tile, s_tile=s_tile,
+        section_offset=section_offset, k_tile=k_tile,
         mode=1 if compensated else 0,
         name="list_eval grid (K6, compensated)" if compensated
         else "list_eval grid (K6)")
@@ -527,7 +522,6 @@ def list_eval_dynamic(
     softening: float,
     section_offset: int,
     k_tile: int = 2048,
-    s_tile: int = 512,
 ) -> torch.Tensor:
     """Occupancy-proportional list evaluation: each group visits exactly
     its ceil(a_n / k) + ceil(d_n / k) occupied tiles; the same tensors
@@ -538,11 +532,11 @@ def list_eval_dynamic(
     if not targets.is_cuda:
         return list_eval_dynamic_plain(
             targets, sources, lens, softening=softening,
-            section_offset=section_offset, k_tile=k_tile, s_tile=s_tile)
+            section_offset=section_offset, k_tile=k_tile)
     global DYNAMIC_LAUNCHES
     out = _launch_list_eval(
         targets, sources, lens, softening=softening,
-        section_offset=section_offset, k_tile=k_tile, s_tile=s_tile,
+        section_offset=section_offset, k_tile=k_tile,
         mode=2, name="list_eval dynamic (K7)")
     DYNAMIC_LAUNCHES += 1
     return out

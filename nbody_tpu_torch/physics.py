@@ -129,18 +129,21 @@ def potential_per_body_chunked(
 
 def potential_energy_scalable(state: SimState, g: float) -> torch.Tensor:
     """Pairwise potential energy at any N: the dense diagnostic up to
-    4,096 bodies; a CUDA float32 state through kernel K5
-    (``ops.allpairs.allpairs_potential``); anything else (CPU, float64)
-    through the chunked path, which bounds memory and keeps float64."""
+    4,096 bodies; a CUDA state through kernel K5
+    (``ops.allpairs.allpairs_potential``), in float32 (a bfloat16 state
+    is evaluated in float32); a CPU state, and a float64 state on the
+    card, through the chunked path: the precision route, which keeps
+    float64 and bounds memory."""
     n = state.masses.shape[0]
     if n <= 4096:
         return potential_energy(state, g)
-    if state.positions.is_cuda and state.dtype == torch.float32:
+    if state.positions.is_cuda and state.dtype != torch.float64:
         from .ops.allpairs import allpairs_potential
 
-        phi = allpairs_potential(state.positions, state.masses, g=g)
-    else:
-        phi = potential_per_body_chunked(state.positions, state.masses, g)
+        masses = state.masses.float()
+        phi = allpairs_potential(state.positions.float(), masses, g=g)
+        return 0.5 * (masses * phi).sum()
+    phi = potential_per_body_chunked(state.positions, state.masses, g)
     return 0.5 * (state.masses * phi).sum()
 
 

@@ -315,6 +315,29 @@ def test_potential_energy_scalable_takes_k5_on_the_card(cuda):
     assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
 
 
+@pytest.mark.parametrize("dtype,launches", [(torch.float64, 0),
+                                            (torch.bfloat16, 1)])
+def test_potential_energy_scalable_dtypes_on_the_card(cuda, dtype, launches):
+    """float64 keeps the chunked precision route on the card; bfloat16 is
+    evaluated in float32 by K5 (within bfloat16's rounding of the
+    inputs)."""
+    from nbody_tpu_torch import physics
+    from nbody_tpu_torch.state import from_numpy
+
+    rng = np.random.default_rng(5)
+    n = 8192
+    args = (10 ** rng.uniform(-1, np.log10(0.5), n),
+            rng.uniform(-0.1, 0.1, (n, 2)), np.zeros((n, 2)))
+    want = physics.potential_energy_scalable(
+        from_numpy(*args, dtype=torch.float64), G)
+    before = allpairs.POTENTIAL_LAUNCHES
+    got = physics.potential_energy_scalable(
+        from_numpy(*args, dtype=dtype, device=cuda), G)
+    assert allpairs.POTENTIAL_LAUNCHES == before + launches
+    rel = 1e-12 if dtype == torch.float64 else 2e-2
+    assert abs(float(got) - float(want)) <= rel * abs(float(want))
+
+
 def _packed_lists(dims, seed, device, g=9, s=300, off=4096, width=6144):
     """A two-section packed list [G, 8, K] with random occupied lengths,
     zero gm past each length inside its tile and data in later tiles."""

@@ -143,6 +143,11 @@ def test_section_offset_must_tile():
         tle.resolve_list_tiles(64, 2000, 1000, 2048)
 
 
+def test_k_tile_below_128_lanes_raises():
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tle.resolve_list_tiles(64, 2048, 1024, 64)
+
+
 @pytest.mark.parametrize("dims", [2, 3])
 def test_compensation_against_float64(dims):
     """On a list of 262,144 lanes (2,048 tiles of 128) whose partial sums
