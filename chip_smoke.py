@@ -23,8 +23,12 @@ Phases, each printing what it found; the first failure exits non-zero:
    ``split_eval=True``;
    3d. K6, K6 compensated and K7 (the padded two-section list
    evaluators) against their twins on the packed lists of a real 2D
-   state at N=40,960 and a 3D state at N=131,072, and K6 against K7
-   against the default runs route on the whole force pass;
+   state at N=40,960 and a 3D state at N=131,072, with each call's
+   lanes (evaluated, gm > 0 in visited tiles, against needed and
+   visited), slices per target, blocks, waves, blocks per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the ptxas
+   registers and spills; K6 bit-equal to K7 on the same lists; and K6
+   against K7 against the default runs route on the whole force pass;
 4. the 2D main path: ``nbody_tpu_torch.cli.main(["run", ...])`` for
    barnes_hut at N=40,960 and allpairs at N=65,536, 10 steps each;
    4b. the 3D main path below the dense band: ``run --dims 3`` for
@@ -53,9 +57,12 @@ Phases, each printing what it found; the first failure exits non-zero:
    A/Bs (dense vs gather collector, split on vs off) and a
    ``torch.profiler`` split of the 1,048,576-body step;
    5d. K5 (on the metrics runs' last states), K6, K6 compensated and K7
-   beside their twins and K2 (with the share of K6/K7's visited pairs
-   that are padding), and one 3D force pass at N=1,048,576 on the
-   dynamic route (K7) against the default (K4), with peak memory.
+   beside their twins and K2 (with the share of the pairs they evaluate
+   that are padding, and of the lanes they visit that they skip), K6 at
+   every slice count, and one 3D step at N=1,048,576 on the dynamic
+   route (K7) against the default (K4), with peak memory and a
+   ``torch.profiler`` split into K7 and the rest, beside the packed
+   lists' build.
 
 The summary gives each kernel its bound: the larger of the FP32 work
 over 67 TFLOP/s, the special-function work (rsqrt, and the reciprocal of
@@ -77,6 +84,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -301,13 +309,14 @@ def capture_padded(positions, masses, mode: str, **kw):
 
 
 def padded_work(args, kw, dynamic: bool):
-    """(pairs needed, pairs visited, bytes) of one K6/K7 call.  Needed:
-    each target against the lanes with gm > 0 inside the approx section
-    [0, a_n) and the direct section [off, off + d_n), that is the approx
-    cells and the superblock lanes inside their range's [lo, hi) (K2's
-    direct lanes); the bytes are those lanes' coordinates and gm, the
-    targets and the outputs once.  Visited: every lane of every k-tile
-    the kernel stages, the zero-gm padding included."""
+    """(S, lanes needed, lanes evaluated, lanes visited, bytes) of one
+    K6/K7 call; each lane pairs with the group's S targets.  Needed: the
+    gm > 0 lanes inside the approx section [0, a_n) and the direct section
+    [off, off + d_n), that is the approx cells and the superblock lanes
+    inside their range's [lo, hi) (K2's direct lanes); the bytes are those
+    lanes' coordinates and gm, the targets and the outputs once.
+    Evaluated: the gm > 0 lanes of the tiles the walk visits, which the
+    kernel stages and pairs.  Visited: every lane of those tiles."""
     import torch
 
     from nbody_tpu_torch.ops import list_eval
@@ -316,19 +325,86 @@ def padded_work(args, kw, dynamic: bool):
     g, s, dims = tgt.shape
     k = src.shape[2]
     off = kw["section_offset"]
-    lane = torch.arange(k, device=src.device)[None]
+    lane = torch.arange(k, device=src.device)
     a_n, d_n = lens[0, :, None], lens[1, :, None]
     inside = (lane < a_n) | ((lane >= off) & (lane < off + d_n))
-    needed = int(((src[:, dims] > 0) & inside).sum())
+    live = src[:, dims] > 0
+    needed = int((live & inside).sum())
     k_tile, n_k = list_eval.resolve_list_tiles(s, k, off,
                                                kw.get("k_tile", 2048))
-    visited = 0
-    for a, d in lens.t().tolist():
+    visits = torch.zeros((g, n_k), dtype=torch.int64)
+    for gi, (a, d) in enumerate(lens.t().tolist()):
         for j in list_eval._occupied_tiles(a, d, k_tile, off // k_tile, n_k,
                                            dynamic):
-            visited += min(k_tile, k - j * k_tile)
-    return (needed * s, visited * s,
+            visits[gi, j] += 1
+    per_lane = visits.to(src.device)[:, lane // k_tile]  # [G, K]
+    return (s, needed, int((live * per_lane).sum()), int(per_lane.sum()),
             4 * (needed * (dims + 1) + 2 * tgt.numel() + lens.numel()))
+
+
+MODE_IDS = {"grid": 0, "compensated": 1, "dynamic": 2}  # list_eval.cu
+
+
+def ptxas_list_eval(log: str) -> dict:
+    """{(dims, mode id): (registers, spill bytes stored + loaded)} of the
+    K6/K7 instantiations in a ``ptxas -v`` report."""
+    out, cur, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"list_eval_kernelILi(\d)ELb([01])ELb([01])E", line)
+            cur = None if m is None else (
+                int(m[1]), 2 if m[3] == "1" else int(m[2]))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur] = (int(m[1]), spill)
+            cur = None
+    return out
+
+
+def launch_info(args, mode: str, ptx: dict) -> dict:
+    """K6/K7's launch on one call's targets: slices per target, targets
+    per block, blocks, blocks one SM holds, waves, registers, spills."""
+    import torch
+
+    from nbody_tpu_torch.ops import list_eval
+
+    g, s, dims = args[0].shape
+    r, per_block, blocks = list_eval.list_launch_shape(g, s)
+    per_sm = list_eval.list_eval_occupancy(dims, MODE_IDS[mode])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs, spill = ptx.get((dims, MODE_IDS[mode]), (None, None))
+    return {"slices": r, "targets_per_block": per_block, "blocks": blocks,
+            "blocks_per_sm": per_sm, "waves": blocks / (per_sm * sms),
+            "registers": regs, "spill_bytes": spill}
+
+
+def device_profile(step, reps: int = 2):
+    """(wall ms, {device kernel: ms}) per call of ``step`` under
+    torch.profiler; ops carry their kernels' time too, so only device
+    kernels are kept."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) / reps * 1e3
+    kern = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kern[e.key] = e.self_device_time_total / reps / 1e3
+    return wall, kern
 
 
 @contextlib.contextmanager
@@ -673,6 +749,8 @@ def main() -> int:
           "vs plain twins, 2D N=40960 (group 2048) and 3D N=131072",
           flush=True)
     padded = {}  # (dims, mode) -> [(args, kwargs)] of the force pass
+    shapes = {}  # (dims, mode) -> launch_info of the pass's first call
+    ptx = ptxas_list_eval(_cuda.build_log)
     pads = {2: random_state(SimConfig(n_bodies=40960), device=dev),
             3: random_state(SimConfig(n_bodies=n3, n_dim=3), device=dev)}
     names = {"grid": "k6", "compensated": "k6c", "dynamic": "k7"}
@@ -691,6 +769,21 @@ def main() -> int:
                 f"{tuple(args[1].shape)}, section offset "
                 f"{kw['section_offset']}, {len(calls)} call(s)",
                 wrap(*args, **kw), twin(*args, **kw))
+            for c, (a, k) in enumerate(calls):
+                info = launch_info(a, mode, ptx)
+                shapes.setdefault((dims, mode), info)
+                _, need, ev, vis, _ = padded_work(a, k, mode == "dynamic")
+                print(f"    call {c}: lanes evaluated (gm > 0 in visited "
+                      f"tiles) {ev} of {vis} visited, needed {need}; "
+                      f"slices {info['slices']}, "
+                      f"{info['targets_per_block']} targets a block, "
+                      f"{info['blocks']} blocks, {info['blocks_per_sm']} "
+                      f"blocks/SM -> {info['waves']:.2f} waves; registers "
+                      f"{info['registers']}, spill bytes "
+                      f"{info['spill_bytes']}", flush=True)
+                if ev != need:
+                    fail(f"{key.upper()} {dims}D evaluates {ev} lanes where "
+                         f"{need} are needed: padding reaches the pairs")
             if mode != "compensated":
                 fn = (bh3d.bh3_accelerations_grouped if dims == 3 else
                       bh_grouped.bh_accelerations_grouped)
@@ -705,6 +798,13 @@ def main() -> int:
                 accs["dynamic"], accs["runs"])
         compare(f"whole {dims}D pass: K6 route against the K7 route",
                 accs["grid"], accs["dynamic"])
+        for a, kw in padded[(dims, "dynamic")]:
+            if not torch.equal(list_eval.list_eval_pallas(*a, **kw),
+                               list_eval.list_eval_dynamic(*a, **kw)):
+                fail(f"K6 and K7 differ in bits on the {dims}D dynamic "
+                     "route's lists")
+        print(f"  K6 and K7 on the {dims}D dynamic route's lists: "
+              "bit-equal -> ok", flush=True)
 
     # -- phase 4: the 2D main path ------------------------------------------
     print("phase 4: 2D main path through nbody_tpu_torch.cli.main",
@@ -1025,20 +1125,7 @@ def main() -> int:
         t = cuda_ms(fn, reps=2)
         print(f"    {name}: {t:.2f} ms ({100 * t / step_ms:.1f}% of the "
               "step)", flush=True)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        for _ in range(2):
-            step1m()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - w0) / 2 * 1e3
-    kern = {}  # device kernels only: ops carry their kernels' time too
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            kern[e.key] = e.self_device_time_total / 2e3  # ms per step
+    wall, kern = device_profile(step1m)
     busy = sum(kern.values())
     if busy > 0:
         sorts = sum(t for k, t in kern.items() if "sort" in k.lower())
@@ -1057,7 +1144,9 @@ def main() -> int:
     # -- phase 5d: K5, K6, K7 and the 1M dynamic route ----------------------
     print(f"phase 5d: K5, K6, K6 compensated and K7 on {card}", flush=True)
     work = {}  # key -> (pair family, dims, pairs, bytes)
-    pad_share = {}  # K6/K7: the share of visited pairs that are padding
+    # K6/K7: the shares of evaluated pairs that are padding and of
+    # visited lanes that are skipped
+    pad_share = {}
     for dims, p, m in ((2, fin10, pads[2].masses),
                        (3, fin3m, st3m.masses)):
         n = m.shape[0]
@@ -1088,20 +1177,45 @@ def main() -> int:
             k = cuda_ms(lambda: [wrap(*a, **kw) for a, kw in calls], reps=10)
             plain = cuda_ms(lambda: [twin(*a, **kw) for a, kw in calls],
                             reps=1)
-            pairs = visited = nbytes = 0
+            pairs = evald = visited = nbytes = 0
             for a, kw in calls:
-                pp, vv, bb = padded_work(a, kw, dyn)
-                pairs, visited, nbytes = pairs + pp, visited + vv, nbytes + bb
+                s_, need, ev, vis, bb = padded_work(a, kw, dyn)
+                pairs, evald = pairs + need * s_, evald + ev * s_
+                visited, nbytes = visited + vis * s_, nbytes + bb
             ms[f"{key}_{dims}d"] = (k, plain)
             work[f"{key}_{dims}d"] = ("bh", dims, pairs, nbytes)
-            pad_share[f"{key}_{dims}d"] = 1 - pairs / visited
+            pad_share[f"{key}_{dims}d"] = (1 - pairs / evald,
+                                           1 - evald / visited)
             print(f"  {key.upper()} {dims}D: kernel {k:.3f} ms for "
                   f"{pairs / 1e9:.3f} G pairs needed = "
                   f"{pairs / k / 1e6:.1f} Gpairs/s ({k / k2:.2f}x "
-                  f"{name_r}, which needs {pairs_r / 1e9:.3f} G); it visits "
-                  f"{visited / 1e9:.3f} G, {100 * (1 - pairs / visited):.1f}%"
-                  f" of them padding; plain twin {plain:.3f} ms  [{card}]",
-                  flush=True)
+                  f"{name_r}, which needs {pairs_r / 1e9:.3f} G); it "
+                  f"evaluates {evald / 1e9:.3f} G, "
+                  f"{100 * (1 - pairs / evald):.1f}% of them padding, and "
+                  f"skips {100 * (1 - evald / visited):.1f}% of the "
+                  f"{visited / 1e9:.3f} G it visits; plain twin "
+                  f"{plain:.3f} ms  [{card}]", flush=True)
+        # K6 at every slice count on the same lists (the shape function's
+        # pick marked); each result held to the twin
+        calls = padded[(dims, "grid")]
+        pick = list_eval.list_launch_shape(*calls[0][0][0].shape[:2])[0]
+        want = [list_eval.list_eval_pallas_plain(*a, **kw) for a, kw in calls]
+        orig_shape, sweep = list_eval.list_launch_shape, []
+        try:
+            for r in (1, 2, 4, 8):
+                per = list_eval.LIST_THREADS // r
+                list_eval.list_launch_shape = (
+                    lambda g, s, r=r, per=per: (r, per, g * -(-s // per)))
+                for (a, kw), w in zip(calls, want):
+                    compare(f"K6 {dims}D at {r} slices",
+                            list_eval.list_eval_pallas(*a, **kw), w)
+                t_r = cuda_ms(lambda: [list_eval.list_eval_pallas(*a, **kw)
+                                       for a, kw in calls], reps=5)
+                sweep.append(f"r={r}{'*' if r == pick else ''} {t_r:.3f}")
+        finally:
+            list_eval.list_launch_shape = orig_shape
+        print(f"  K6 {dims}D by slices per target: {', '.join(sweep)} ms "
+              f"(* the launch-shape function's pick)  [{card}]", flush=True)
     dyn1m, base1m = step_fn(n1m, eval_mode="dynamic"), step_fn(n1m)
     t = [cuda_ms(f, reps=2) for f in (base1m, dyn1m, dyn1m, base1m)]
     peak = {}
@@ -1116,6 +1230,32 @@ def main() -> int:
           f"chunks) {t[1]:.2f} / {t[2]:.2f} ms (default first and last); "
           f"peak device memory {peak['default']:.2f} / {peak['dynamic']:.2f}"
           f" GiB  [{card}]", flush=True)
+    lists_in = []
+    with spying(bh_grouped, "_padded_lists", lists_in):
+        dyn1m()
+
+    def build_lists():
+        for a, kw in lists_in:
+            bh_grouped._padded_lists(*a, **kw)
+
+    build_ms = cuda_ms(build_lists, reps=2)
+    wall, kern = device_profile(dyn1m)
+    busy = sum(kern.values())
+    if busy > 0:
+        k7p = sum(t for k, t in kern.items() if "list_eval_kernel" in k)
+        print(f"  profiler, N={n1m} --eval-mode dynamic, 2 steps: wall "
+              f"{wall:.2f} ms/step, device busy {busy:.2f} ms/step, idle "
+              f"share {100 * (1 - busy / wall):.1f}%; K7 {k7p:.2f} ms "
+              f"({100 * k7p / busy:.1f}% of busy, {len(lists_in)} "
+              f"launches), the rest (tree, collector, superblocks, list "
+              f"building) {busy - k7p:.2f} ms; the packed lists' build "
+              f"(_padded_lists x {len(lists_in)}, CUDA events) "
+              f"{build_ms:.2f} ms  [{card}]", flush=True)
+        for k, t in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {t:8.3f} ms/step  {k[:100]}", flush=True)
+    else:
+        print("  profiler: no device time recorded for the dynamic step",
+              flush=True)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -1165,10 +1305,11 @@ def main() -> int:
         n_pad = 40960 if dims == 2 else n3
 
         def padded_entry(name, replaces, key, mode, counter):
+            pad, skipped = pad_share[f"{key}_{dims}d"]
             return entry(f"list_eval_{name}{sfx}", "list_eval.cu", replaces,
                          f"{key}_{dims}d", more[(dims, mode)][counter], dims,
-                         n_bodies=n_pad,
-                         padding_share=pad_share[f"{key}_{dims}d"])
+                         n_bodies=n_pad, padding_share=pad,
+                         skipped_share=skipped, **shapes[(dims, mode)])
 
         summary["kernels"] += [
             entry(f"potential_k5{sfx}", "allpairs.cu", pot, f"k5_{dims}d",

@@ -107,8 +107,10 @@ class _Library:
             ("nbody_allpairs_accel", [p, i, p, i, p, f, i, i, i, i, p], i),
             ("nbody_allpairs_potential", [p, i, p, i, p, i, i, i, p], i),
             ("nbody_list_eval",
-             [p, p, p, p, i, i, ctypes.c_longlong, i, i, i, f, i, i, i, p],
-             i),
+             [p, p, p, p, i, i, ctypes.c_longlong, i, i, i, f, i, i, i, i,
+              p], i),
+            ("nbody_list_eval_occupancy",
+             [i, i, i, ctypes.POINTER(ctypes.c_int)], i),
             ("nbody_runs_eval",
              [p, p, p, p, p, p, i, i, i, ctypes.c_longlong, i, i, f, i, i,
               i, p], i),

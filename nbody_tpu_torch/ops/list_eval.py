@@ -33,6 +33,7 @@ counts K2 launches, ``PACKED_LAUNCHES`` K3, ``SPLIT_LAUNCHES`` K4,
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -50,6 +51,13 @@ _MAX_SMEM = 232448  # bytes of shared memory one block may use on an H100
 # threads per block of K2: one target body each; S=2048 groups make
 # 16 blocks per group
 RUNS_THREADS = 128
+# K6/K7's launch shape: threads per block (list_eval.cu's kThreads), the
+# H100's SMs, and the warps one SM is counted to hold at once:
+# __launch_bounds__(256, 4) caps the kernel at 64 registers, so at least
+# four blocks of eight warps fit on an SM
+LIST_THREADS = 256
+SMS = 132
+LIST_WAVE_WARPS = 32
 
 # Same constants as nbody_tpu.ops.list_eval: ``runs_k_max`` is the TPU
 # kernel's VMEM ceiling on k_tile.  The grouped engine keeps applying it
@@ -448,6 +456,29 @@ def list_eval_dynamic_plain(
         compensated=False, dynamic=True)
 
 
+def list_launch_shape(g: int, s: int) -> tuple:
+    """K6/K7's launch on [G, S] targets: (r, targets per block, blocks).
+    Each target gets r thread slices, the fewest of 1, 2, 4, 8 whose
+    G x S x r threads make at least two waves of ``LIST_WAVE_WARPS`` warps
+    on each of the ``SMS`` SMs (8 when none does); a block of
+    ``LIST_THREADS`` threads holds LIST_THREADS / r targets.  The result
+    decides the kernel's summation order, so it depends on (G, S) alone."""
+    wave = SMS * LIST_WAVE_WARPS * 32  # threads
+    r = next((r for r in (1, 2, 4) if g * s * r >= 2 * wave), 8)
+    per_block = LIST_THREADS // r
+    return r, per_block, g * -(-s // per_block)
+
+
+def list_eval_occupancy(dims: int, mode: int) -> int:
+    """Blocks of K6/K7 (``mode`` 0: K6, 1: K6 compensated, 2: K7) that one
+    SM of the current card holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n = ctypes.c_int(0)
+    _cuda.check(_cuda.library().nbody_list_eval_occupancy(
+        dims, mode, LIST_THREADS, ctypes.byref(n)), "list_eval occupancy")
+    return n.value
+
+
 def _launch_list_eval(targets, sources, lens, *, softening, section_offset,
                       k_tile, mode: int, name: str) -> torch.Tensor:
     dev = targets.device
@@ -460,12 +491,9 @@ def _launch_list_eval(targets, sources, lens, *, softening, section_offset,
     _cuda.require(sources, "sources", torch.float32, (g, 8, k), dev)
     _cuda.require(lens, "lens", torch.int32, (2, g), dev)
     k_tile, n_k_tiles = resolve_list_tiles(s, k, section_offset, k_tile)
-    if 16 * k_tile > _MAX_SMEM:
-        raise ValueError(
-            f"k_tile={k_tile}: the staged tile must fit {_MAX_SMEM} bytes "
-            "of shared memory (16 B per lane)")
     if g > 65535:
         raise ValueError(f"{g} groups exceed the grid's y dimension")
+    slices = list_launch_shape(g, s)[0]
     out = torch.empty((g, s, dims), dtype=torch.float32, device=dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
@@ -473,7 +501,7 @@ def _launch_list_eval(targets, sources, lens, *, softening, section_offset,
             targets.data_ptr(), sources.data_ptr(), lens.data_ptr(),
             out.data_ptr(), g, s, k, k_tile, n_k_tiles,
             section_offset // k_tile, float(softening), dims, mode,
-            RUNS_THREADS, _cuda.stream_of(out),
+            LIST_THREADS, slices, _cuda.stream_of(out),
         )
     _cuda.check(code, name)
     return out

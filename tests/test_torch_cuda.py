@@ -384,12 +384,15 @@ def test_padded_list_kernels_match_twin(cuda, kernel, dims):
     assert (got - want).abs().max() <= TOL * want.abs().max()
 
 
-def test_k6_compensation_against_float64(cuda):
+@pytest.mark.parametrize("s", [64, 270336], ids=["r8", "r1"])
+def test_k6_compensation_against_float64(cuda, s):
     """On the card, as tests/test_torch_list_eval.py checks the twin:
     Kahan across 2,048 tiles of 128 lanes is at least as close to a
-    float64 evaluation as the plain running sum."""
+    float64 evaluation as the plain running sum, with 8 slices per target
+    (S = 64) and with one (S = 270,336; the first 64 targets compared)."""
+    assert list_eval.list_launch_shape(1, s)[0] == (8 if s == 64 else 1)
     rng = np.random.default_rng(7)
-    s, k = 64, 1 << 18
+    k = 1 << 18
     tgt = np.full((1, s, 2), -4.0, np.float32)
     tgt[0, :, 0] += rng.uniform(-1, 1, s)
     src = np.zeros((1, 8, k), np.float32)
@@ -398,16 +401,98 @@ def test_k6_compensation_against_float64(cuda):
     args = [torch.tensor(a, device=cuda) for a in (
         tgt, src, np.array([[k], [0]], np.int32))]
     kw = dict(softening=1e-15, section_offset=k, k_tile=128)
-    plain = list_eval.list_eval_pallas(*args, **kw).double().cpu().numpy()
-    comp = list_eval.list_eval_pallas(*args, compensated=True, **kw)
+    plain = list_eval.list_eval_pallas(*args, **kw)[:, :64]
+    plain = plain.double().cpu().numpy()
+    comp = list_eval.list_eval_pallas(*args, compensated=True, **kw)[:, :64]
     comp = comp.double().cpu().numpy()
     x = src[0].astype(np.float64)
-    disp = x[None, :2, :] - tgt[0, :, :, None].astype(np.float64)
+    disp = x[None, :2, :] - tgt[0, :64, :, None].astype(np.float64)
     d2 = (disp ** 2).sum(1)
     exact = ((x[2] / (d2 * (np.sqrt(d2) + 1e-15)))[:, None, :]
              * disp).sum(-1)[None]
     err_p, err_c = (np.abs(a - exact).max() for a in (plain, comp))
     assert err_c <= err_p and err_c <= 1e-6 * np.abs(exact).max()
+
+
+def _live_lane_lists(dims, seed, device, g, s):
+    """A packed list [G, 8, K] (section offset 4,096, direct section of
+    6,144 lanes, 2,048-lane tiles) whose gm is 0 on random 8-lane blocks
+    and past each section's length inside its tile (data in later tiles).
+    Group 0 is empty, group 1 has a_n = 0, group 2 d_n = 0, group 3 an
+    occupied approx tile without a live lane; group 4's first targets sit
+    on a direct lane with gm = 0 and on one with gm > 0 (the d2 > 0
+    guard)."""
+    rng = np.random.default_rng(seed)
+    off, width, kt = 4096, 6144, 2048
+    k = off + width
+    tgt = rng.uniform(-1, 1, (g, s, dims)).astype(np.float32)
+    src = np.zeros((g, 8, k), np.float32)
+    src[:, :dims] = rng.uniform(-1, 1, (g, dims, k))
+    src[:, dims] = rng.uniform(1e-4, 1e-3, (g, k))
+    src[:, dims] *= np.repeat(rng.random((g, k // 8)) < 0.5, 8, axis=1)
+    a_n = rng.integers(1, off + 1, g)
+    d_n = rng.integers(1, width + 1, g)
+    a_n[0] = d_n[0] = a_n[1] = d_n[2] = 0
+    a_n[3] = off
+    src[3, dims, kt:2 * kt] = 0.0
+    d_n[4] = max(d_n[4], 8 * 16)
+    for j in range(16):
+        lane = off + 8 * j
+        src[4, :dims, lane:lane + 2] = tgt[4, j, :, None]
+        src[4, dims, lane:lane + 2] = (0.0, 5e-4)
+    for gi in range(g):
+        src[gi, dims, a_n[gi]:-(-a_n[gi] // kt) * kt] = 0.0
+        src[gi, dims, off + d_n[gi]:off + -(-d_n[gi] // kt) * kt] = 0.0
+    lens = np.stack([a_n, d_n]).astype(np.int32)
+    return [torch.tensor(a, device=device) for a in (tgt, src, lens)], off
+
+
+# (G, S) making the launch-shape function pick 1 and 8 slices per target;
+# neither S is a multiple of the block's targets (256, 32)
+LIVE_SHAPES = {"r1": (66, 4100), "r8": (9, 300)}
+
+
+@pytest.mark.parametrize("shape", sorted(LIVE_SHAPES))
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("kernel", sorted(PADDED))
+def test_padded_list_kernels_on_live_lane_lists(cuda, kernel, dims, shape):
+    g, s = LIVE_SHAPES[shape]
+    assert list_eval.list_launch_shape(g, s)[0] == int(shape[1:])
+    fn, twin, counter, extra = PADDED[kernel]
+    args, off = _live_lane_lists(dims, dims + g, cuda, g, s)
+    kw = dict(softening=1e-15, section_offset=off, k_tile=2048, **extra)
+    before = getattr(list_eval, counter)
+    got = fn(*args, **kw)
+    want = twin(*args, **kw)
+    torch.cuda.synchronize()
+    assert getattr(list_eval, counter) == before + 1
+    assert torch.all(got[0] == 0.0) and torch.isfinite(got).all()
+    assert want[1:4].abs().min() > 0  # a_n = 0, d_n = 0, an empty tile
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+@pytest.mark.parametrize("shape", sorted(LIVE_SHAPES))
+@pytest.mark.parametrize("dims", [2, 3])
+def test_k6_and_k7_are_bit_equal(cuda, dims, shape):
+    """On a list whose approx tiles end before the direct section, K6's
+    skip rule and K7's walk visit the same tiles in the same order."""
+    g, s = LIVE_SHAPES[shape]
+    args, off = _live_lane_lists(dims, 10 + dims + g, cuda, g, s)
+    kw = dict(softening=1e-15, section_offset=off, k_tile=2048)
+    assert torch.equal(list_eval.list_eval_pallas(*args, **kw),
+                       list_eval.list_eval_dynamic(*args, **kw))
+
+
+def test_padded_list_kernels_take_tiles_past_shared_memory(cuda):
+    """K6/K7 stream a tile in chunks, so a 16,384-lane tile (256 KB as
+    whole float4, more than a block's 227 KB of shared memory) is taken."""
+    args, off = _packed_lists(2, 4, cuda, g=3, s=64, off=16384,
+                              width=16384)
+    kw = dict(softening=1e-15, section_offset=off, k_tile=16384)
+    assert list_eval.resolve_list_tiles(64, 2 * off, off, 16384)[0] == 16384
+    for fn, twin, _, extra in PADDED.values():
+        got, want = fn(*args, **kw, **extra), twin(*args, **kw, **extra)
+        assert (got - want).abs().max() <= TOL * want.abs().max()
 
 
 @pytest.mark.parametrize("mode", ["grid", "dynamic", "compensated"])

@@ -280,6 +280,98 @@ def test_whole_pass_matches_jax(case, mode, monkeypatch):
                                atol=FORCE_TOL * np.abs(want).max())
 
 
+def _captured_lists(case, monkeypatch):
+    """(inputs, (src, lens)) of every ``_padded_lists`` call of one real
+    dynamic-route pass on the case's cloud."""
+    dims, collect = PASSES[case]
+    m, p = _cloud(dims, 3)
+    seen = []
+    orig = tb2._padded_lists
+
+    def spy(*a):
+        out = orig(*a)
+        seen.append((a, out))
+        return out
+
+    monkeypatch.setattr(tb2, "_padded_lists", spy)
+    kw = dict(g=G, group_size=GS, eval_mode="dynamic")
+    if dims == 3:
+        tb3.bh3_accelerations_grouped(torch.tensor(p), torch.tensor(m),
+                                      collect=collect, **kw)
+    else:
+        tb2.bh_accelerations_grouped(torch.tensor(p), torch.tensor(m), **kw)
+    assert seen
+    return seen
+
+
+@pytest.mark.parametrize("case", sorted(PASSES))
+def test_packed_lists_are_finite_in_every_lane(case, monkeypatch):
+    """K6/K7 skip the gm = 0 lanes; that is exact only because such a
+    lane would add w * d = 0 * (finite) = +-0: every coordinate of a
+    packed list, padding included, is finite."""
+    for _, (src, lens) in _captured_lists(case, monkeypatch):
+        assert torch.isfinite(src).all()
+        assert int(lens.min()) >= 0
+
+
+@pytest.mark.parametrize("case", sorted(PASSES))
+def test_packed_lists_gm_is_zero_outside_ranges_and_sections(
+        case, monkeypatch):
+    """gm is exactly 0 on every lane outside [0, a_n) and [off, off + d_n),
+    and on every superblock lane outside its range's [lo, hi); inside, the
+    lane holds its body's g * m.  So the gm > 0 lanes of the visited
+    tiles, which K6/K7 evaluate, are exactly the needed lanes."""
+    for (coords, lm, (sb_idx, lo, hi), sb_packed, _), (src, lens) in (
+            _captured_lists(case, monkeypatch)):
+        dims, off, k = len(coords), lm.shape[1], src.shape[2]
+        gm = src[:, dims]
+        lane = torch.arange(k)
+        a_n, d_n = lens[0][:, None], lens[1][:, None]
+        inside = (lane < a_n) | ((lane >= off) & (lane < off + d_n))
+        assert torch.all(gm[~inside] == 0.0)
+        assert torch.all(gm[:, :off][lane[:off] < a_n] > 0.0)
+        e, b = (lane[off:] - off) // 8, (lane[off:] - off) % 8
+        sb = sb_idx[:, e]
+        body = 8 * sb + b
+        in_range = (sb >= 0) & (body >= lo[:, e]) & (body < hi[:, e])
+        want = torch.where(
+            in_range, sb_packed[sb.clamp(min=0).long(), 8 * dims + b], 0.0)
+        assert torch.equal(gm[:, off:], want)
+        assert torch.all(want[in_range] > 0.0) and in_range.any()
+
+
+@pytest.mark.parametrize("g,s", [(20, 2048), (64, 2048), (512, 2048),
+                                 (1, 64), (9, 300), (66, 4100), (3, 1)])
+def test_list_launch_shape(g, s):
+    """r is the fewest slices of 1, 2, 4, 8 that make two waves (8 when
+    none does), the same on every call; the blocks cover S."""
+    r, per_block, blocks = tle.list_launch_shape(g, s)
+    assert r in (1, 2, 4, 8)
+    assert tle.list_launch_shape(g, s) == (r, per_block, blocks)
+    assert per_block * r == tle.LIST_THREADS and blocks % g == 0
+    assert (blocks // g - 1) * per_block < s <= blocks // g * per_block
+    two_waves = 2 * tle.SMS * tle.LIST_WAVE_WARPS * 32
+    assert g * s * r >= two_waves or r == 8
+    assert r == 1 or g * s * r // 2 < two_waves
+
+
+@pytest.mark.parametrize("dims,n", [(2, 40960), (3, 131072)])
+def test_list_launch_fills_two_waves_on_the_main_passes(dims, n):
+    """At the padded route's 2D N=40,960 and 3D N=131,072 passes (one call
+    of G groups of S targets), the launch holds at least two waves of
+    warps."""
+    if dims == 2:
+        s = tb2.DEFAULT_GROUP_SIZE
+        g = n // s
+    else:
+        s = tb3.default_group_size3(n)
+        g = min(n // s, tb3.EVAL_CHUNK_3D)
+    r, _, blocks = tle.list_launch_shape(g, s)
+    warps = blocks * tle.LIST_THREADS // 32
+    assert warps >= 2 * tle.SMS * tle.LIST_WAVE_WARPS
+    assert r == (8 if dims == 2 else 4)
+
+
 def test_3d_packed_lists_go_in_chunks_of_64_groups(monkeypatch):
     """3D builds and evaluates the packed lists 64 groups at a time (the
     JAX package's eval_chunk); the result does not depend on it."""
