@@ -11,7 +11,11 @@ Phases, each printing what it found; the first failure exits non-zero:
 2. kernel K1 (all-pairs) against its plain PyTorch twin on the card;
    2b. K1's 3D instantiation, at N=65,536 and a ragged N;
    2c. K5 (the potential) against its twin in 2D and 3D at N=65,536 and
-   a ragged N, and ``physics.potential_energy_scalable`` on the card;
+   a ragged N, with its launch shape (targets per thread, slices per
+   target, blocks), blocks per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves and the
+   ptxas registers and spills, and ``physics.potential_energy_scalable``
+   on the card;
 3. kernel K2 (grouped Barnes-Hut runs evaluation) against its twin on
    the tables of a real 2D grouped-BH state;
    3b. K2 (3D) and K3 (segment-packed) against their twins, and K3
@@ -20,7 +24,9 @@ Phases, each printing what it found; the first failure exits non-zero:
    3c. K4 (quarter-split evaluation) against its twin on the tables of
    a real 3D state at N=1,048,576 (the default route: dense collector,
    split on), and K4's 2D instantiation on a 2D state with
-   ``split_eval=True``;
+   ``split_eval=True``; for both, the launch shape, blocks per SM, waves,
+   registers and spills, and the lanes the kernel staged (its own count)
+   against the lanes the tables need, which must be equal;
    3d. K6, K6 compensated and K7 (the padded two-section list
    evaluators) against their twins on the packed lists of a real 2D
    state at N=40,960 and a 3D state at N=131,072, with each call's
@@ -56,7 +62,8 @@ Phases, each printing what it found; the first failure exits non-zero:
    5c. K4 beside its twin and K2, the 3D step at both sizes, the gates'
    A/Bs (dense vs gather collector, split on vs off) and a
    ``torch.profiler`` split of the 1,048,576-body step;
-   5d. K5 (on the metrics runs' last states), K6, K6 compensated and K7
+   5d. K5 (on the metrics runs' last states, at every launch shape its
+   shape function can pick, all bit-equal), K6, K6 compensated and K7
    beside their twins and K2 (with the share of the pairs they evaluate
    that are padding, and of the lanes they visit that they skip), K6 at
    every slice count, and one 3D step at N=1,048,576 on the dynamic
@@ -345,15 +352,15 @@ def padded_work(args, kw, dynamic: bool):
 MODE_IDS = {"grid": 0, "compensated": 1, "dynamic": 2}  # list_eval.cu
 
 
-def ptxas_list_eval(log: str) -> dict:
-    """{(dims, mode id): (registers, spill bytes stored + loaded)} of the
-    K6/K7 instantiations in a ``ptxas -v`` report."""
+def ptxas_report(log: str, pattern: str, key) -> dict:
+    """{key(match): (registers, spill bytes stored + loaded)} of the kernel
+    instantiations whose mangled names match ``pattern`` in a ``ptxas -v``
+    report."""
     out, cur, spill = {}, None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"list_eval_kernelILi(\d)ELb([01])ELb([01])E", line)
-            cur = None if m is None else (
-                int(m[1]), 2 if m[3] == "1" else int(m[2]))
+            m = re.search(pattern, line)
+            cur = None if m is None else key(m)
             continue
         if cur is None:
             continue
@@ -366,6 +373,52 @@ def ptxas_list_eval(log: str) -> dict:
             out[cur] = (int(m[1]), spill)
             cur = None
     return out
+
+
+def ptxas_list_eval(log: str) -> dict:
+    """{(dims, mode id): (registers, spills)} of the K6/K7
+    instantiations."""
+    return ptxas_report(
+        log, r"list_eval_kernelILi(\d)ELb([01])ELb([01])E",
+        lambda m: (int(m[1]), 2 if m[3] == "1" else int(m[2])))
+
+
+def k5_launch(n: int, dims: int, ptx: dict) -> dict:
+    """K5's launch on N bodies: targets per thread, slices per target,
+    blocks, blocks one SM holds, waves, registers, spills."""
+    import torch
+
+    from nbody_tpu_torch.ops import allpairs
+
+    tpt, r, blocks = allpairs.potential_launch_shape(n)
+    per_sm = allpairs.potential_occupancy(dims)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs, spill = ptx.get(dims, (None, None))
+    return {"targets_per_thread": tpt, "slices": r, "blocks": blocks,
+            "blocks_per_sm": per_sm, "waves": blocks / (per_sm * sms),
+            "registers": regs, "spill_bytes": spill}
+
+
+def k4_launch(args, kw, ptx: dict) -> dict:
+    """K4's launch on one call's tables, and the lanes it stages (counted
+    by the kernel) against the lanes the tables need."""
+    import torch
+
+    from nbody_tpu_torch.ops import list_eval
+
+    g, s, dims = args[0].shape
+    tpt, per_q, blocks = list_eval.split_launch_shape(4 * g, s)
+    per_sm = list_eval.split_occupancy(dims)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs, spill = ptx.get(dims, (None, None))
+    need = int(list_eval.split_quarter_lanes(
+        *args[1:], k_tile=kw["k_tile"]).sum())
+    return {"targets_per_thread": tpt, "blocks_per_quarter": per_q,
+            "blocks": blocks, "blocks_per_sm": per_sm,
+            "waves": blocks / (per_sm * sms), "registers": regs,
+            "spill_bytes": spill,
+            "lanes_staged": list_eval.split_lanes_staged(*args, **kw),
+            "lanes_needed": need}
 
 
 def launch_info(args, mode: str, ptx: dict) -> dict:
@@ -665,13 +718,21 @@ def main() -> int:
 
     print("phase 2c: K5 (potential) vs plain twin; bound 1e-5 x max|phi|",
           flush=True)
+    ptx5 = ptxas_report(_cuda.build_log, r"potential_kernelILi(\d)E",
+                        lambda m: int(m[1]))
     for dims in (2, 3):
         for n in (65536, 40000):
             p, m = cloud(n, seed=31 + n + dims, device=dev, dims=dims)
             got = allpairs.allpairs_potential(p, m, g=G)
             want = allpairs.allpairs_potential_plain(p, m, g=G)
             torch.cuda.synchronize()
-            compare(f"K5 {dims}D N={n}", got, want)
+            info = k5_launch(n, dims, ptx5)
+            compare(f"K5 {dims}D N={n} ({info['targets_per_thread']} targets"
+                    f" a thread, {info['slices']} slices, {info['blocks']} "
+                    f"blocks, {info['blocks_per_sm']} blocks/SM -> "
+                    f"{info['waves']:.2f} waves; {info['registers']} "
+                    f"registers, spill bytes {info['spill_bytes']})",
+                    got, want)
             if n == 65536:
                 st = make_state(m, p, torch.zeros_like(p), device=dev)
                 pe = float(physics.potential_energy_scalable(st, G))
@@ -743,6 +804,25 @@ def main() -> int:
         "K4 2D N=65536 group_size 2048 split_eval=True",
         list_eval.list_eval_runs_split(*a42, **kw42),
         list_eval.list_eval_runs_split_plain(*a42, **kw42))
+    ptx4 = ptxas_report(_cuda.build_log, r"runs_split_kernelILi(\d)E",
+                        lambda m: int(m[1]))
+    k4_info = {}
+    for dims, (a, kw) in ((3, (a4, kw4)), (2, (a42, kw42))):
+        info = k4_info[dims] = k4_launch(a, kw, ptx4)
+        lanes = list_eval.split_quarter_lanes(*a[1:], k_tile=kw["k_tile"])
+        per_pair = pairs_needed(a, split=True) // (a[0].shape[1] // 4)
+        print(f"  K4 {dims}D launch: {info['targets_per_thread']} target a "
+              f"thread, {info['blocks_per_quarter']} block(s) a quarter, "
+              f"{info['blocks']} blocks, {info['blocks_per_sm']} blocks/SM "
+              f"-> {info['waves']:.2f} waves; registers "
+              f"{info['registers']}, spill bytes {info['spill_bytes']}; "
+              f"lanes staged {info['lanes_staged']}, needed "
+              f"{info['lanes_needed']} (from the pair count {per_pair}); "
+              f"lanes a quarter mean {float(lanes.float().mean()):.1f}, "
+              f"max {int(lanes.max())}", flush=True)
+        if not info["lanes_staged"] == info["lanes_needed"] == per_pair:
+            fail(f"K4 {dims}D stages {info['lanes_staged']} lanes where "
+                 f"{info['lanes_needed']} are needed")
 
     # -- phase 3d: K6, K6 compensated and K7 on real packed lists ---------
     print("phase 3d: K6, K6 compensated and K7 (padded two-section lists) "
@@ -1144,6 +1224,7 @@ def main() -> int:
     # -- phase 5d: K5, K6, K7 and the 1M dynamic route ----------------------
     print(f"phase 5d: K5, K6, K6 compensated and K7 on {card}", flush=True)
     work = {}  # key -> (pair family, dims, pairs, bytes)
+    k5_sweep = {}  # dims -> {shape: ms}
     # K6/K7: the shares of evaluated pairs that are padding and of
     # visited lanes that are skipped
     pad_share = {}
@@ -1159,6 +1240,30 @@ def main() -> int:
         print(f"  K5 {dims}D N={n} (the metrics run's last state): kernel "
               f"{k:.3f} ms = {n * n / k / 1e6:.1f} Gpairs/s; plain twin "
               f"{plain:.3f} ms  [{card}]", flush=True)
+        # K5 at every shape the shape function can pick (its pick marked);
+        # every shape sums in the same order, so all must give one result
+        pick = allpairs.potential_launch_shape(n)[:2]
+        ref = allpairs.allpairs_potential(p, m, g=G)
+        orig_shape, sweep = allpairs.potential_launch_shape, {}
+        tpt = allpairs.POTENTIAL_TARGETS_PER_THREAD
+        try:
+            for r in allpairs.POTENTIAL_SLICES:
+                allpairs.potential_launch_shape = (
+                    lambda n_, r=r: (tpt, r, 0))
+                if not torch.equal(allpairs.allpairs_potential(p, m, g=G),
+                                   ref):
+                    fail(f"K5 {dims}D at {r} slices differs in bits from "
+                         "the picked shape")
+                sweep[f"{tpt}x{r}"] = cuda_ms(
+                    lambda: allpairs.allpairs_potential(p, m, g=G), reps=5)
+        finally:
+            allpairs.potential_launch_shape = orig_shape
+        k5_sweep[dims] = sweep
+        print(f"  K5 {dims}D by (targets a thread) x (slices): "
+              + ", ".join(f"{k_}{'*' if k_ == '%dx%d' % pick else ''} "
+                          f"{t_:.3f}" for k_, t_ in sweep.items())
+              + " ms, all bit-equal (* the launch-shape function's pick)"
+              f"  [{card}]", flush=True)
     for dims, st in pads.items():
         a_r, kw_r, _ = capture_tables(st.positions, st.masses)
         k2 = cuda_ms(lambda: list_eval.list_eval_runs(*a_r, **kw_r), reps=10)
@@ -1281,7 +1386,7 @@ def main() -> int:
     ap, le = "nbody_tpu/ops/allpairs.py:49", "nbody_tpu/ops/list_eval.py:333"
     k4 = entry("runs_eval_k4_3d", "runs_eval.cu",
                "nbody_tpu/ops/list_eval.py:663", "k4_3d",
-               launches[(3, "barnes_hut", n1m)]["k4"], 3)
+               launches[(3, "barnes_hut", n1m)]["k4"], 3, **k4_info[3])
     k4["max_abs_err_2d"] = err["k4_2d"]
     summary = {"kernels": [
         entry("allpairs_k1", "allpairs.cu", ap, "k1_2d",
@@ -1314,7 +1419,9 @@ def main() -> int:
         summary["kernels"] += [
             entry(f"potential_k5{sfx}", "allpairs.cu", pot, f"k5_{dims}d",
                   more[f"metrics_{dims}d"]["k5"], dims,
-                  n_bodies=40960 if dims == 2 else 262144),
+                  n_bodies=40960 if dims == 2 else 262144,
+                  shape_ms=k5_sweep[dims],
+                  **k5_launch(40960 if dims == 2 else 262144, dims, ptx5)),
             padded_entry("k6", grid, "k6", "grid", "k6"),
             padded_entry("k6_compensated", grid, "k6c", "compensated", "k6"),
             padded_entry("k7", dyn, "k7", "dynamic", "k7"),

@@ -51,7 +51,7 @@
 // barriers each) per group.  Whether K3 beats K2 on the H100 is a
 // measurement (PERF.md), not a given.
 //
-// Design: one block per (slice of targets, group or quarter), one thread
+// Design of K2/K3: one block per (slice of targets, group), one thread
 // per target, so each thread owns its sum: no atomics, deterministic.
 // There is no scalar prefetch on the GPU, so each block reads its own lens
 // entry and table entries.  Each step stages its lanes of (x, y, z, gm) as
@@ -61,7 +61,32 @@
 // The TPU kernels' k_tile VMEM ceiling (list_eval.runs_k_max) does not
 // apply: a k-tile costs 16 B of shared memory per lane.  Every table read
 // is bounded by T, every list read by its width.
-
+//
+// Design of K4: what held its first design (K2's loop, one unit a step)
+// back was the step: 2.4x K2's direct tiles, ~218 live lanes each, every
+// one between two block barriers with no load in flight, and the gm = 0
+// tails of approx and extension tiles evaluated.  Now:
+//  * Packed units.  A quarter's units (approx tiles, extension tiles,
+//    direct entries, in that order) form one stream of the lanes they
+//    need: an approx tile's lanes below lens[0, i], an extension tile's
+//    below lens[1, i], a direct entry's [lo, hi).  The stream goes through
+//    shared memory in chunks of kSplitChunk lanes, as many units to a
+//    chunk as fit.  Dropping the tails is exact: every lane past lens in
+//    an occupied tile is gm = 0 and finite, so it would add +-0.
+//  * One partial per unit.  Each target sums a unit's lanes, in lane
+//    order, into a fresh partial that enters its running sum when the unit
+//    ends, in unit order, as the first design added each step's partial;
+//    nbody::pair_force pins pair_window's roundings.  The same operations
+//    in the same order, so the same bits.  A unit that runs past a chunk
+//    carries its partial over.
+//  * Streaming.  The next chunk is loaded into registers before this
+//    chunk's pair loop, so its loads fly during it.  Shared memory is one
+//    chunk and two tables of kUnits unit bounds (~16 KB), whatever k_tile.
+//  * Heaviest quarters first.  A quarter's lanes are heavy-tailed (at 1M:
+//    mean ~16,550, max ~280,000), so the kernel's time is the heaviest
+//    quarters' blocks; one target a thread keeps each of them short (two
+//    or more targets a thread measured slower: PERF.md), and the wrapper's
+//    `order` starts the heaviest first.
 #include <cuda_runtime.h>
 
 #include "pair_eval.cuh"
@@ -158,8 +183,21 @@ __global__ void runs_kernel(const float* __restrict__ tgt,     // [G, S, DIMS]
   }
 }
 
+constexpr int kSplitThreads = 256;  // SPLIT_THREADS in ops/list_eval.py
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSplitPer = 2;  // lanes each thread loads per chunk
+constexpr int kSplitChunk = kSplitPer * kSplitThreads;  // lanes per chunk
+constexpr int kUnits = kSplitThreads;  // units per batch, one per thread
+
+// The stream of one quarter: its units, in table order, are the approx
+// tiles (lanes < lens[0, i] of each), the extension tiles (lanes
+// < lens[1, i]) and the direct entries ([lo, hi) of each, clipped as
+// direct_entry clips it).  The stream is cut into chunks of at most
+// kSplitChunk lanes that never cross a batch of kUnits units; a batch's
+// table in shared memory gives each unit its first stream position (an
+// exclusive prefix over the block), its list and its first column.
 template <int DIMS>
-__global__ void runs_split_kernel(
+__global__ void __launch_bounds__(kSplitThreads, 3) runs_split_kernel(
     const float* __restrict__ tgt,     // [G, S, DIMS]
     const float* __restrict__ approx,  // [G, 8, A]
     const float* __restrict__ ext,     // [4G, 8, E]
@@ -169,12 +207,20 @@ __global__ void runs_split_kernel(
     float* __restrict__ out,           // [G, S, DIMS]
     const int n_quarters, const int S, const int A, const int E,
     const long long npad, const int T, const int k_tile, const int e_tiles,
-    const float eps) {
-  extern __shared__ float4 stile[];
-  const int qi = blockIdx.y;  // quarter i = 4g + q
+    const float eps, const int* __restrict__ order,
+    unsigned long long* __restrict__ staged) {
+  __shared__ float4 buf[kSplitChunk];
+  __shared__ int upos[2][kUnits + 1];     // stream position of each unit
+  __shared__ long long ucol[2][kUnits];   // its first column in its list
+  __shared__ int ukind[2][kUnits];        // 0 approx, 1 extension, 2 direct
+  __shared__ int wsum[kSplitWarps];
+  const int qi = order[blockIdx.y];  // quarter i = 4g + q, heaviest first
   const int g = qi >> 2;
   const int sq = S / 4;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // within the quarter
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  const int i = blockIdx.x * kSplitThreads + threadIdx.x;  // in the quarter
   const bool live = i < sq;
   const size_t ti_base =
       (static_cast<size_t>(g) * S + (qi & 3) * sq + i) * DIMS;
@@ -185,37 +231,158 @@ __global__ void runs_split_kernel(
   const int a_t = (lens[qi] + k_tile - 1) / k_tile;
   const int e_t = min((lens[n_quarters + qi] + k_tile - 1) / k_tile, e_tiles);
   const int d_t = min(lens[2 * n_quarters + qi], T);
+  const int a_lim = min(lens[qi], A);  // lanes the approx tiles hold
+  const int e_lim = min(lens[n_quarters + qi], E);
+  const int n_units = a_t + e_t + d_t;
   const float* ap = approx + static_cast<size_t>(g) * 8 * A;
   const float* ep = ext + static_cast<size_t>(qi) * 8 * E;
   const int* tb = tiles + static_cast<size_t>(qi) * 3 * T;
 
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int t = 0; t < a_t + e_t + d_t; ++t) {
-    int lo = 0, hi;
-    if (t < a_t + e_t) {
-      // an approx or extension tile is one window [0, n) from lane 0
-      const bool is_a = t < a_t;
-      const int c0 = (is_a ? t : t - a_t) * k_tile;
-      const int width = is_a ? A : E;
-      hi = min(k_tile, width - c0);
-      stage<DIMS>(stile, is_a ? ap : ep, width, c0, 0, hi);
-    } else {
+  // Units [u0, u0 + kUnits) into table `slot`, from stream position base;
+  // returns the batch's end position.  Every thread takes part.
+  auto build = [&](int slot, int u0, int base) {
+    const int u = u0 + static_cast<int>(threadIdx.x);
+    int w = 0, kind = 2;
+    long long col = 0;
+    if (u < a_t) {
+      kind = 0;
+      col = static_cast<long long>(u) * k_tile;
+      w = min(k_tile, a_lim - u * k_tile);
+    } else if (u < a_t + e_t) {
+      kind = 1;
+      col = static_cast<long long>(u - a_t) * k_tile;
+      w = min(k_tile, e_lim - (u - a_t) * k_tile);
+    } else if (u < n_units) {
       long long start;
-      direct_entry(tb, T, t - a_t - e_t, k_tile, npad, &start, &lo, &hi);
-      stage<DIMS>(stile, srct, npad, start, lo, hi);
+      int lo, hi;
+      direct_entry(tb, T, u - a_t - e_t, k_tile, npad, &start, &lo, &hi);
+      col = start + lo;
+      w = hi - lo;
     }
+    w = max(w, 0);
+    int x = w;  // inclusive scan over the warp, then over the warps
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
     __syncthreads();
-    float tx = 0.f, ty = 0.f, tz = 0.f;
-    pair_window<DIMS>(stile, lo, hi, px, py, pz, eps, &tx, &ty, &tz);
-    ax += tx;
-    ay += ty;
-    az += tz;
+    int before = base, end = base;
+#pragma unroll
+    for (int ww = 0; ww < kSplitWarps; ++ww) {
+      if (ww < warp) before += wsum[ww];
+      end += wsum[ww];
+    }
+    upos[slot][threadIdx.x + 1] = before + x;
+    if (threadIdx.x == 0) upos[slot][0] = base;
+    ucol[slot][threadIdx.x] = col;
+    ukind[slot][threadIdx.x] = kind;
     __syncthreads();
+    return end;
+  };
+
+  // the chunk in flight: stream positions p0 + p * kSplitThreads + tid
+  float4 v[kSplitPer];
+  auto fetch = [&](int slot, int p0, int p1) {
+#pragma unroll
+    for (int p = 0; p < kSplitPer; ++p) {
+      const int pos = p0 + p * kSplitThreads + static_cast<int>(threadIdx.x);
+      v[p] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (pos < p1) {
+        // the unit holding pos: upos[lo] <= pos < upos[lo + 1]
+        int lo = 0, hi = kUnits;
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (upos[slot][mid] <= pos) {
+            lo = mid;
+          } else {
+            hi = mid;
+          }
+        }
+        const int kind = ukind[slot][lo];
+        const float* sp = kind == 0 ? ap : (kind == 1 ? ep : srct);
+        const long long pitch = kind == 0 ? A : (kind == 1 ? E : npad);
+        const long long c = ucol[slot][lo] + (pos - upos[slot][lo]);
+        v[p] = make_float4(sp[c], sp[pitch + c],
+                           DIMS == 3 ? sp[2 * pitch + c] : 0.f,
+                           sp[DIMS * pitch + c]);
+      }
+    }
+  };
+
+  // the first batch that holds lanes (an empty batch holds only empty
+  // units, each of which would add +0)
+  int slot = 0, u0 = 0;
+  int bend = build(0, 0, 0);
+  while (bend == 0 && u0 + kUnits < n_units) {
+    u0 += kUnits;
+    bend = build(0, u0, 0);
+  }
+  int pos0 = 0, pos1 = min(bend, kSplitChunk);
+  int u = u0;  // the unit the pair loop is in
+  if (pos1 > pos0) fetch(slot, pos0, pos1);
+
+  float a[3] = {0.f, 0.f, 0.f};  // the running sum
+  float t[3] = {0.f, 0.f, 0.f};  // this unit's partial
+  unsigned long long n_staged = 0;
+  while (pos1 > pos0) {  // uniform across the block
+    const int m = pos1 - pos0;
+    __syncthreads();  // every thread is done with the last chunk
+#pragma unroll
+    for (int p = 0; p < kSplitPer; ++p) {
+      const int l = p * kSplitThreads + static_cast<int>(threadIdx.x);
+      if (l < m) buf[l] = v[p];
+    }
+    n_staged += m;
+    // the next chunk, from the next batch that holds lanes when this one
+    // ends; its loads fly while this chunk is evaluated
+    int nslot = slot, nu0 = u0, nbend = bend;
+    const int np0 = pos1;
+    if (np0 == bend) {
+      nslot = slot ^ 1;
+      while (nbend == np0 && nu0 + kUnits < n_units) {
+        nu0 += kUnits;
+        nbend = build(nslot, nu0, np0);
+      }
+    }
+    const int np1 = min(nbend, np0 + kSplitChunk);
+    __syncthreads();
+    if (np1 > np0) fetch(nslot, np0, np1);
+
+    // each unit's lanes into its partial, which enters the running sum
+    // when the unit ends (an empty unit adds +0); a unit that runs on past
+    // the chunk carries its partial into the next
+    int j = 0;
+    while (j < m) {
+      const int uend = upos[slot][u - u0 + 1] - pos0;
+      const int e = min(uend, m);
+      for (; j < e; ++j) {
+        nbody::pair_force<DIMS>(buf[j], px, py, pz, eps, &t[0], &t[1],
+                                &t[2]);
+      }
+      if (uend <= m) {
+#pragma unroll
+        for (int d = 0; d < DIMS; ++d) {
+          a[d] += t[d];
+          t[d] = 0.f;
+        }
+        ++u;
+      }
+    }
+    if (nslot != slot) u = nu0;  // a batch ends at a unit's end
+    slot = nslot;
+    u0 = nu0;
+    bend = nbend;
+    pos0 = np0;
+    pos1 = np1;
+  }
+  if (staged != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(staged, n_staged);
   }
   if (live) {
-    out[ti_base] = ax;
-    out[ti_base + 1] = ay;
-    if (DIMS == 3) out[ti_base + DIMS - 1] = az;
+#pragma unroll
+    for (int d = 0; d < DIMS; ++d) out[ti_base + d] = a[d];
   }
 }
 
@@ -263,54 +430,55 @@ cudaError_t dispatch_p(int seg_pack, const float* tgt, const float* approx,
   }
 }
 
-template <int DIMS>
-cudaError_t launch_split(const float* tgt, const float* approx,
-                         const float* ext, const float* srct, const int* tiles,
-                         const int* lens, float* out, int n_quarters, int S,
-                         int A, int E, long long npad, int T, int k_tile,
-                         int e_tiles, float softening, int threads,
-                         cudaStream_t stream) {
-  const size_t smem = sizeof(float4) * static_cast<size_t>(k_tile);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        runs_split_kernel<DIMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((S / 4 + threads - 1) / threads, n_quarters);
-  runs_split_kernel<DIMS><<<grid, threads, smem, stream>>>(
-      tgt, approx, ext, srct, tiles, lens, out, n_quarters, S, A, E, npad, T,
-      k_tile, e_tiles, softening);
-  return cudaGetLastError();
+using SplitFn = void (*)(const float*, const float*, const float*,
+                        const float*, const int*, const int*, float*, int,
+                        int, int, int, long long, int, int, int, float,
+                        const int*, unsigned long long*);
+
+SplitFn split_for(int dims) {
+  return dims == 3 ? runs_split_kernel<3>
+                   : (dims == 2 ? runs_split_kernel<2> : nullptr);
 }
 
 }  // namespace
 
+// One launch of K4: `threads` must be kSplitThreads; blocks of
+// kSplitThreads targets over each quarter's S / 4, one row per quarter,
+// row r taking quarter order[r] (a permutation of the 4G quarters).  A
+// non-null `staged` gets the lanes the first block of each quarter
+// staged.
 extern "C" int nbody_runs_eval_split(const float* tgt, const float* approx,
                                      const float* ext, const float* srct,
                                      const int* tiles, const int* lens,
                                      float* out, int n_quarters, int S, int A,
                                      int E, long long npad, int T, int k_tile,
                                      int e_tiles, float softening, int dims,
-                                     int threads, void* stream) {
+                                     int threads, const int* order,
+                                     unsigned long long* staged,
+                                     void* stream) {
   if (n_quarters == 0 || S == 0) return 0;
-  if (S % 4 || n_quarters % 4 || k_tile < 1) {
+  const SplitFn kernel = split_for(dims);
+  if (kernel == nullptr || threads != kSplitThreads || S % 4 ||
+      n_quarters % 4 || k_tile < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dims == 3) {
-    e = launch_split<3>(tgt, approx, ext, srct, tiles, lens, out, n_quarters,
-                        S, A, E, npad, T, k_tile, e_tiles, softening, threads,
-                        s);
-  } else if (dims == 2) {
-    e = launch_split<2>(tgt, approx, ext, srct, tiles, lens, out, n_quarters,
-                        S, A, E, npad, T, k_tile, e_tiles, softening, threads,
-                        s);
-  } else {
-    e = cudaErrorInvalidValue;
+  const dim3 grid((S / 4 + kSplitThreads - 1) / kSplitThreads, n_quarters);
+  kernel<<<grid, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tgt, approx, ext, srct, tiles, lens, out, n_quarters, S, A, E, npad, T,
+      k_tile, e_tiles, softening, order, staged);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K4 (`dims`) an SM of the current card holds at once, into
+// *blocks_per_sm.
+extern "C" int nbody_runs_split_occupancy(int dims, int threads,
+                                          int* blocks_per_sm) {
+  const SplitFn kernel = split_for(dims);
+  if (kernel == nullptr || threads != kSplitThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kSplitThreads, 0));
 }
 
 extern "C" int nbody_runs_eval(const float* tgt, const float* approx,

@@ -106,6 +106,8 @@ class _Library:
         for name, argtypes, restype in (
             ("nbody_allpairs_accel", [p, i, p, i, p, f, i, i, i, i, p], i),
             ("nbody_allpairs_potential", [p, i, p, i, p, i, i, i, p], i),
+            ("nbody_potential_occupancy",
+             [i, i, ctypes.POINTER(ctypes.c_int)], i),
             ("nbody_list_eval",
              [p, p, p, p, i, i, ctypes.c_longlong, i, i, i, f, i, i, i, i,
               p], i),
@@ -116,7 +118,9 @@ class _Library:
               i, p], i),
             ("nbody_runs_eval_split",
              [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
-              f, i, i, p], i),
+              f, i, i, p, p, p], i),
+            ("nbody_runs_split_occupancy",
+             [i, i, ctypes.POINTER(ctypes.c_int)], i),
             ("nbody_cuda_error_string", [i], ctypes.c_char_p),
         ):
             fn = next(getattr(d, name) for d in self._dlls

@@ -18,6 +18,8 @@ launches.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _cuda
@@ -25,10 +27,18 @@ from . import _cuda
 KERNEL_LAUNCHES = 0  # K1
 POTENTIAL_LAUNCHES = 0  # K5
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on an H100
-# K5's launch shape: threads per block (one target each) and sources
-# staged in shared memory per tile
-POTENTIAL_TARGET_BLOCK = 128
+# K5: threads per block, the sources of one tile, whose partial sum enters
+# the running sum whole (the TPU kernel's order), and the targets each
+# thread holds (allpairs.cu's kPotThreads, kPotTile, kPotTargets)
+POTENTIAL_THREADS = 256
 POTENTIAL_SOURCE_BLOCK = 1024
+POTENTIAL_TARGETS_PER_THREAD = 2
+# the thread slices a target may get; the H100's SMs and thread slots per
+# SM, and the blocks one SM is counted to hold (__launch_bounds__(256, 4))
+POTENTIAL_SLICES = (1, 2, 4, 8)
+SMS = 132
+SM_THREADS = 2048
+POTENTIAL_WAVE_BLOCKS = 4
 
 
 def allpairs_accelerations_plain(
@@ -143,6 +153,30 @@ def allpairs_potential_plain(
     return potential_per_body_chunked(positions.float(), masses.float(), g)
 
 
+def potential_launch_shape(n: int) -> tuple:
+    """K5's launch on N bodies: (targets per thread, slices per target,
+    blocks).  The fewest slices r of ``POTENTIAL_SLICES`` whose N x r
+    sums in flight fill 95% of the card's thread slots (``SMS`` x
+    ``SM_THREADS``), else the most; a block of ``POTENTIAL_THREADS``
+    threads holds POTENTIAL_THREADS / r x ``POTENTIAL_TARGETS_PER_THREAD``
+    targets.  Every shape sums in the same order, so the choice moves
+    time, never bits; it depends on N alone."""
+    slots = 0.95 * SMS * SM_THREADS
+    r = next((r for r in POTENTIAL_SLICES if n * r >= slots),
+             POTENTIAL_SLICES[-1])
+    tpt = POTENTIAL_TARGETS_PER_THREAD
+    return tpt, r, -(-n // (POTENTIAL_THREADS // r * tpt))
+
+
+def potential_occupancy(dims: int) -> int:
+    """Blocks of K5 (``dims``) that one SM of the current card holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n = ctypes.c_int(0)
+    _cuda.check(_cuda.library().nbody_potential_occupancy(
+        dims, POTENTIAL_THREADS, ctypes.byref(n)), "potential occupancy")
+    return n.value
+
+
 def allpairs_potential(
     positions: torch.Tensor,  # [N, D]
     masses: torch.Tensor,  # [N]
@@ -152,9 +186,9 @@ def allpairs_potential(
     """Per-body gravitational potential phi_i = sum_j -g*m_j/d_ij [N]
     (PE = 0.5 * sum_i m_i * phi_i), unsoftened, guard (d2 > 0) & (gm > 0).
 
-    On CUDA: kernel K5 (``POTENTIAL_TARGET_BLOCK`` threads per block,
-    ``POTENTIAL_SOURCE_BLOCK`` sources staged per tile); f32 only, 2D or
-    3D.  On the CPU: the plain twin."""
+    On CUDA: kernel K5 at the shape :func:`potential_launch_shape` picks
+    (per-tile partial sums of ``POTENTIAL_SOURCE_BLOCK`` sources, added in
+    tile order); f32 only, 2D or 3D.  On the CPU: the plain twin."""
     if not positions.is_cuda:
         return allpairs_potential_plain(positions, masses, g=g)
     global POTENTIAL_LAUNCHES
@@ -171,14 +205,14 @@ def allpairs_potential(
     _cuda.require(masses, "masses", torch.float32, (n,), dev)
     if (dims + 1) * n >= 2**31:
         raise ValueError("body counts must fit 32-bit indices")
+    slices = potential_launch_shape(n)[1]
     src = torch.cat([positions.t(), g * masses[None]])  # [D + 1, N]
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         code = lib.nbody_allpairs_potential(
             positions.data_ptr(), n, src.data_ptr(), n, out.data_ptr(),
-            POTENTIAL_TARGET_BLOCK, POTENTIAL_SOURCE_BLOCK, dims,
-            _cuda.stream_of(out),
+            POTENTIAL_THREADS, slices, dims, _cuda.stream_of(out),
         )
     _cuda.check(code, "allpairs potential (K5)")
     POTENTIAL_LAUNCHES += 1

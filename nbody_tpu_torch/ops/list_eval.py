@@ -58,6 +58,11 @@ RUNS_THREADS = 128
 LIST_THREADS = 256
 SMS = 132
 LIST_WAVE_WARPS = 32
+# K4's launch shape: threads per block, one target each (runs_eval.cu's
+# kSplitThreads), and the blocks one SM is counted to hold
+# (__launch_bounds__(256, 3))
+SPLIT_THREADS = 256
+SPLIT_WAVE_BLOCKS = 3
 
 # Same constants as nbody_tpu.ops.list_eval: ``runs_k_max`` is the TPU
 # kernel's VMEM ceiling on k_tile.  The grouped engine keeps applying it
@@ -303,13 +308,69 @@ def list_eval_runs_split(
     g is row i = 4g + q of ``ext``, ``tiles`` and ``lens`` and targets
     [qS/4, (q+1)S/4) of group g.  Returns [G, S, D].
 
-    On CUDA: kernel K4, f32 2D or 3D targets, int32 tables, contiguous
-    inputs only.  On the CPU: the plain twin."""
+    On CUDA: kernel K4 (heaviest quarters first, by
+    :func:`split_quarter_lanes`), f32 2D or 3D targets, int32 tables,
+    contiguous inputs only, any k_tile.  On the CPU: the plain twin."""
     if not targets.is_cuda:
         return list_eval_runs_split_plain(
             targets, approx, ext, sources_t, tiles, lens,
             softening=softening, k_tile=k_tile)
     global SPLIT_LAUNCHES
+    out = _launch_split(targets, approx, ext, sources_t, tiles, lens,
+                        softening=softening, k_tile=k_tile)
+    SPLIT_LAUNCHES += 1
+    return out
+
+
+def split_launch_shape(n_quarters: int, s: int) -> tuple:
+    """K4's launch on 4G quarters of S / 4 targets: (targets per thread,
+    blocks per quarter, blocks).  One target a thread, ``SPLIT_THREADS`` a
+    block, so a quarter of S / 4 targets takes ceil(S / 4 / SPLIT_THREADS)
+    blocks, each staging the quarter's lanes once.  Targets never share a
+    sum, so the shape moves time, never bits."""
+    per_quarter = max(1, -(-(s // 4) // SPLIT_THREADS))
+    return 1, per_quarter, n_quarters * per_quarter
+
+
+def split_quarter_lanes(approx, ext, sources_t, tiles, lens, *,
+                        k_tile: int) -> torch.Tensor:
+    """The source lanes each quarter's evaluation needs [4G] int64, which
+    K4 stages once per block: approx lanes below lens[0] (at most A),
+    extension lanes below lens[1] (at most E) and each of the first
+    min(lens[2], T) direct entries' [lo, hi), clipped to the k_tile window
+    and the source table."""
+    t_cap = tiles.shape[2]
+    start, lo, hi = tiles.long().unbind(1)  # each [4G, T]
+    hi = torch.minimum(hi.clamp(max=k_tile), sources_t.shape[1] - start)
+    span = (hi - lo.clamp(min=0)).clamp(min=0)
+    live = (torch.arange(t_cap, device=tiles.device)[None]
+            < lens[2, :, None].clamp(max=t_cap))
+    return (lens[0].long().clamp(max=approx.shape[2])
+            + lens[1].long().clamp(max=ext.shape[2]) + (span * live).sum(1))
+
+
+def split_occupancy(dims: int) -> int:
+    """Blocks of K4 (``dims``) that one SM of the current card holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n = ctypes.c_int(0)
+    _cuda.check(_cuda.library().nbody_runs_split_occupancy(
+        dims, SPLIT_THREADS, ctypes.byref(n)), "runs_split occupancy")
+    return n.value
+
+
+def split_lanes_staged(targets, approx, ext, sources_t, tiles, lens, *,
+                       softening: float, k_tile: int = 512) -> int:
+    """Run K4 once on CUDA tensors and return the lanes it staged, summed
+    over the quarters (each quarter's first block counts).  Not counted in
+    ``SPLIT_LAUNCHES``: a measurement, not the main path."""
+    staged = torch.zeros(1, dtype=torch.int64, device=targets.device)
+    _launch_split(targets, approx, ext, sources_t, tiles, lens,
+                  softening=softening, k_tile=k_tile, staged=staged)
+    return int(staged)
+
+
+def _launch_split(targets, approx, ext, sources_t, tiles, lens, *,
+                  softening, k_tile, staged=None) -> torch.Tensor:
     _check_split(targets, ext, tiles, lens)
     dev = targets.device
     g, s, dims = targets.shape
@@ -322,12 +383,15 @@ def list_eval_runs_split(
     _cuda.require(sources_t, "sources_t", torch.float32, (8, None), dev)
     _cuda.require(tiles, "tiles", torch.int32, (nq, 3, None), dev)
     _cuda.require(lens, "lens", torch.int32, (3, nq), dev)
-    if k_tile < 1 or 16 * k_tile > _MAX_SMEM:
-        raise ValueError(
-            f"k_tile={k_tile}: the staged tile must fit {_MAX_SMEM} bytes "
-            "of shared memory (16 B per lane)")
+    if k_tile < 1:
+        raise ValueError(f"k_tile={k_tile}: a tile holds at least one lane")
     if nq > 65535:
         raise ValueError(f"{nq} quarters exceed the grid's y dimension")
+    # the heaviest quarters first: their blocks set the kernel's time
+    order = torch.argsort(
+        split_quarter_lanes(approx, ext, sources_t, tiles, lens,
+                            k_tile=k_tile),
+        descending=True, stable=True).to(torch.int32)
     out = torch.empty((g, s, dims), dtype=torch.float32, device=dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
@@ -337,10 +401,11 @@ def list_eval_runs_split(
             out.data_ptr(), nq, s, approx.shape[2], ext.shape[2],
             sources_t.shape[1], tiles.shape[2], k_tile,
             -(-ext.shape[2] // k_tile), float(softening), dims,
-            RUNS_THREADS, _cuda.stream_of(out),
+            SPLIT_THREADS, order.data_ptr(),
+            None if staged is None else staged.data_ptr(),
+            _cuda.stream_of(out),
         )
     _cuda.check(code, "runs_eval split (K4)")
-    SPLIT_LAUNCHES += 1
     return out
 
 

@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Time and fingerprint kernels K5 (the potential) and K4 (the
+quarter-split evaluator) of several checkouts of nbody_tpu_torch on one
+GPU, in the order given:
+
+    python3 scripts/kernel_ab.py PARENT_TREE . . PARENT_TREE
+
+Each tree runs in a fresh process with that tree first on ``sys.path``
+(its kernels built from its own ``csrc``).  Per tree: K5 on the 2D
+N=40,960 and 3D N=262,144 states of ``random_state`` (seed 0), K4 on the
+tables of the 3D N=1,048,576 default force pass (CUDA events, mean of 10 /
+5 launches after a warm-up), and that default 3D step (mean of 2).  Each
+kernel's inputs and output get a SHA-256 digest of their bytes, so two
+trees' kernels can be held bit for bit.  One JSON line per tree, after
+the card's ``nvidia-smi`` name and power limit.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+G = 6.67e-11
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _child() -> None:
+    import torch
+
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.engines import make_accel_fn
+    from nbody_tpu_torch.ops import _cuda, allpairs, bh3d, list_eval
+    from nbody_tpu_torch.physics import integrate
+    from nbody_tpu_torch.rng import random_state
+
+    dev = torch.device("cuda", 0)
+    _cuda.library()
+
+    def cuda_ms(fn, reps):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    out = {"tree": os.environ["AB_TREE"]}
+    for dims, n in ((2, 40960), (3, 262144)):
+        st = random_state(SimConfig(n_bodies=n, n_dim=dims), device=dev)
+        p, m = st.positions, st.masses
+        key = f"k5_{dims}d"
+        out[f"{key}_ms"] = cuda_ms(
+            lambda: allpairs.allpairs_potential(p, m, g=G), reps=10)
+        out[f"{key}_in"] = _digest(p, m)
+        out[f"{key}_out"] = _digest(allpairs.allpairs_potential(p, m, g=G))
+
+    n1m = 1 << 20
+    st = random_state(SimConfig(n_bodies=n1m, n_dim=3), device=dev)
+    seen, orig = [], list_eval.list_eval_runs_split
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return orig(*a, **k)
+
+    list_eval.list_eval_runs_split = spy
+    try:
+        bh3d.bh3_accelerations_grouped(st.positions, st.masses, g=G)
+    finally:
+        list_eval.list_eval_runs_split = orig
+    (a, k), = seen
+    out["k4_ms"] = cuda_ms(lambda: orig(*a, **k), reps=5)
+    out["k4_in"] = _digest(*a)
+    out["k4_out"] = _digest(orig(*a, **k))
+
+    cfg = SimConfig(n_bodies=n1m, n_dim=3, engine="barnes_hut")
+    accel = make_accel_fn(cfg, return_diagnostics=True)
+
+    def step():
+        acc, ovf = accel(st.positions, st.masses)
+        return integrate(st, acc, cfg.dt, overflow=ovf.sum())
+
+    out["step1m_ms"] = cuda_ms(step, reps=2)
+    print(json.dumps(out), flush=True)
+
+
+def main(trees) -> int:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    for tree in trees:
+        path = os.path.abspath(tree)
+        env = dict(os.environ, AB_TREE=tree, PYTHONPATH=os.pathsep.join(
+            [path] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p]))
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--child"], env=env, cwd=path).returncode
+        if rc != 0:
+            print(f"{tree}: exited {rc}", flush=True)
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["--child"]:
+        _child()
+    else:
+        sys.exit(main(sys.argv[1:] or ["."]))

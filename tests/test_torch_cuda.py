@@ -199,6 +199,8 @@ def _split_tables(dims, seed, device):
             lo = int(rng.integers(0, k // 2))
             tiles[i, :, j] = (start, lo, int(rng.integers(lo, k + 1)))
         lens[2, i] = n_d
+    for gi in range(g):  # gm = 0 past the group's approx lanes, as built
+        approx[gi, dims, lens[0, 4 * gi]:] = 0.0
     return [torch.tensor(a, device=device)
             for a in (targets, approx, ext, srct, tiles, lens)], k
 
@@ -274,11 +276,106 @@ def test_k4_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         list_eval.list_eval_runs_split(*args[:5], args[5].long(),
                                        softening=0.0, k_tile=k)
-    with pytest.raises(ValueError, match="shared memory"):
-        list_eval.list_eval_runs_split(*args, softening=0.0, k_tile=1 << 15)
     with pytest.raises(ValueError, match="4G"):
         list_eval.list_eval_runs_split(args[0], args[1], args[2][:4],
                                        *args[3:], softening=0.0, k_tile=k)
+    # a k_tile past what a block's shared memory could stage whole now
+    # runs: the kernel streams every tile through one chunk
+    got = list_eval.list_eval_runs_split(*args, softening=0.0,
+                                         k_tile=1 << 15)
+    want = list_eval.list_eval_runs_split_plain(*args, softening=0.0,
+                                                k_tile=1 << 15)
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+def _packed_split_tables(dims, seed, device, s, k, t_cap, sections,
+                         width=(40, 256)):
+    """K4 tables for the packed streaming: per quarter, ``sections[i %
+    len]`` names which of approx / ext / direct it holds ("a", "e", "d");
+    direct entries are ``width``-lane windows at random starts (so they
+    straddle 512-lane chunks), some empty (lo == hi); the approx and
+    extension tails past lens are gm = 0, as the engine leaves them."""
+    rng = np.random.default_rng(seed)
+    g, a_w, e_w, ns = 2, 3 * k + 77, 2 * k + 5, 1 << 14
+    targets = rng.uniform(-0.1, 0.1, (g, s, dims)).astype(np.float32)
+    approx = np.zeros((g, 8, a_w), np.float32)
+    approx[:, :dims] = rng.uniform(-0.1, 0.1, (g, dims, a_w))
+    ext = np.zeros((4 * g, 8, e_w), np.float32)
+    ext[:, :dims] = rng.uniform(-0.1, 0.1, (4 * g, dims, e_w))
+    srct = np.zeros((8, ns + k), np.float32)
+    srct[:dims, :ns] = rng.uniform(-0.1, 0.1, (dims, ns))
+    srct[dims, :ns] = G * rng.uniform(0.1, 0.5, ns)
+    tiles = np.zeros((4 * g, 3, t_cap), np.int32)
+    lens = np.zeros((3, 4 * g), np.int32)
+    a_n = [int(rng.integers(1, a_w + 1)) for _ in range(g)]
+    for gi in range(g):
+        approx[gi, dims, :a_n[gi]] = G * rng.uniform(0.1, 0.5, a_n[gi])
+    for i in range(4 * g):
+        sec = sections[i % len(sections)]
+        if "a" in sec:
+            lens[0, i] = a_n[i // 4]
+        if "e" in sec:
+            lens[1, i] = int(rng.integers(1, e_w + 1))
+            ext[i, dims, :lens[1, i]] = G * rng.uniform(0.1, 0.5, lens[1, i])
+        if "d" in sec:
+            for j in range(t_cap):
+                start = 128 * int(rng.integers(0, ns // 128))
+                lo = int(rng.integers(0, k))
+                hi = min(k, lo + int(rng.integers(*width)))
+                tiles[i, :, j] = (start, lo, hi if j % 7 else lo)
+            lens[2, i] = t_cap
+    return [torch.tensor(a, device=device)
+            for a in (targets, approx, ext, srct, tiles, lens)]
+
+
+def _lanes_needed(args, k):
+    """The lanes K4 must stage, summed over the quarters: approx and
+    extension lanes below lens, direct [lo, hi) clipped to the window and
+    the source table."""
+    _, approx, ext, srct, tiles, lens = (a.cpu() for a in args)
+    a_w, e_w, npad, t_cap = (approx.shape[2], ext.shape[2], srct.shape[1],
+                             tiles.shape[2])
+    total = 0
+    for i in range(lens.shape[1]):
+        total += min(int(lens[0, i]), a_w) + min(int(lens[1, i]), e_w)
+        for e in range(min(int(lens[2, i]), t_cap)):
+            start, lo, hi = (int(x) for x in tiles[i, :, e])
+            total += max(0, min(hi, k, npad - start) - max(lo, 0))
+    return total
+
+
+PACKED_CASES = {
+    # (S, k_tile, entries a quarter, sections a quarter)
+    "straddle": (512, 256, 40, ["aed"]),
+    "no-direct": (512, 256, 12, ["ae", "aed", "a", "e"]),
+    "only-direct": (512, 256, 12, ["d", "aed"]),
+    "k-past-chunk": (512, 2048, 12, ["aed", "d"]),
+    "many-units": (256, 256, 700, ["aed", "d"]),
+    "five-blocks-a-quarter": (4400, 512, 30, ["aed", "ad"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+@pytest.mark.parametrize("dims", [2, 3])
+def test_k4_packed_streaming_matches_twin(cuda, dims, case):
+    s, k, t_cap, sections = PACKED_CASES[case]
+    args = _packed_split_tables(dims, len(case) + dims, cuda, s, k, t_cap,
+                                sections)
+    before = list_eval.SPLIT_LAUNCHES
+    got = list_eval.list_eval_runs_split(*args, softening=1e-15, k_tile=k)
+    want = list_eval.list_eval_runs_split_plain(*args, softening=1e-15,
+                                                k_tile=k)
+    torch.cuda.synchronize()
+    assert list_eval.SPLIT_LAUNCHES == before + 1
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    assert (got - want).abs().max() <= TOL * want.abs().max()
+    # the kernel stages exactly the lanes the tables need
+    need = _lanes_needed(args, k)
+    assert list_eval.split_lanes_staged(
+        *args, softening=1e-15, k_tile=k) == need
+    assert int(list_eval.split_quarter_lanes(*args[1:], k_tile=k).sum()) == (
+        need)
 
 
 # -- K5, K6 and K7 ---------------------------------------------------------------
@@ -297,6 +394,31 @@ def test_k5_matches_twin(cuda, dims, n):
     want = allpairs.allpairs_potential_plain(p, m, g=G)
     assert allpairs.POTENTIAL_LAUNCHES == before + 1
     assert (got - want).abs().max() <= TOL * want.abs().max()
+
+
+@pytest.mark.parametrize("n", [1037, 5000, 70001])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_k5_every_shape_matches_twin_and_each_other(cuda, monkeypatch, dims,
+                                                    n):
+    """K5 at every launch shape the shape function can pick, at N that
+    leave a partial block and a partial source tile: each within TOL of
+    the twin, and all bit-equal (every shape sums in the same order)."""
+    rng = np.random.default_rng(n + 10 * dims)
+    p = torch.tensor(rng.uniform(-0.1, 0.1, (n, dims)), dtype=torch.float32,
+                     device=cuda)
+    mass = 10 ** rng.uniform(-1, np.log10(0.5), n)
+    mass[::13] = 0.0  # massless bodies are never staged
+    m = torch.tensor(mass, dtype=torch.float32, device=cuda)
+    want = allpairs.allpairs_potential_plain(p, m, g=G)
+    outs = []
+    tpt = allpairs.POTENTIAL_TARGETS_PER_THREAD
+    for slices in allpairs.POTENTIAL_SLICES:
+        monkeypatch.setattr(allpairs, "potential_launch_shape",
+                            lambda n_, r=slices: (tpt, r, 0))
+        outs.append(allpairs.allpairs_potential(p, m, g=G))
+        assert (outs[-1] - want).abs().max() <= TOL * want.abs().max()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
 
 
 def test_potential_energy_scalable_takes_k5_on_the_card(cuda):

@@ -118,6 +118,40 @@ def test_k5_twin_takes_float64_and_returns_float32():
     assert tap.POTENTIAL_LAUNCHES == 0
 
 
+@pytest.mark.parametrize("n", [1, 1037, 4097, 40960, 65536, 135168, 262144,
+                               1 << 20])
+def test_k5_launch_shape_is_a_plain_function_of_n(n):
+    """K5's launch shape: in the kernel's sets, the same on every call,
+    blocks covering N, and the fewest slices whose sums in flight fill 95%
+    of the card's thread slots (else the most)."""
+    tpt, r, blocks = tap.potential_launch_shape(n)
+    assert tpt == tap.POTENTIAL_TARGETS_PER_THREAD == 2
+    assert r in tap.POTENTIAL_SLICES == (1, 2, 4, 8)
+    assert tap.potential_launch_shape(n) == (tpt, r, blocks)
+    per_block = tap.POTENTIAL_THREADS // r * tpt
+    assert blocks == -(-n // per_block) and blocks * per_block >= n
+    slots = tap.SMS * tap.SM_THREADS
+    assert n * r >= 0.95 * slots or r == 8
+    assert r == 1 or n * (r // 2) < 0.95 * slots
+
+
+@pytest.mark.parametrize("dims,n,want", [(2, 40960, (2, 8, 640)),
+                                         (3, 262144, (2, 1, 512))])
+def test_k5_launch_shape_on_the_metrics_runs(dims, n, want):
+    """At the metrics runs' sizes: 3D N=262,144 is one near-full wave of
+    blocks (512 of 528 at four blocks an SM); 2D N=40,960 gives each target
+    eight threads, so its 327,680 sums in flight fill more than the card's
+    270,336 thread slots (more waves of one-target threads measured slower
+    on the H100: PERF.md)."""
+    got = tap.potential_launch_shape(n)
+    assert got == want
+    waves = got[2] / (tap.SMS * tap.POTENTIAL_WAVE_BLOCKS)
+    if dims == 3:
+        assert 0.95 <= waves <= 1.0
+    else:
+        assert n * got[1] > tap.SMS * tap.SM_THREADS and waves > 1
+
+
 # -- tree statistics and the metrics CSV ----------------------------------------
 
 

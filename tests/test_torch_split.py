@@ -234,6 +234,89 @@ def test_split_tables_match_jax(case):
     assert (ext[:, dims][lane[None] < lens[1][:, None]] > 0).all()
 
 
+# -- the premise of K4's packed streaming ----------------------------------
+
+
+def _assert_packing_premise(approx, ext, srct, tiles, lens, k_tile, dims):
+    """What makes K4's packing exact: every approx and extension lane past
+    lens inside an occupied tile is gm = 0 with finite coordinates (so
+    skipping it drops +-0), and every direct entry's clipped [lo, hi) lies
+    inside its k_tile window and the source table."""
+    approx, ext, srct, tiles, lens = (torch.as_tensor(np.asarray(a)) for a in
+                                      (approx, ext, srct, tiles, lens))
+    for table, n_lanes, rows in ((approx, lens[0, ::4], approx.shape[0]),
+                                 (ext, lens[1], ext.shape[0])):
+        assert table.shape[0] == rows == n_lanes.shape[0]
+        width = table.shape[2]
+        lane = torch.arange(width)[None]
+        occupied = (-(-n_lanes // k_tile)) * k_tile
+        tail = (lane >= n_lanes[:, None]) & (lane < occupied[:, None])
+        assert (table[:, dims][tail] == 0).all()
+        assert torch.isfinite(table[:, :dims + 1]).all()
+    npad, t_cap = srct.shape[1], tiles.shape[2]
+    start, lo, hi = tiles.long().unbind(1)
+    live = torch.arange(t_cap)[None] < lens[2, :, None].clamp(max=t_cap)
+    assert (start[live] >= 0).all() and (start[live] % 128 == 0).all()
+    assert (lo[live] >= 0).all() and (lo[live] <= hi[live]).all()
+    assert (hi[live] <= k_tile).all()
+    assert (start[live] + hi[live] <= npad).all()
+    # the lanes K4 stages, counted two ways
+    span = (hi - lo).clamp(min=0) * live
+    want = (lens[0].long().clamp(max=approx.shape[2])
+            + lens[1].long().clamp(max=ext.shape[2]) + span.sum(1))
+    got = tle.split_quarter_lanes(approx, ext, srct, tiles, lens,
+                                  k_tile=k_tile)
+    assert torch.equal(got, want) and int(got.sum()) > 0
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_split_tables_hold_the_packing_premise(case):
+    _, targs, _, _ = _split_tables(*case)
+    _, approx, ext, srct, tiles, lens = targs
+    _assert_packing_premise(approx, ext, srct, tiles, lens, K_TILE, case[0])
+
+
+@pytest.mark.parametrize("dims,collect", [(2, None), (3, "gather"),
+                                          (3, "dense")],
+                         ids=["2d", "3d-gather", "3d-dense"])
+def test_engine_split_pass_holds_the_packing_premise(dims, collect,
+                                                     monkeypatch):
+    """The tables a whole split force pass hands K4 at N = 8,192."""
+    m, p = _cloud(dims, "blobs", 9, n=8192)
+    seen = []
+    orig = tle.list_eval_runs_split
+
+    def spy(*a, **kw):
+        seen.append((a, kw))
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tle, "list_eval_runs_split", spy)
+    kw = dict(g=G, group_size=GS, split_eval=True)
+    if dims == 3:
+        tb3.bh3_accelerations_grouped(torch.tensor(p), torch.tensor(m),
+                                      collect=collect, **kw)
+    else:
+        tb2.bh_accelerations_grouped(torch.tensor(p), torch.tensor(m), **kw)
+    (a, k), = seen
+    _assert_packing_premise(*a[1:], k["k_tile"], dims)
+
+
+@pytest.mark.parametrize("s,want", [(2048, (1, 2)), (512, (1, 1)),
+                                    (256, (1, 1)), (4400, (1, 5))])
+def test_k4_launch_shape(s, want):
+    """K4's launch: one target a thread, blocks of SPLIT_THREADS over each
+    quarter, the same on every call; at the 1M default (2,048 quarters of
+    512 targets) the grid is many waves long at the blocks an SM is
+    counted to hold."""
+    n_q = 2048
+    tpt, per_q, blocks = tle.split_launch_shape(n_q, s)
+    assert (tpt, per_q) == want and blocks == n_q * per_q
+    assert per_q * tle.SPLIT_THREADS >= s // 4
+    assert tle.split_launch_shape(n_q, s) == (tpt, per_q, blocks)
+    if s == 2048:
+        assert blocks / (tle.SMS * tle.SPLIT_WAVE_BLOCKS) >= 2
+
+
 # -- K4's twin against the Pallas kernel ----------------------------------
 
 
