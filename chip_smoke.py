@@ -20,7 +20,11 @@ Phases, each printing what it found; the first failure exits non-zero:
    the tables of a real 2D grouped-BH state;
    3b. K2 (3D) and K3 (segment-packed) against their twins, and K3
    against K2, on the packed and plain tables of one 3D grouped-BH state
-   at N=131,072 (both built from the same merged runs);
+   at N=131,072 (both built from the same merged runs); for each K2/K3
+   call of 3, 3b, 5 and 5b, its launch (slices per target, blocks, blocks
+   per SM, waves, ptxas registers and spills) and the lanes the kernel
+   staged (its own count) against the lanes the tables need, which must
+   be equal;
    3c. K4 (quarter-split evaluation) against its twin on the tables of
    a real 3D state at N=1,048,576 (the default route: dense collector,
    split on), and K4's 2D instantiation on a 2D state with
@@ -57,8 +61,11 @@ Phases, each printing what it found; the first failure exits non-zero:
    Every run has the kernels' launch counters reset just before it and
    read just after; each run is then replayed in lockstep against the
    plain twins;
-5. times on the card (CUDA events, after a warm-up), kernel beside twin;
-   5b. the same for the 3D kernels and the 3D grouped-BH step;
+5. times on the card (CUDA events, after a warm-up), kernel beside twin,
+   K2 at every slice count (all bit-equal) and its device time by the
+   profiler;
+   5b. the same for the 3D kernels (K2 and K3 at every slice count) and
+   the 3D grouped-BH step;
    5c. K4 beside its twin and K2, the 3D step at both sizes, the gates'
    A/Bs (dense vs gather collector, split on vs off) and a
    ``torch.profiler`` split of the 1,048,576-body step;
@@ -421,6 +428,98 @@ def k4_launch(args, kw, ptx: dict) -> dict:
             "lanes_needed": need}
 
 
+def runs_launch(args, kw, ptx: dict) -> dict:
+    """K2/K3's launch on one call's tables (slices per target, targets per
+    block, blocks, blocks one SM holds, waves, registers, spills), and the
+    lanes it stages (counted by the kernel) against the lanes the tables
+    need."""
+    import torch
+
+    from nbody_tpu_torch.ops import list_eval
+
+    g, s, dims = args[0].shape
+    p = kw.get("seg_pack", 1)
+    r, per_block, blocks = list_eval.runs_launch_shape(g, s)
+    per_sm = list_eval.runs_occupancy(dims, p)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs, spill = ptx.get((dims, p), (None, None))
+    need = int(list_eval.runs_group_lanes(*args[1:], k_tile=kw["k_tile"],
+                                          seg_pack=p).sum())
+    return {"slices": r, "targets_per_block": per_block, "blocks": blocks,
+            "blocks_per_sm": per_sm, "waves": blocks / (per_sm * sms),
+            "registers": regs, "spill_bytes": spill,
+            "lanes_staged": list_eval.runs_lanes_staged(*args, **kw),
+            "lanes_needed": need}
+
+
+def check_runs_launch(name: str, args, kw, ptx: dict) -> dict:
+    """Print K2/K3's launch on one call's tables; fail unless the kernel
+    stages exactly the lanes the tables need (also counted from the
+    pairs)."""
+    info = runs_launch(args, kw, ptx)
+    per_pair = pairs_needed(args, False, kw.get("seg_pack", 1)) // (
+        args[0].shape[1])
+    print(f"  {name} launch: {info['slices']} slices a target, "
+          f"{info['targets_per_block']} targets a block, {info['blocks']} "
+          f"blocks, {info['blocks_per_sm']} blocks/SM -> "
+          f"{info['waves']:.2f} waves; registers {info['registers']}, spill "
+          f"bytes {info['spill_bytes']}; lanes staged {info['lanes_staged']}"
+          f", needed {info['lanes_needed']} (from the pair count "
+          f"{per_pair})", flush=True)
+    if not info["lanes_staged"] == info["lanes_needed"] == per_pair:
+        fail(f"{name} stages {info['lanes_staged']} lanes where "
+             f"{info['lanes_needed']} are needed")
+    return info
+
+
+def runs_slice_sweep(name: str, args, kw, card: str) -> dict:
+    """K2/K3 at every slice count on one call's tables (the shape
+    function's pick marked): {"r=..": ms}; fail unless every count gives
+    the picked shape's bits."""
+    import torch
+
+    from nbody_tpu_torch.ops import list_eval
+
+    g, s = args[0].shape[:2]
+    pick = list_eval.runs_launch_shape(g, s)[0]
+    ref = list_eval.list_eval_runs(*args, **kw)
+    orig, sweep = list_eval.runs_launch_shape, {}
+    try:
+        for r in (1, 2, 4, 8):
+            per = list_eval.RUNS_THREADS // r
+            list_eval.runs_launch_shape = (
+                lambda g_, s_, r=r, per=per: (r, per, g_ * -(-s_ // per)))
+            if not torch.equal(list_eval.list_eval_runs(*args, **kw), ref):
+                fail(f"{name} at {r} slices differs in bits from the picked "
+                     "shape")
+            sweep[f"r={r}"] = cuda_ms(
+                lambda: list_eval.list_eval_runs(*args, **kw), reps=5)
+    finally:
+        list_eval.runs_launch_shape = orig
+    print(f"  {name} by slices per target: "
+          + ", ".join(f"{k}{'*' if k == f'r={pick}' else ''} {t:.3f}"
+                      for k, t in sweep.items())
+          + f" ms, all bit-equal (* the launch-shape function's pick)  "
+          f"[{card}]", flush=True)
+    return sweep
+
+
+def runs_device_ms(name: str, args, kw, card: str):
+    """K2/K3's device time per launch at the picked shape, by the
+    profiler: CUDA events around back-to-back calls also count the
+    wrapper's host work (the group order), which can leave the card idle
+    between sub-millisecond launches.  None if no device time shows."""
+    from nbody_tpu_torch.ops import list_eval
+
+    _, kern = device_profile(lambda: list_eval.list_eval_runs(*args, **kw),
+                             reps=10)
+    t = sum(v for k, v in kern.items() if "runs_kernel" in k)
+    rest = sum(kern.values()) - t
+    print(f"  {name} by the profiler: runs_kernel {t:.3f} ms a launch, the "
+          f"wrapper's other kernels {rest:.3f} ms  [{card}]", flush=True)
+    return t or None
+
+
 def launch_info(args, mode: str, ptx: dict) -> dict:
     """K6/K7's launch on one call's targets: slices per target, targets
     per block, blocks, blocks one SM holds, waves, registers, spills."""
@@ -757,6 +856,9 @@ def main() -> int:
     want = list_eval.list_eval_runs_plain(*args, **kw)
     torch.cuda.synchronize()
     err["k2_2d"] = compare("K2 2D N=65536", got, want)
+    ptxr = ptxas_report(_cuda.build_log, r"runs_kernelILi(\d)ELi(\d)E",
+                        lambda m: (int(m[1]), int(m[2])))
+    check_runs_launch("K2 2D N=65536", args, kw, ptxr)
 
     # -- phase 3b: K2 (3D) and K3 on real 3D tables -----------------------
     n3 = 131072
@@ -781,6 +883,8 @@ def main() -> int:
     err["k2_3d"] = compare(f"K2 3D N={n3}", k2_out,
                            list_eval.list_eval_runs_plain(*a3k, **kw3k))
     compare(f"K3 against K2 on the same runs, N={n3}", k3_out, k2_out)
+    for name, (a, k) in (("K3", (a3p, kw3p)), ("K2", (a3k, kw3k))):
+        check_runs_launch(f"{name} 3D N={n3}", a, k, ptxr)
 
     # -- phase 3c: K4 on real 1M tables, and in 2D -------------------------
     n1m = 1 << 20
@@ -1053,6 +1157,7 @@ def main() -> int:
           "warm-up)", flush=True)
     ms = {}
     tables = {}  # the (args, kwargs) each timed runs kernel took
+    runs_info = {}  # K2/K3's launch and slice sweep on those tables
     for dims in (2, 3):
         n = 65536
         p, m = cloud(n, seed=11 + dims, device=dev, dims=dims)
@@ -1090,6 +1195,11 @@ def main() -> int:
         if n == 40960:
             ms["k2_2d"] = (kern, plain)
             tables["k2_2d"] = (a, kw)
+            runs_info["k2_2d"] = dict(
+                check_runs_launch(f"K2 2D N={n}", a, kw, ptxr),
+                n_bodies=n, shape_ms=runs_slice_sweep(f"K2 2D N={n}", a, kw,
+                                                      card),
+                device_ms=runs_device_ms(f"K2 2D N={n}", a, kw, card))
 
     # -- phase 5b: 3D times ----------------------------------------------------
     for n in dict.fromkeys((n3, nk3)):
@@ -1130,6 +1240,12 @@ def main() -> int:
         if n == n3:
             ms["k3_3d"], ms["k2_3d"] = t["k3"], t["k2"]
             tables["k3_3d"], tables["k2_3d"] = pk, kk
+            for key, (a, kw) in (("k3_3d", pk), ("k2_3d", kk)):
+                name = f"{key[:2].upper()} 3D N={n}"
+                runs_info[key] = dict(
+                    check_runs_launch(name, a, kw, ptxr), n_bodies=n,
+                    shape_ms=runs_slice_sweep(name, a, kw, card),
+                    device_ms=runs_device_ms(name, a, kw, card))
     # -- phase 5c: K4, the 3D step at scale, the gates, the profile --------
     print(f"phase 5c: K4 and the 3D default route at scale on {card}",
           flush=True)
@@ -1394,13 +1510,16 @@ def main() -> int:
         entry("allpairs_k1_3d", "allpairs.cu", ap, "k1_3d",
               launches[(3, "allpairs", 65536)]["k1"], 3),
         entry("runs_eval_k2", "runs_eval.cu", le, "k2_2d",
-              launches[(2, "barnes_hut", 40960)]["k2"], 2),
+              launches[(2, "barnes_hut", 40960)]["k2"], 2,
+              **runs_info["k2_2d"]),
         entry("runs_eval_k2_3d", "runs_eval.cu", le, "k2_3d",
               sum(c["k2"] for (d_, e_, _), c in launches.items()
-                  if d_ == 3 and e_ == "barnes_hut"), 3),
+                  if d_ == 3 and e_ == "barnes_hut"), 3,
+              **runs_info["k2_3d"]),
         entry("runs_eval_k3_3d", "runs_eval.cu", le, "k3_3d",
               sum(c["k3"] for (d_, e_, _), c in launches.items()
-                  if d_ == 3 and e_ == "barnes_hut"), 3),
+                  if d_ == 3 and e_ == "barnes_hut"), 3,
+              **runs_info["k3_3d"]),
         k4,
     ]}
     pot, grid, dyn = ("nbody_tpu/ops/allpairs.py:288",

@@ -1,27 +1,12 @@
 // Device functions shared by the list-evaluation kernels (K2-K4 in
-// runs_eval.cu, K6/K7 in list_eval.cu): staging source lanes into shared
-// memory and the Barnes-Hut pair force over staged lanes (pair_window, for
-// K2, K3, K6, K7) or of one lane (pair_force, for K4), with the same bits.
+// runs_eval.cu, K6/K7 in list_eval.cu): the Barnes-Hut pair force over
+// staged lanes (pair_window, for K6, K7) or of one lane (pair_force, for
+// K2-K4), with the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace nbody {
-
-// Stage lanes [lo, hi) of the window at column c0 of a [DIMS + 1, pitch]
-// row-major list (coordinates, then gm) into dst[lo, hi) as float4
-// (x, y, z, gm), z = 0 in 2D.
-template <int DIMS>
-__device__ __forceinline__ void stage(float4* dst, const float* src,
-                                      long long pitch, long long c0, int lo,
-                                      int hi) {
-  for (int j = lo + static_cast<int>(threadIdx.x); j < hi; j += blockDim.x) {
-    const long long c = c0 + j;
-    dst[j] = make_float4(src[c], src[pitch + c],
-                         DIMS == 3 ? src[2 * pitch + c] : 0.f,
-                         src[DIMS * pitch + c]);
-  }
-}
 
 // The pair force of staged lanes [lo, hi) on the target (px, py, pz),
 // added to (tx, ty, tz): w = gm / (d2 * (d + eps)) with d = d2 * rsqrt(d2),

@@ -45,22 +45,50 @@
 //
 // What packing changes on this card: on the TPU every step DMAs a whole
 // k_tile and computes all of its lanes, so short Morton runs waste most
-// of a tile and K3 packs P short windows into one step.  Here K2 already
-// stages and visits only the [lo, hi) lanes of each tile, so packing
-// saves no pair work; it only cuts the number of steps (two block
-// barriers each) per group.  Whether K3 beats K2 on the H100 is a
-// measurement (PERF.md), not a given.
+// of a tile and K3 packs P short windows into one step.  Here both stage
+// only the lanes they need, so K3 and K2 do the same pair work; K3's
+// units are just P entries long.
 //
-// Design of K2/K3: one block per (slice of targets, group), one thread
-// per target, so each thread owns its sum: no atomics, deterministic.
-// There is no scalar prefetch on the GPU, so each block reads its own lens
-// entry and table entries.  Each step stages its lanes of (x, y, z, gm) as
-// float4 in shared memory (z = 0 in 2D; the mass is always .w), then every
-// thread loops over the staged windows; the per-step partial sum is added
-// to the running sum, as the TPU kernels add each step's lane reduction.
+// Design of K2/K3 (one kernel, runs_kernel<DIMS, P>).  What held the first
+// design back: one thread per target (15-48% of the card's thread slots
+// at the main path's shapes, each thread one serial chain of 5,000-15,000
+// pairs), one tile a step between two barriers with no load in flight,
+// and the gm = 0 approx lanes past lens[0] evaluated.  Now:
+//  * Packed units.  A group's units, in table order, are its approx tiles
+//    (lanes < min(lens[0, g], A) of each) and its direct steps (P entries
+//    e = d P + p, each a piece: its [lo, hi) clipped as direct_entry clips
+//    it).  Their lanes form one stream, staged through shared memory in
+//    rounds of at most kRunsChunk lanes.  A table of kRunsPieces pieces
+//    (block scan, binary-searched) maps a stream position to its column,
+//    and a table of the nonempty units' ends marks where partials close.
+//    Dropping the approx tails is exact: every lane past lens in an
+//    occupied tile is gm = 0 and finite, so it would add +-0.  An empty
+//    unit would add +0 to the running sum, which leaves it as it is, so it
+//    is skipped.
+//  * One partial per unit, in unit order.  A unit's lanes are summed in
+//    lane order into a fresh partial (nbody::pair_force pins pair_window's
+//    roundings), which enters the running sum when the unit ends, in unit
+//    order: the first design's operations in its order, so its bits.
+//  * Thread slices.  Each target has r = `slices` threads (1, 2, 4, 8); a
+//    block is r runs of kRunsThreads / r targets, so every warp is in one
+//    slice and reads one staged lane at a time (a broadcast).  A round's
+//    lanes are cut into r spans at unit ends, each cut the unit end
+//    nearest to an equal share of lanes.  Slice 0 adds the partials of its
+//    units to the running sum as they end; slices 1..r-1 leave theirs in
+//    shared-memory slots, which slice 0 adds in unit order after the
+//    round.  A unit that runs past the round leaves its partial in a carry
+//    slot, and slice 0 goes on summing it next round.  Every partial is
+//    one thread's chain in lane order and every partial enters in unit
+//    order, so the bits do not depend on r; ops/list_eval.py picks r from
+//    (G, S) so that the grid holds two waves.  A round holds at most as
+//    many units as the slots do.
+//  * Heaviest groups first.  A group's lanes are heavy-tailed (3D
+//    N=131,072: mean ~15,300, max ~65,900), so the wrapper's `order`
+//    starts the heaviest first.
+//  * Fixed shared memory (~46 KB a block, whatever k_tile): every list
+//    read is bounded by its width, every table read by T.
 // The TPU kernels' k_tile VMEM ceiling (list_eval.runs_k_max) does not
-// apply: a k-tile costs 16 B of shared memory per lane.  Every table read
-// is bounded by T, every list read by its width.
+// apply to K2-K4.
 //
 // Design of K4: what held its first design (K2's loop, one unit a step)
 // back was the step: 2.4x K2's direct tiles, ~218 live lanes each, every
@@ -93,9 +121,6 @@
 
 namespace {
 
-using nbody::pair_window;
-using nbody::stage;
-
 // Direct entry e of one table row tb [3, T]: its start and its [lo, hi)
 // lanes within a window of sw, clipped to the source table (npad).
 // Entries past T are empty.
@@ -114,72 +139,264 @@ __device__ __forceinline__ void direct_entry(const int* tb, int T, int e,
   }
 }
 
+// K2/K3's shape; RUNS_THREADS in ops/list_eval.py is kRunsThreads.
+constexpr int kRunsThreads = 256;
+constexpr int kRunsWarps = kRunsThreads / 32;
+constexpr int kRunsChunk = 2048;           // lanes staged a round
+constexpr int kRunsPieces = kRunsThreads;  // pieces a table, one a thread
+// Unit partials of one round's slices 1..r-1 (and the carry slot): U + 1
+// slots of DIMS x (kRunsThreads / r) floats.
+constexpr int kRunsSlotFloats = 2560;
+
+// The first index k in [k, end) with v[k] > x (`end` if none): v ascends.
+__device__ __forceinline__ int first_above(const int* v, int k, int end,
+                                           int x) {
+  while (k < end) {
+    const int mid = (k + end) >> 1;
+    if (v[mid] > x) {
+      end = mid;
+    } else {
+      k = mid + 1;
+    }
+  }
+  return k;
+}
+
+// The stream of group g: pieces j in table order, kRunsPieces to a table.
+// j < a_t: approx tile j, lanes [j k_tile, min((j + 1) k_tile, a_lim)), a
+// unit of its own; j in [a_t, a_al): empty fillers, so that each direct
+// step's P pieces sit in one table and one P-aligned run of threads;
+// j = a_al + e: direct entry e, its [lo, hi), closing a unit when
+// e % P == P - 1.
 template <int DIMS, int P>
-__global__ void runs_kernel(const float* __restrict__ tgt,     // [G, S, DIMS]
-                            const float* __restrict__ approx,  // [G, 8, A]
-                            const float* __restrict__ srct,    // [8, npad]
-                            const int* __restrict__ tiles,     // [G, 3, T]
-                            const int* __restrict__ lens,      // [2, G]
-                            float* __restrict__ out,           // [G, S, DIMS]
-                            const int n_groups, const int S, const int A,
-                            const long long npad, const int T,
-                            const int k_tile, const float eps) {
-  extern __shared__ float4 stile[];
-  const int g = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kRunsThreads, 4) runs_kernel(
+    const float* __restrict__ tgt,     // [G, S, DIMS]
+    const float* __restrict__ approx,  // [G, 8, A]
+    const float* __restrict__ srct,    // [8, npad]
+    const int* __restrict__ tiles,     // [G, 3, T]
+    const int* __restrict__ lens,      // [2, G]
+    float* __restrict__ out,           // [G, S, DIMS]
+    const int n_groups, const int S, const int A, const long long npad,
+    const int T, const int k_tile, const float eps, const int slices,
+    const int* __restrict__ order, unsigned long long* __restrict__ staged) {
+  __shared__ float4 buf[kRunsChunk];
+  __shared__ float slot[kRunsSlotFloats];
+  __shared__ int upos[kRunsPieces + 1];    // stream position of each piece
+  __shared__ long long ucol[kRunsPieces];  // its first column, ~col approx
+  __shared__ int uend[kRunsPieces];        // the nonempty units' ends
+  __shared__ int wsum[kRunsWarps], wcnt[kRunsWarps];
+  const int g = order[blockIdx.y];  // heaviest first
+  const int per_block = kRunsThreads / slices;
+  const int q = threadIdx.x / per_block;  // this thread's slice
+  const int il = threadIdx.x % per_block;
+  const int i = blockIdx.x * per_block + il;
   const bool live = i < S;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const size_t ti_base = (static_cast<size_t>(g) * S + i) * DIMS;
   const float px = live ? tgt[ti_base] : 0.f;
   const float py = live ? tgt[ti_base + 1] : 0.f;
   const float pz = (DIMS == 3 && live) ? tgt[ti_base + DIMS - 1] : 0.f;
 
+  // slots: unit k of a round at [(k DIMS + d) per_block + il], k < n_slot,
+  // the carry at k = n_slot; one slice adds every partial itself
+  const int n_slot =
+      slices == 1 ? 0 : kRunsSlotFloats / (DIMS * per_block) - 1;
+  const int max_units = slices == 1 ? kRunsPieces : n_slot;  // a round's
+  float* carry = slot + n_slot * DIMS * per_block + il;
   const int sw = k_tile / P;  // lanes per segment
   const int a_t = (lens[g] + k_tile - 1) / k_tile;
+  const int a_lim = min(lens[g], A);  // lanes the approx tiles hold
+  const int a_al = (a_t + P - 1) / P * P;
   const int d_t = min(lens[n_groups + g], (T + P - 1) / P);
+  const int n_pieces = a_al + d_t * P;
   const float* ap = approx + static_cast<size_t>(g) * 8 * A;
   const int* tb = tiles + static_cast<size_t>(g) * 3 * T;
 
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int t = 0; t < a_t + d_t; ++t) {
-    int lo[P], hi[P];
-    if (t < a_t) {
-      // an approx tile is one window [0, n) from lane 0
-      const int c0 = t * k_tile;
-      const int n = min(k_tile, A - c0);
-      stage<DIMS>(stile, ap, A, c0, 0, n);
-      lo[0] = 0;
-      hi[0] = n;
+  // Pieces [u0, u0 + kRunsPieces) into the tables, from stream position
+  // base; returns the table's end position and sets *n_u to its nonempty
+  // units.  Every thread takes part.
+  auto build = [&](int u0, int base, int* n_u) {
+    const int j = u0 + static_cast<int>(threadIdx.x);
+    int w = 0;
+    long long col = 0;
+    bool direct = false, ends = false;
+    if (j < a_t) {
+      col = ~(static_cast<long long>(j) * k_tile);
+      w = min(k_tile, a_lim - j * k_tile);
+      ends = true;
+    } else if (j >= a_al && j < n_pieces) {
+      const int e = j - a_al;
+      long long start;
+      int lo, hi;
+      direct_entry(tb, T, e, sw, npad, &start, &lo, &hi);
+      col = start + lo;
+      w = hi - lo;
+      direct = true;
+      ends = e % P == P - 1;
+    }
+    w = max(w, 0);
+    int uw = w;  // a direct step's lanes: the sum over its P pieces
 #pragma unroll
-      for (int p = 1; p < P; ++p) lo[p] = hi[p] = 0;
-    } else {
-      const int base = (t - a_t) * P;
+    for (int o = 1; o < P; o <<= 1) {
+      uw += __shfl_xor_sync(0xffffffffu, uw, o);
+    }
+    const bool unit_end = ends && (direct ? uw : w) > 0;
+    int x = w;  // inclusive scan over the warp, then over the warps
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        long long start;
-        int l, h;
-        direct_entry(tb, T, base + p, sw, npad, &start, &l, &h);
-        const int off = p * sw;
-        // stile[off + j] = source column start + j, for j in [l, h)
-        stage<DIMS>(stile + off, srct, npad, start, l, h);
-        lo[p] = off + l;
-        hi[p] = off + h;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += y;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, unit_end);
+    if (lane == 31) wsum[warp] = x;
+    if (lane == 0) wcnt[warp] = __popc(bal);
+    __syncthreads();
+    int before = base, end = base, ubefore = 0, units = 0;
+#pragma unroll
+    for (int ww = 0; ww < kRunsWarps; ++ww) {
+      if (ww < warp) {
+        before += wsum[ww];
+        ubefore += wcnt[ww];
+      }
+      end += wsum[ww];
+      units += wcnt[ww];
+    }
+    upos[threadIdx.x + 1] = before + x;
+    if (threadIdx.x == 0) upos[0] = base;
+    ucol[threadIdx.x] = col;
+    if (unit_end) {
+      uend[ubefore + __popc(bal & ((1u << lane) - 1u))] = before + x;
+    }
+    __syncthreads();
+    *n_u = units;
+    return end;
+  };
+
+  // the table's lanes [p0, p0 + m) into buf
+  auto fill = [&](int p0, int m) {
+    for (int l = threadIdx.x; l < m; l += kRunsThreads) {
+      const int pos = p0 + l;
+      // the piece holding pos: upos[lo] <= pos < upos[lo + 1]
+      int lo = 0, hi = kRunsPieces;
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (upos[mid] <= pos) {
+          lo = mid;
+        } else {
+          hi = mid;
+        }
+      }
+      const long long c0 = ucol[lo];
+      const float* sp = c0 < 0 ? ap : srct;
+      const long long pitch = c0 < 0 ? A : npad;
+      const long long c = (c0 < 0 ? ~c0 : c0) + (pos - upos[lo]);
+      buf[l] = make_float4(sp[c], sp[pitch + c],
+                           DIMS == 3 ? sp[2 * pitch + c] : 0.f,
+                           sp[DIMS * pitch + c]);
+    }
+  };
+
+  if (q == 0) {
+#pragma unroll
+    for (int d = 0; d < DIMS; ++d) carry[d * per_block] = 0.f;
+  }
+  float a[3] = {0.f, 0.f, 0.f};  // the running sum (slice 0)
+  int u0 = -kRunsPieces;  // the table's first piece
+  int n_u = 0;            // its nonempty units
+  int bend = 0;           // its end position
+  int pos0 = 0;           // the round's first lane
+  int kb = 0;             // the round's first unit in the table
+  int n_fold = 0, n_own = 0;  // the last round's units, slice 0's own
+  unsigned long long n_staged = 0;
+  while (true) {  // one round; uniform across the block
+    __syncthreads();  // the last round's buf reads, slots and carry are done
+    float t[3] = {0.f, 0.f, 0.f};  // the partial of the unit in progress
+    if (q == 0) {  // slices 1..r-1's partials, in unit order; the carry
+      for (int k = n_own; k < n_fold; ++k) {
+#pragma unroll
+        for (int d = 0; d < DIMS; ++d) {
+          a[d] += slot[(k * DIMS + d) * per_block + il];
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < DIMS; ++d) t[d] = carry[d * per_block];
+    }
+    // at a table's end (a unit's end), the next table that holds lanes
+    if (pos0 == bend) {
+      bool more = false;
+      while (!more && u0 + kRunsPieces < n_pieces) {
+        u0 += kRunsPieces;
+        bend = build(u0, pos0, &n_u);
+        kb = 0;
+        more = bend > pos0;
+      }
+      if (!more) break;
+    }
+    // the round: at most kRunsChunk lanes and max_units units of the table
+    int pos1 = min(pos0 + kRunsChunk, bend);
+    if (kb + max_units - 1 < n_u) pos1 = min(pos1, uend[kb + max_units - 1]);
+    const int k1 = first_above(uend, kb, n_u, pos1);  // units past pos1
+    const int m = pos1 - pos0;
+    fill(pos0, m);
+    n_staged += m;
+    __syncthreads();
+
+    // slice q's span [b0, b1): cut at the unit ends in (pos0, pos1) nearest
+    // to pos0 + q m / r (slice 0 always starts at pos0, the last ends at
+    // pos1)
+    auto cut = [&](int qq) {
+      if (qq == slices) return pos1;
+      if (qq == 0) return pos0;
+      const int x = pos0 + static_cast<int>(
+          static_cast<long long>(qq) * m / slices);
+      const int k = first_above(uend, kb, k1, x - 1);  // first end >= x
+      const int hi_c = k < k1 ? uend[k] : pos1;
+      if (k == kb) return hi_c;
+      const int lo_c = uend[k - 1];
+      return x - lo_c <= hi_c - x ? lo_c : hi_c;
+    };
+    const int b0 = cut(q), b1 = cut(q + 1);
+    int k = first_above(uend, kb, k1, b0);  // the unit holding lane b0
+    int own = 0;
+    for (int j = b0; j < b1;) {
+      const int ue = k < k1 ? uend[k] : pos1 + 1;  // past pos1: carried
+      const int e = min(ue, b1);
+      for (; j < e; ++j) {
+        nbody::pair_force<DIMS>(buf[j - pos0], px, py, pz, eps, &t[0],
+                                &t[1], &t[2]);
+      }
+      if (e == ue) {  // the unit ends: its partial, in unit order
+#pragma unroll
+        for (int d = 0; d < DIMS; ++d) {
+          if (q == 0) {
+            a[d] += t[d];
+          } else {
+            slot[((k - kb) * DIMS + d) * per_block + il] = t[d];
+          }
+          t[d] = 0.f;
+        }
+        own += q == 0;
+        ++k;
       }
     }
-    __syncthreads();
-    float tx = 0.f, ty = 0.f, tz = 0.f;
+    // the slice with the round's last lanes leaves the carry (0 when the
+    // round ends at a unit's end)
+    if (b0 < b1 && b1 == pos1) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      pair_window<DIMS>(stile, lo[p], hi[p], px, py, pz, eps, &tx, &ty, &tz);
+      for (int d = 0; d < DIMS; ++d) carry[d * per_block] = t[d];
     }
-    ax += tx;
-    ay += ty;
-    az += tz;
-    __syncthreads();
+    n_fold = k1 - kb;
+    n_own = own;
+    kb = k1;
+    pos0 = pos1;
   }
-  if (live) {
-    out[ti_base] = ax;
-    out[ti_base + 1] = ay;
-    if (DIMS == 3) out[ti_base + DIMS - 1] = az;
+  if (staged != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(staged, n_staged);
+  }
+  if (live && q == 0) {
+#pragma unroll
+    for (int d = 0; d < DIMS; ++d) out[ti_base + d] = a[d];
   }
 }
 
@@ -386,48 +603,30 @@ __global__ void __launch_bounds__(kSplitThreads, 3) runs_split_kernel(
   }
 }
 
-template <int DIMS, int P>
-cudaError_t launch(const float* tgt, const float* approx, const float* srct,
-                   const int* tiles, const int* lens, float* out,
-                   int n_groups, int S, int A, long long npad, int T,
-                   int k_tile, float softening, int threads,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float4) * static_cast<size_t>(k_tile);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        runs_kernel<DIMS, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((S + threads - 1) / threads, n_groups);
-  runs_kernel<DIMS, P><<<grid, threads, smem, stream>>>(
-      tgt, approx, srct, tiles, lens, out, n_groups, S, A, npad, T, k_tile,
-      softening);
-  return cudaGetLastError();
-}
+using RunsFn = void (*)(const float*, const float*, const float*,
+                        const int*, const int*, float*, int, int, int,
+                        long long, int, int, float, int, const int*,
+                        unsigned long long*);
 
 template <int DIMS>
-cudaError_t dispatch_p(int seg_pack, const float* tgt, const float* approx,
-                       const float* srct, const int* tiles, const int* lens,
-                       float* out, int n_groups, int S, int A, long long npad,
-                       int T, int k_tile, float softening, int threads,
-                       cudaStream_t stream) {
+RunsFn runs_for(int seg_pack) {
   switch (seg_pack) {
     case 1:
-      return launch<DIMS, 1>(tgt, approx, srct, tiles, lens, out, n_groups, S,
-                             A, npad, T, k_tile, softening, threads, stream);
+      return runs_kernel<DIMS, 1>;
     case 2:
-      return launch<DIMS, 2>(tgt, approx, srct, tiles, lens, out, n_groups, S,
-                             A, npad, T, k_tile, softening, threads, stream);
+      return runs_kernel<DIMS, 2>;
     case 4:
-      return launch<DIMS, 4>(tgt, approx, srct, tiles, lens, out, n_groups, S,
-                             A, npad, T, k_tile, softening, threads, stream);
+      return runs_kernel<DIMS, 4>;
     case 8:
-      return launch<DIMS, 8>(tgt, approx, srct, tiles, lens, out, n_groups, S,
-                             A, npad, T, k_tile, softening, threads, stream);
+      return runs_kernel<DIMS, 8>;
     default:
-      return cudaErrorInvalidValue;
+      return nullptr;
   }
+}
+
+RunsFn runs_for(int dims, int seg_pack) {
+  return dims == 3 ? runs_for<3>(seg_pack)
+                   : (dims == 2 ? runs_for<2>(seg_pack) : nullptr);
 }
 
 using SplitFn = void (*)(const float*, const float*, const float*,
@@ -481,26 +680,42 @@ extern "C" int nbody_runs_split_occupancy(int dims, int threads,
       blocks_per_sm, kernel, kSplitThreads, 0));
 }
 
+// One launch of K2 (seg_pack 1) or K3 (seg_pack 2, 4, 8): `threads` must
+// be kRunsThreads and `slices` one of 1, 2, 4, 8; blocks of
+// kRunsThreads / slices targets over S, row r taking group order[r] (a
+// permutation of the G groups).  A non-null `staged` gets the lanes the
+// first block of each group staged.
 extern "C" int nbody_runs_eval(const float* tgt, const float* approx,
                                const float* srct, const int* tiles,
                                const int* lens, float* out, int n_groups,
                                int S, int A, long long npad, int T,
                                int k_tile, float softening, int dims,
-                               int seg_pack, int threads, void* stream) {
+                               int seg_pack, int threads, int slices,
+                               const int* order, unsigned long long* staged,
+                               void* stream) {
   if (n_groups == 0 || S == 0) return 0;
-  if (seg_pack < 1 || k_tile % seg_pack) {
+  const RunsFn kernel = runs_for(dims, seg_pack);
+  if (kernel == nullptr || k_tile < seg_pack || k_tile % seg_pack ||
+      threads != kRunsThreads ||
+      (slices != 1 && slices != 2 && slices != 4 && slices != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dims == 3) {
-    e = dispatch_p<3>(seg_pack, tgt, approx, srct, tiles, lens, out, n_groups,
-                      S, A, npad, T, k_tile, softening, threads, s);
-  } else if (dims == 2) {
-    e = dispatch_p<2>(seg_pack, tgt, approx, srct, tiles, lens, out, n_groups,
-                      S, A, npad, T, k_tile, softening, threads, s);
-  } else {
-    e = cudaErrorInvalidValue;
+  const int per_block = kRunsThreads / slices;
+  const dim3 grid((S + per_block - 1) / per_block, n_groups);
+  kernel<<<grid, kRunsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tgt, approx, srct, tiles, lens, out, n_groups, S, A, npad, T, k_tile,
+      softening, slices, order, staged);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K2/K3 (`dims`, `seg_pack`) an SM of the current card holds at
+// once, into *blocks_per_sm.
+extern "C" int nbody_runs_occupancy(int dims, int seg_pack, int threads,
+                                    int* blocks_per_sm) {
+  const RunsFn kernel = runs_for(dims, seg_pack);
+  if (kernel == nullptr || threads != kRunsThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kRunsThreads, 0));
 }

@@ -115,7 +115,9 @@ class _Library:
              [i, i, i, ctypes.POINTER(ctypes.c_int)], i),
             ("nbody_runs_eval",
              [p, p, p, p, p, p, i, i, i, ctypes.c_longlong, i, i, f, i, i,
-              i, p], i),
+              i, i, p, p, p], i),
+            ("nbody_runs_occupancy",
+             [i, i, i, ctypes.POINTER(ctypes.c_int)], i),
             ("nbody_runs_eval_split",
              [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
               f, i, i, p, p, p], i),

@@ -155,6 +155,122 @@ def test_k3_matches_k2_on_the_same_runs(cuda, monkeypatch):
     assert (packed - plain).abs().max() <= TOL * plain.abs().max()
 
 
+def _at_slices(monkeypatch, r):
+    """Force K2/K3's launch shape to r slices per target."""
+    per = list_eval.RUNS_THREADS // r
+    monkeypatch.setattr(list_eval, "runs_launch_shape",
+                        lambda g, s: (r, per, g * -(-s // per)))
+
+
+def _every_slice_count(monkeypatch, args, kw):
+    """K2/K3 at r = 1, 2, 4, 8 slices: the results, which must be one."""
+    orig = list_eval.runs_launch_shape
+    outs = []
+    for r in (1, 2, 4, 8):
+        _at_slices(monkeypatch, r)
+        outs.append(list_eval.list_eval_runs(*args, **kw))
+    monkeypatch.setattr(list_eval, "runs_launch_shape", orig)
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("seg_pack", [1, 4], ids=["K2-3d", "K3"])
+def test_runs_kernels_every_slice_count_on_engine_tables(cuda, monkeypatch,
+                                                         seg_pack):
+    p, m = _cloud3(8192, 9, cuda)
+    a, kw = _tables3(p, m, seg_pack, monkeypatch)
+    outs = _every_slice_count(monkeypatch, a, kw)
+    want = list_eval.list_eval_runs_plain(*a, **kw)
+    for got in outs:
+        assert torch.equal(got, outs[0])
+    assert (outs[0] - want).abs().max() <= TOL * want.abs().max()
+    need = int(list_eval.runs_group_lanes(*a[1:], k_tile=kw["k_tile"],
+                                          seg_pack=seg_pack).sum())
+    assert list_eval.runs_lanes_staged(*a, **kw) == need > 0
+
+
+def _ragged_runs_tables(dims, seed, device, seg_pack, case):
+    """Synthetic K2/K3 tables.  Groups: empty, approx only, direct only,
+    both with lens[1] past ceil(T / P), both, one approx lane.  Direct
+    entries: random 128-aligned windows of the k_tile / P segment, some
+    padded (lo == hi == 0), some empty (lo == hi); every source lane a
+    real body, so the windows' masks matter; approx lanes past lens[0]
+    gm = 0, as the engine leaves them.  ``case``: "mixed" (windows of any
+    width: units straddle the staged rounds), "many-units" (1-8 lanes:
+    more units than a round's slots and more pieces than one table),
+    "big-k" (k_tile 16,384, past what one block could stage whole; windows
+    of up to 1,024 lanes anywhere in it and at most 2,100 approx lanes, so
+    that the kernel's lane-order sums stay within 1e-5 x max|a| of the
+    twin's tree-ordered ones)."""
+    rng = np.random.default_rng(seed)
+    k = max({"mixed": 512, "many-units": 1024, "big-k": 16384}[case],
+            128 * seg_pack)
+    t_cap = {"mixed": 40, "many-units": 700, "big-k": 12}[case]
+    sw = k // seg_pack
+    max_w = {"mixed": sw, "many-units": 8, "big-k": min(sw, 1024)}[case]
+    g, s, ns = 6, 300, 1 << 15
+    a_w = 3 * k
+    targets = rng.uniform(-0.1, 0.1, (g, s, dims)).astype(np.float32)
+    approx = np.zeros((g, 8, a_w), np.float32)
+    approx[:, :dims] = rng.uniform(-0.1, 0.1, (g, dims, a_w))
+    srct = np.zeros((8, ns + k), np.float32)
+    srct[:dims, :ns] = rng.uniform(-0.1, 0.1, (dims, ns))
+    srct[dims, :ns] = G * rng.uniform(0.1, 0.5, ns)
+    srct[:dims, 300] = targets[4, 7]  # excluded by d2 > 0
+    tiles = np.zeros((g, 3, t_cap), np.int32)
+    for gi in range(g):
+        for e in range(t_cap):
+            if e % 5 == 4:
+                continue  # padded
+            start = 128 * int(rng.integers(0, ns // 128))
+            lo = int(rng.integers(0, sw))
+            width = int(rng.integers(case == "many-units", max_w + 1))
+            tiles[gi, :, e] = (start, lo, min(sw, lo + width))
+    steps = -(-t_cap // seg_pack)
+    a_n = ([0, 1500, 0, 2100, 700, 1] if case == "big-k"
+           else [0, 2 * k + 77, 0, a_w, k // 3, 1])
+    lens = np.array([a_n, [0, 0, steps, steps + 3, steps // 2, steps]],
+                    np.int32)
+    for gi in range(g):
+        approx[gi, dims, :a_n[gi]] = G * rng.uniform(0.1, 0.5, a_n[gi])
+    return [torch.tensor(x, device=device)
+            for x in (targets, approx, srct, tiles, lens)], k
+
+
+@pytest.mark.parametrize("case", ["mixed", "many-units", "big-k"])
+@pytest.mark.parametrize("seg_pack", [1, 2, 4, 8])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_runs_kernels_on_ragged_tables(cuda, monkeypatch, dims, seg_pack,
+                                       case):
+    """K2 / K3 at every slice count: bit-equal to each other, within
+    1e-5 x max|a| of the twin, staging exactly the lanes the tables
+    need."""
+    args, k = _ragged_runs_tables(dims, seg_pack + dims, cuda, seg_pack,
+                                  case)
+    kw = dict(softening=1e-15, k_tile=k, seg_pack=seg_pack)
+    counter = "KERNEL_LAUNCHES" if seg_pack == 1 else "PACKED_LAUNCHES"
+    before = getattr(list_eval, counter)
+    outs = _every_slice_count(monkeypatch, args, kw)
+    assert getattr(list_eval, counter) == before + 4
+    want = list_eval.list_eval_runs_plain(*args, **kw)
+    assert want[0].abs().max() == 0 and want.abs().max() > 0
+    for got in outs:
+        assert torch.equal(got, outs[0])
+    assert torch.isfinite(outs[0]).all()
+    assert (outs[0] - want).abs().max() <= TOL * want.abs().max()
+    _, approx, srct, tiles, lens = (a.cpu() for a in args)
+    need = 0
+    for gi in range(lens.shape[1]):
+        need += min(int(lens[0, gi]), approx.shape[2])
+        for e in range(min(int(lens[1, gi]) * seg_pack, tiles.shape[2])):
+            start, lo, hi = (int(x) for x in tiles[gi, :, e])
+            need += max(0, min(hi, k // seg_pack, srct.shape[1] - start)
+                        - max(lo, 0))
+    assert int(list_eval.runs_group_lanes(*args[1:], k_tile=k,
+                                          seg_pack=seg_pack).sum()) == need
+    assert list_eval.runs_lanes_staged(*args, **kw) == need
+
+
 def test_grouped_bh_3d_on_card_matches_cpu(cuda):
     from nbody_tpu_torch.ops import bh3d
 
@@ -248,27 +364,35 @@ def test_k4_matches_twin_on_engine_tables(cuda, monkeypatch):
 
 
 def test_cuda_tensors_never_reach_the_twins(cuda, monkeypatch):
-    """The split pass on the card launches K4 and never a twin; on the
-    CPU the same pass is the twins'; the two agree."""
+    """The split pass on the card launches K4, the runs passes K2 and K3,
+    and never a twin; on the CPU the same passes are the twins'; the two
+    agree."""
     from nbody_tpu_torch.ops import bh3d
 
     def refuse(*a, **kw):
         raise AssertionError("a CUDA tensor reached a plain twin")
 
     p, m = _cloud3(8192, 8, cuda)
-    want = bh3d.bh3_accelerations_grouped(p.cpu(), m.cpu(), g=G,
-                                          group_size=512, collect="dense",
-                                          split_eval=True)
-    for name in ("list_eval_runs_plain", "list_eval_runs_split_plain"):
-        monkeypatch.setattr(list_eval, name, refuse)
-    before = list_eval.SPLIT_LAUNCHES
-    got, ovf = bh3d.bh3_accelerations_grouped(
-        p, m, g=G, group_size=512, collect="dense", split_eval=True,
-        return_diagnostics=True)
-    torch.cuda.synchronize()
-    assert list_eval.SPLIT_LAUNCHES == before + 1
-    assert int(ovf.sum()) == 0
-    assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
+    passes = (("SPLIT_LAUNCHES", -1.0, dict(collect="dense",
+                                            split_eval=True)),
+              ("KERNEL_LAUNCHES", float("inf"), dict(split_eval=False)),
+              ("PACKED_LAUNCHES", -1.0, dict(split_eval=False, seg_pack=4,
+                                             eval_k_tile=512)))
+    for counter, gate, kw in passes:
+        monkeypatch.setattr(bh_grouped, "SEG_PACK_MIN_RUN_LANES", gate)
+        want = bh3d.bh3_accelerations_grouped(p.cpu(), m.cpu(), g=G,
+                                              group_size=512, **kw)
+        with monkeypatch.context() as mp:
+            for name in ("list_eval_runs_plain",
+                         "list_eval_runs_split_plain"):
+                mp.setattr(list_eval, name, refuse)
+            before = getattr(list_eval, counter)
+            got, ovf = bh3d.bh3_accelerations_grouped(
+                p, m, g=G, group_size=512, return_diagnostics=True, **kw)
+            torch.cuda.synchronize()
+            assert getattr(list_eval, counter) == before + 1
+        assert int(ovf.sum()) == 0
+        assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
 
 
 def test_k4_rejects_what_it_cannot_take(cuda):
