@@ -8,7 +8,10 @@ Phases, each printing what it found; the first failure exits non-zero:
 0. the card: ``nvidia-smi`` name and power limit, torch's device name;
 1. build the CUDA kernels from nbody_tpu_torch/csrc (one nvcc per
    source, started together, sm_90a);
-2. kernel K1 (all-pairs) against its plain PyTorch twin on the card;
+2. kernel K1 (all-pairs) against its plain PyTorch twin on the card,
+   with each case's launch shape (targets per thread, slices per target,
+   blocks), blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+   waves and the ptxas registers and spills;
    2b. K1's 3D instantiation, at N=65,536 and a ragged N;
    2c. K5 (the potential) against its twin in 2D and 3D at N=65,536 and
    a ragged N, with its launch shape (targets per thread, slices per
@@ -62,8 +65,10 @@ Phases, each printing what it found; the first failure exits non-zero:
    read just after; each run is then replayed in lockstep against the
    plain twins;
 5. times on the card (CUDA events, after a warm-up), kernel beside twin,
-   K2 at every slice count (all bit-equal) and its device time by the
-   profiler;
+   K1 at every slice count in 2D and 3D and compensated in 2D (all
+   bit-equal), the all-pairs step at N=65,536 with its device busy time
+   and idle share by the profiler, K2 at every slice count (all
+   bit-equal) and its device time by the profiler;
    5b. the same for the 3D kernels (K2 and K3 at every slice count) and
    the 3D grouped-BH step;
    5c. K4 beside its twin and K2, the 3D step at both sizes, the gates'
@@ -390,6 +395,63 @@ def ptxas_list_eval(log: str) -> dict:
         lambda m: (int(m[1]), 2 if m[3] == "1" else int(m[2])))
 
 
+def ptxas_allpairs(log: str) -> dict:
+    """{(dims, softened, compensated): (registers, spills)} of the K1
+    instantiations."""
+    return ptxas_report(
+        log, r"allpairs_kernelILi(\d)ELb([01])ELb([01])E",
+        lambda m: (int(m[1]), m[2] == "1", m[3] == "1"))
+
+
+def k1_launch(nt: int, ns: int, source_block: int, softening: float,
+              compensated: bool, dims: int, ptx: dict) -> dict:
+    """K1's launch on nt targets and ns sources: targets per thread,
+    slices per target, blocks, blocks one SM holds, waves, registers,
+    spills."""
+    import torch
+
+    from nbody_tpu_torch.ops import allpairs
+
+    tpt, r, blocks = allpairs.allpairs_launch_shape(nt, ns, source_block,
+                                                    compensated)
+    per_sm = allpairs.allpairs_occupancy(dims, softening, compensated)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs, spill = ptx.get((dims, softening != 0, compensated), (None, None))
+    return {"targets_per_thread": tpt, "slices": r, "blocks": blocks,
+            "blocks_per_sm": per_sm, "waves": blocks / (per_sm * sms),
+            "registers": regs, "spill_bytes": spill}
+
+
+def k1_slice_sweep(name: str, p, m, source_block: int, compensated: bool,
+                   card: str) -> dict:
+    """K1 at every slice count (target_block) on one cloud, the shape
+    function's pick marked: {"r=..": ms}; fail unless every count gives the
+    picked shape's bits."""
+    import torch
+
+    from nbody_tpu_torch.ops import allpairs
+
+    kw = dict(g=G, source_block=source_block, compensated=compensated)
+    n = p.shape[0]
+    pick = allpairs.allpairs_launch_shape(n, n, source_block, compensated)[1]
+    ref = allpairs.allpairs_accelerations_vs(p, p, m, **kw)
+    sweep = {}
+    for tb, r in sorted(allpairs.allpairs_target_blocks().items(),
+                        key=lambda kv: kv[1]):
+        if not torch.equal(allpairs.allpairs_accelerations_vs(
+                p, p, m, target_block=tb, **kw), ref):
+            fail(f"{name} at {r} slices differs in bits from the picked "
+                 "shape")
+        sweep[f"r={r}"] = cuda_ms(lambda: allpairs.allpairs_accelerations_vs(
+            p, p, m, target_block=tb, **kw), reps=5)
+    print(f"  {name} by slices per target: "
+          + ", ".join(f"{k}{'*' if k == f'r={pick}' else ''} {t:.3f}"
+                      for k, t in sweep.items())
+          + f" ms, all bit-equal (* the launch-shape function's pick)  "
+          f"[{card}]", flush=True)
+    return sweep
+
+
 def k5_launch(n: int, dims: int, ptx: dict) -> dict:
     """K5's launch on N bodies: targets per thread, slices per target,
     blocks, blocks one SM holds, waves, registers, spills."""
@@ -569,7 +631,7 @@ def plain_twins():
     orig = [allpairs.allpairs_accelerations_vs] + [
         getattr(list_eval, n) for n in names]
     allpairs.allpairs_accelerations_vs = (
-        lambda t, s, m, *, target_block, **kw:
+        lambda t, s, m, *, target_block=None, **kw:
         allpairs.allpairs_accelerations_plain(t, s, m, **kw))
     for n in names:
         setattr(list_eval, n, getattr(list_eval, f"{n}_plain"))
@@ -793,6 +855,7 @@ def main() -> int:
 
     # -- phase 2: K1 against its twin ------------------------------------
     err = {}
+    ptx1 = ptxas_allpairs(_cuda.build_log)
     for dims in (2, 3):
         cases = ((65536, 0.0, False), (40000, 0.0, False))
         if dims == 2:
@@ -801,13 +864,19 @@ def main() -> int:
               "vs plain twin", flush=True)
         for n, soft, comp in cases:
             p, m = cloud(n, seed=n + int(comp) + dims, device=dev, dims=dims)
-            tb, sb = resolve_tiles(n)
+            tb, sb = resolve_tiles(n, compensated=comp)
             kw = dict(g=G, softening=soft, source_block=sb, compensated=comp)
             got = allpairs.allpairs_accelerations_vs(p, p, m,
                                                      target_block=tb, **kw)
             want = allpairs.allpairs_accelerations_plain(p, p, m, **kw)
             torch.cuda.synchronize()
-            e = compare(f"{dims}D N={n} eps={soft:g} compensated={comp}",
+            info = k1_launch(n, n, sb, soft, comp, dims, ptx1)
+            e = compare(f"{dims}D N={n} eps={soft:g} compensated={comp} "
+                        f"({info['targets_per_thread']} targets a thread, "
+                        f"{info['slices']} slices, {info['blocks']} blocks, "
+                        f"{info['blocks_per_sm']} blocks/SM -> "
+                        f"{info['waves']:.2f} waves; {info['registers']} "
+                        f"registers, spill bytes {info['spill_bytes']})",
                         got, want)
             err.setdefault(f"k1_{dims}d", e)  # the main path's shape
 
@@ -1158,18 +1227,47 @@ def main() -> int:
     ms = {}
     tables = {}  # the (args, kwargs) each timed runs kernel took
     runs_info = {}  # K2/K3's launch and slice sweep on those tables
-    for dims in (2, 3):
+    k1_info = {}  # K1's launch and slice sweep at N=65,536
+    for dims, comp in ((2, False), (3, False), (2, True)):
         n = 65536
         p, m = cloud(n, seed=11 + dims, device=dev, dims=dims)
-        tb, sb = resolve_tiles(n)
+        tb, sb = resolve_tiles(n, compensated=comp)
+        kw = dict(g=G, source_block=sb, compensated=comp)
         k = cuda_ms(lambda: allpairs.allpairs_accelerations_vs(
-            p, p, m, g=G, target_block=tb, source_block=sb), reps=10)
+            p, p, m, target_block=tb, **kw), reps=10)
         plain = cuda_ms(lambda: allpairs.allpairs_accelerations_plain(
-            p, p, m, g=G, source_block=sb), reps=2)
-        ms[f"k1_{dims}d"] = (k, plain)
-        print(f"  K1 {dims}D N={n}: kernel {k:.3f} ms = "
-              f"{n * n / k / 1e6:.1f} Gpairs/s; plain twin {plain:.3f} ms = "
+            p, p, m, **kw), reps=2)
+        key = f"k1_{dims}d{'_compensated' if comp else ''}"
+        ms[key] = (k, plain)
+        name = f"K1 {dims}D N={n}{' compensated' if comp else ''}"
+        print(f"  {name}: kernel {k:.3f} ms = {n * n / k / 1e6:.1f} "
+              f"Gpairs/s; plain twin {plain:.3f} ms = "
               f"{n * n / plain / 1e6:.1f} Gpairs/s  [{card}]", flush=True)
+        k1_info[key] = dict(
+            k1_launch(n, n, sb, 0.0, comp, dims, ptx1), n_bodies=n,
+            shape_ms=k1_slice_sweep(name, p, m, sb, comp, card))
+    # the all-pairs step (the end-to-end all-pairs metric) and where its
+    # device time goes
+    for dims in (2, 3):
+        cfg = SimConfig(n_bodies=65536, n_dim=dims, engine="allpairs")
+        st = random_state(cfg, device=dev)
+        accel = make_accel_fn(cfg, return_diagnostics=True)
+
+        def ap_step():
+            acc, ovf = accel(st.positions, st.masses)
+            return integrate(st, acc, cfg.dt, overflow=ovf.sum())
+
+        step_ms = cuda_ms(ap_step, reps=10)
+        wall, kern = device_profile(ap_step, reps=10)
+        busy = sum(kern.values())
+        k1p = sum(t for k, t in kern.items() if "allpairs_kernel" in k)
+        print(f"  all-pairs {dims}D step N=65536: {step_ms:.3f} ms/step = "
+              f"{65536 ** 2 / step_ms / 1e6:.1f} Gpairs/s (CUDA events); "
+              f"profiler over 10 steps: wall {wall:.3f} ms/step, device "
+              f"busy {busy:.3f}, idle share "
+              f"{100 * (1 - busy / wall) if busy else float('nan'):.1f}%, "
+              f"K1 {k1p:.3f} ms, {len(kern)} kernel names  [{card}]",
+              flush=True)
 
     for n in (40960, 65536):
         cfg = SimConfig(n_bodies=n, engine="barnes_hut", seed=13)
@@ -1504,11 +1602,16 @@ def main() -> int:
                "nbody_tpu/ops/list_eval.py:663", "k4_3d",
                launches[(3, "barnes_hut", n1m)]["k4"], 3, **k4_info[3])
     k4["max_abs_err_2d"] = err["k4_2d"]
+    k1_2d = entry("allpairs_k1", "allpairs.cu", ap, "k1_2d",
+                  launches[(2, "allpairs", 65536)]["k1"], 2,
+                  **k1_info["k1_2d"])
+    k1_2d["compensated_ms"] = ms["k1_2d_compensated"][0]
+    k1_2d["compensated_shape_ms"] = k1_info["k1_2d_compensated"]["shape_ms"]
     summary = {"kernels": [
-        entry("allpairs_k1", "allpairs.cu", ap, "k1_2d",
-              launches[(2, "allpairs", 65536)]["k1"], 2),
+        k1_2d,
         entry("allpairs_k1_3d", "allpairs.cu", ap, "k1_3d",
-              launches[(3, "allpairs", 65536)]["k1"], 3),
+              launches[(3, "allpairs", 65536)]["k1"], 3,
+              **k1_info["k1_3d"]),
         entry("runs_eval_k2", "runs_eval.cu", le, "k2_2d",
               launches[(2, "barnes_hut", 40960)]["k2"], 2,
               **runs_info["k2_2d"]),

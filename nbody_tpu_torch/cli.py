@@ -46,11 +46,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "kernel (K1), and for barnes_hut in the grid list "
                         "evaluator (K6, which it forces)")
     p.add_argument("--target-block", type=int, default=None,
-                   help="all-pairs threads per block (default: "
-                        "utils.occupancy)")
+                   help="all-pairs targets a block holds: 512, 256, 128 or "
+                        "64 (1, 2, 4 or 8 threads a target; default: "
+                        "utils.occupancy); never moves bits")
     p.add_argument("--source-block", type=int, default=None,
-                   help="all-pairs sources staged per tile (default: "
-                        "utils.occupancy)")
+                   help="all-pairs sources of one tile, whose partial sum "
+                        "enters the total whole (default: utils.occupancy)")
     p.add_argument("--verbose-occupancy", action="store_true",
                    help="print the all-pairs launch shape decision")
     p.add_argument("--frontier-cap", type=int, default=None,

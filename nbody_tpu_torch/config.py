@@ -81,8 +81,9 @@ class SimConfig:
     init: InitRanges = dataclasses.field(default_factory=InitRanges)
     init_mode: str = "uniform"
     # all-pairs kernel launch shape (utils.occupancy.resolve_tiles):
-    # target_block = threads per block (one target each), source_block =
-    # source tile staged in shared memory.  None = auto.
+    # target_block = targets a block holds (picks the thread slices per
+    # target), source_block = sources of one tile partial (fixes the
+    # bits).  None = auto.
     target_block: Optional[int] = None
     source_block: Optional[int] = None
     verbose_occupancy: bool = False

@@ -89,7 +89,7 @@ def make_accel_fn(config: SimConfig,
                 # JAX package)
                 return pair_accelerations_dense(positions, masses, g=g)
             tb, sb = resolve_tiles(n, config.target_block,
-                                   config.source_block,
+                                   config.source_block, config.compensated,
                                    verbose=config.verbose_occupancy)
             return allpairs.allpairs_accelerations(
                 positions, masses, g=g, softening=0.0, target_block=tb,

@@ -104,7 +104,10 @@ class _Library:
         self._dlls = [ctypes.CDLL(str(p)) for p in paths]
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, argtypes, restype in (
-            ("nbody_allpairs_accel", [p, i, p, i, p, f, i, i, i, i, p], i),
+            ("nbody_allpairs_accel", [p, i, p, i, p, f, i, i, i, i, i, p],
+             i),
+            ("nbody_allpairs_occupancy",
+             [i, i, i, i, ctypes.POINTER(ctypes.c_int)], i),
             ("nbody_allpairs_potential", [p, i, p, i, p, i, i, i, p], i),
             ("nbody_potential_occupancy",
              [i, i, ctypes.POINTER(ctypes.c_int)], i),

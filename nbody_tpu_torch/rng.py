@@ -35,7 +35,7 @@ def uniform(gen: torch.Generator, shape, lower: float, higher: float,
     return (lower + u * (higher - lower)).to(dtype)
 
 
-def random_state(config: SimConfig, device="cpu") -> SimState:
+def random_state(config: SimConfig, device="cuda") -> SimState:
     """Fresh random bodies per the configured ranges; ``init_mode`` is
     ``"uniform"`` (the reference's distribution) or ``"blobs"`` (two
     Gaussian clusters, sigma 2% of the position span)."""

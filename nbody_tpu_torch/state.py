@@ -47,8 +47,11 @@ def make_state(
     time: float = 0.0,
     step: int = 0,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> SimState:
+    """A state of ``dtype`` tensors on ``device`` (the card unless the
+    caller asks for the CPU, where the kernels' plain twins run)."""
+
     def _as(a):
         if not isinstance(a, torch.Tensor):
             a = np.array(a)  # a writable copy (JAX hands out read-only)
@@ -87,7 +90,7 @@ def from_numpy(
     time: float = 0.0,
     step: int = 0,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> SimState:
     """A state from host arrays — the carrier between the two packages
     (``nbody_tpu.state.to_numpy`` output feeds straight in)."""

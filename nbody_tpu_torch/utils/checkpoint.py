@@ -30,7 +30,7 @@ def save_checkpoint(path: str, state: SimState) -> None:
 
 
 def load_checkpoint(path: str, dtype: torch.dtype | None = None,
-                    device="cpu") -> SimState:
+                    device="cuda") -> SimState:
     """The state in ``path`` on ``device``; ``dtype`` defaults to the
     stored masses' type."""
     with np.load(path) as z:

@@ -3,18 +3,20 @@ analogue of the reference's occupancy model (getOptimalBlockSize,
 project.cu:163-217).
 
 The JAX package sizes VMEM tiles for the TPU (nbody_tpu.utils.occupancy);
-none of that carries over.  K1 runs one thread per target and stages a
-tile of sources in shared memory (16 B each), so its two knobs are:
+none of that carries over.  K1 runs fixed 256-thread blocks, each thread
+holding two targets and each target getting 1, 2, 4 or 8 thread slices,
+and streams its sources through a fixed 8 KiB shared-memory buffer.  Its
+two knobs:
 
-* ``target_block`` — threads per block.  256, halved to 128 when that
-  leaves fewer than four blocks per SM (132 SMs), so small N still
-  spreads over the card;
-* ``source_block`` — sources staged per tile: 1024 (16 KiB of shared
-  memory, well under the 48 KiB a block gets without opting in), or N
-  rounded up to 128 when smaller.
-
-These are first choices, not measured optima: the kernel's H100 tuning
-is later work (ROADMAP Queue B, K1).
+* ``source_block`` — the sources of one tile, whose partial sum enters
+  the running sum whole, so it fixes the bits: 1024, or N rounded up to
+  128 when smaller;
+* ``target_block`` — the targets a block holds, 256 / slices x 2 (512,
+  256, 128 or 64), so it picks the slices per target and never moves
+  bits.  By default ``ops.allpairs.allpairs_launch_shape`` picks the
+  fewest slices whose sums in flight fill a share of the card's thread
+  slots, the share under which the fastest slice counts were measured at
+  N=16,384 to 1,048,576 (PERF.md).
 """
 
 from __future__ import annotations
@@ -22,45 +24,50 @@ from __future__ import annotations
 import dataclasses
 import sys
 
-H100_SMS = 132
-SMEM_BYTES_PER_SOURCE = 16  # one float4 (x, y, gm, 0)
+from ..ops import allpairs
 
 
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
-    target_block: int  # threads per block, one target each
-    source_block: int  # sources staged in shared memory per tile
-    shared_bytes: int  # shared memory per block
+    target_block: int  # targets a block holds
+    source_block: int  # sources of one tile partial
+    targets_per_thread: int
+    slices: int  # threads summing each target
     blocks: int  # blocks in the launch
 
 
-def allpairs_tiles(n_bodies: int, verbose: bool = False) -> TileConfig:
-    """Pick (threads per block, source tile) for K1 at ``n_bodies``."""
-    tb = 256
-    if -(-n_bodies // tb) < 4 * H100_SMS:
-        tb = 128
-    sb = min(1024, max(128, -(-n_bodies // 128) * 128))
-    cfg = TileConfig(
-        target_block=tb,
-        source_block=sb,
-        shared_bytes=sb * SMEM_BYTES_PER_SOURCE,
-        blocks=-(-n_bodies // tb),
-    )
+def allpairs_tiles(n_bodies: int, target_block=None, source_block=None,
+                   compensated: bool = False,
+                   verbose: bool = False) -> TileConfig:
+    """K1's launch at ``n_bodies`` (targets = sources), with explicit
+    overrides (``None`` = choose); an explicit ``target_block`` must be one
+    K1's blocks hold (``ops.allpairs.allpairs_slices`` raises otherwise)."""
+    sb = source_block or min(1024, max(128, -(-n_bodies // 128) * 128))
+    tpt = allpairs.ALLPAIRS_TARGETS_PER_THREAD
+    if target_block:
+        r = allpairs.allpairs_slices(target_block)
+    else:
+        r = allpairs.allpairs_launch_shape(n_bodies, n_bodies, sb,
+                                           compensated)[1]
+    tb = allpairs.ALLPAIRS_THREADS // r * tpt
+    cfg = TileConfig(target_block=tb, source_block=sb,
+                     targets_per_thread=tpt, slices=r,
+                     blocks=-(-n_bodies // tb))
     if verbose:
         print(
-            f"occupancy[allpairs]: n={n_bodies} -> target_block="
-            f"{cfg.target_block} source_block={cfg.source_block} | "
-            f"{cfg.blocks} blocks of {cfg.target_block} threads, "
-            f"{cfg.shared_bytes / 1024:.0f} KiB shared memory per block",
+            f"occupancy[allpairs]: n={n_bodies} -> target_block={tb} "
+            f"source_block={sb} | {cfg.blocks} blocks of "
+            f"{allpairs.ALLPAIRS_THREADS} threads, {tpt} targets a thread, "
+            f"{r} slice(s) a target over "
+            f"{allpairs.allpairs_units(n_bodies, sb, compensated)} units",
             file=sys.stderr,
         )
     return cfg
 
 
 def resolve_tiles(n_bodies: int, target_block=None, source_block=None,
-                  verbose: bool = False):
-    """Launch shape with explicit override (``None`` = choose)."""
-    cfg = allpairs_tiles(n_bodies, verbose=verbose)
-    tb = target_block if target_block else cfg.target_block
-    sb = source_block if source_block else cfg.source_block
-    return tb, sb
+                  compensated: bool = False, verbose: bool = False):
+    """(target_block, source_block) of :func:`allpairs_tiles`."""
+    cfg = allpairs_tiles(n_bodies, target_block, source_block, compensated,
+                         verbose)
+    return cfg.target_block, cfg.source_block

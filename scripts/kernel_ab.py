@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time and fingerprint kernels K5 (the potential), K2 / K3 (the runs
-evaluator) and K4 (the quarter-split evaluator) of several checkouts of
-nbody_tpu_torch on one GPU, in the order given:
+"""Time and fingerprint kernels K1 (all-pairs), K5 (the potential), K2 /
+K3 (the runs evaluator) and K4 (the quarter-split evaluator) of several
+checkouts of nbody_tpu_torch on one GPU, in the order given:
 
     python3 scripts/kernel_ab.py PARENT_TREE . . PARENT_TREE
 
 Each tree runs in a fresh process with that tree first on ``sys.path``
 (its kernels built from its own ``csrc``).  Per tree, on the states of
-``random_state`` (seed 0): K5 at 2D N=40,960 and 3D N=262,144; K2 on the
+``random_state`` (seed 0): K1 at 2D and 3D N=65,536 at the tree's default
+shape (unsoftened; compensated too in 2D) and the all-pairs step at both
+(mean of 10); K5 at 2D N=40,960 and 3D N=262,144; K2 on the
 tables of the 2D N=40,960 default force pass and K2 / K3 on those of the
 3D N=131,072 pass (the run-length gate forced each way), with the 2D
 40,960 and 3D 131,072 default steps (mean of 5); K4 on the tables of the
@@ -61,14 +63,6 @@ def _child() -> None:
         return start.elapsed_time(end) / reps
 
     out = {"tree": os.environ["AB_TREE"]}
-    for dims, n in ((2, 40960), (3, 262144)):
-        st = random_state(SimConfig(n_bodies=n, n_dim=dims), device=dev)
-        p, m = st.positions, st.masses
-        key = f"k5_{dims}d"
-        out[f"{key}_ms"] = cuda_ms(
-            lambda: allpairs.allpairs_potential(p, m, g=G), reps=10)
-        out[f"{key}_in"] = _digest(p, m)
-        out[f"{key}_out"] = _digest(allpairs.allpairs_potential(p, m, g=G))
 
     def step_ms(cfg, st, reps):
         accel = make_accel_fn(cfg, return_diagnostics=True)
@@ -78,6 +72,30 @@ def _child() -> None:
             return integrate(st, acc, cfg.dt, overflow=ovf.sum())
 
         return cuda_ms(step, reps=reps)
+
+    for dims, comp in ((2, False), (3, False), (2, True)):
+        n = 65536
+        st = random_state(SimConfig(n_bodies=n, n_dim=dims), device=dev)
+        p, m = st.positions, st.masses
+        key = f"k1_{dims}d{'_comp' if comp else ''}"
+        out[f"{key}_ms"] = cuda_ms(lambda: allpairs.allpairs_accelerations(
+            p, m, g=G, source_block=1024, compensated=comp), reps=10)
+        out[f"{key}_in"] = _digest(p, m)
+        out[f"{key}_out"] = _digest(allpairs.allpairs_accelerations(
+            p, m, g=G, source_block=1024, compensated=comp))
+        if not comp:
+            out[f"step{dims}d_allpairs_{n}_ms"] = step_ms(
+                SimConfig(n_bodies=n, n_dim=dims, engine="allpairs"), st,
+                reps=10)
+
+    for dims, n in ((2, 40960), (3, 262144)):
+        st = random_state(SimConfig(n_bodies=n, n_dim=dims), device=dev)
+        p, m = st.positions, st.masses
+        key = f"k5_{dims}d"
+        out[f"{key}_ms"] = cuda_ms(
+            lambda: allpairs.allpairs_potential(p, m, g=G), reps=10)
+        out[f"{key}_in"] = _digest(p, m)
+        out[f"{key}_out"] = _digest(allpairs.allpairs_potential(p, m, g=G))
 
     # K2 / K3 on the tables of the default force passes at 2D N=40,960 and
     # 3D N=131,072 (the run-length gate forced each way), and those steps

@@ -379,7 +379,7 @@ def test_allpairs_twin_3d_matches_f64():
 def test_random_state_3d(mode):
     cfg = nbody_tpu_torch.SimConfig(n_bodies=5000, n_dim=3, init_mode=mode,
                                     seed=2)
-    s = trng.random_state(cfg)
+    s = trng.random_state(cfg, device="cpu")
     r = cfg.init
     assert s.positions.shape == s.velocities.shape == (5000, 3)
     p, v = s.positions.numpy(), s.velocities.numpy()
@@ -390,7 +390,7 @@ def test_random_state_3d(mode):
     # the state carries across to the JAX package and back bit for bit
     m2, p2, v2, _, _ = jax_to_numpy(nbody_tpu.state.make_state(
         *[a.numpy() for a in (s.masses, s.positions, s.velocities)]))
-    t2 = from_numpy(m2, p2, v2)
+    t2 = from_numpy(m2, p2, v2, device="cpu")
     assert torch.equal(t2.positions, s.positions)
 
 
@@ -442,7 +442,8 @@ def test_run_contract_3d_matches_jax(tmp_path, engine, n, extra):
     m, p, v, _, _ = jax_to_numpy(jsim.state)
     tcfg = nbody_tpu_torch.SimConfig.from_dict(
         {**dataclasses.asdict(jcfg), "output_dir": str(tmp_path / "torch")})
-    tsim = Simulation(tcfg, state=from_numpy(m, p, v), device="cpu")
+    tsim = Simulation(tcfg, state=from_numpy(m, p, v, device="cpu"),
+                      device="cpu")
     jstate, _ = jsim.run_contract()
     tstate, timing = tsim.run_contract()
 

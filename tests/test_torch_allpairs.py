@@ -101,7 +101,86 @@ def test_engine_routes(n):
 
 
 def test_resolve_tiles_h100_shape():
-    assert resolve_tiles(65536) == (128, 1024)  # 512 blocks of 128
-    assert resolve_tiles(1 << 20) == (256, 1024)  # >= 4 blocks per SM
-    assert resolve_tiles(700) == (128, 768)
+    """K1's default shape on targets = sources: 256-thread blocks of 2
+    targets a thread, the slices (512 / 256 / 128 / 64 targets a block)
+    from N, the fastest measured on an H100; an explicit target_block picks
+    the slices, source_block stays the caller's."""
+    assert resolve_tiles(700) == (512, 768)  # one unit: one slice
+    assert resolve_tiles(16384) == (64, 1024)  # 8 slices, 256 blocks
+    assert resolve_tiles(65536) == (256, 1024)  # 2 slices, 256 blocks
+    assert resolve_tiles(65536, compensated=True) == (128, 1024)  # 4
+    assert resolve_tiles(1 << 20) == (512, 1024)  # 2,048 blocks of 1 slice
     assert resolve_tiles(4096, target_block=64, source_block=256) == (64, 256)
+    assert allpairs.allpairs_launch_shape(700, 700, 768, False) == (2, 1, 2)
+    assert allpairs.allpairs_launch_shape(65536, 65536, 1024, False) == (
+        2, 2, 256)
+    assert allpairs.allpairs_launch_shape(65536, 65536, 1024, True) == (
+        2, 4, 512)
+    assert allpairs.allpairs_launch_shape(1 << 20, 1 << 20, 1024, False) == (
+        2, 1, 2048)
+
+
+def test_launch_shape_few_targets_many_sources():
+    """nt << ns: the most slices the units allow, so a few blocks still
+    spread each target's sums over 8 threads."""
+    assert allpairs.allpairs_launch_shape(700, 65536, 1024, False) == (
+        2, 8, 11)
+    assert allpairs.allpairs_launch_shape(33, 10000, 128, True) == (2, 8, 1)
+    assert allpairs.allpairs_launch_shape(4096, 1 << 20, 1024, False) == (
+        2, 8, 64)
+    assert allpairs.allpairs_launch_shape(65536, 1 << 20, 1024, False) == (
+        2, 2, 256)
+    # never more slices than units: 2 tiles of 768 sources
+    assert allpairs.allpairs_launch_shape(33, 1400, 768, False) == (2, 2, 1)
+
+
+@pytest.mark.parametrize("nt,ns", [(1, 1), (33, 10000), (700, 700),
+                                   (4099, 4099), (65536, 65536),
+                                   (700, 1 << 20), (300000, 300000),
+                                   (1 << 20, 1 << 20)])
+@pytest.mark.parametrize("source_block,compensated", [
+    (1, False), (128, False), (500, True), (768, False), (1024, False),
+    (1024, True)])
+def test_launch_shape_invariants(nt, ns, source_block, compensated):
+    tpt, r, blocks = allpairs.allpairs_launch_shape(nt, ns, source_block,
+                                                    compensated)
+    units = allpairs.allpairs_units(ns, source_block, compensated)
+    assert tpt == allpairs.ALLPAIRS_TARGETS_PER_THREAD
+    assert r in (1, 2, 4, 8) and r <= max(units, 1)
+    per_block = allpairs.ALLPAIRS_THREADS // r * tpt
+    assert (blocks - 1) * per_block < nt <= blocks * per_block
+    assert allpairs.allpairs_slices(per_block) == r
+
+
+@pytest.mark.parametrize("ns,source_block,compensated", [
+    (700, 768, False), (700, 768, True), (4099, 500, True),
+    (4099, 512, True), (10000, 128, True), (10000, 100, True),
+    (65536, 1024, False), (65536, 1024, True), (5, 1, True)])
+def test_units_are_the_twins_partials(ns, source_block, compensated):
+    """allpairs_units counts the partials the twin sums whole: one per
+    tile, or one per 128-source chunk of each tile when compensated."""
+    want = 0
+    for s0 in range(0, ns, source_block):
+        width = min(source_block, ns - s0)
+        want += -(-width // 128) if compensated else 1
+    assert allpairs.allpairs_units(ns, source_block, compensated) == want
+
+
+@pytest.mark.parametrize("target_block,slices", [
+    (512, 1), (256, 2), (128, 4), (64, 8), (100, None), (32, None),
+    (1024, None), (-128, None)])
+def test_explicit_target_block_maps_to_its_slices_or_raises(target_block,
+                                                             slices):
+    p, m = torch.zeros((4, 2)), torch.ones(4)
+    if slices is None:
+        with pytest.raises(ValueError, match="512, 256, 128|64, 128, 256"):
+            allpairs.allpairs_slices(target_block)
+        with pytest.raises(ValueError, match="target_block"):
+            allpairs.allpairs_accelerations(p, m, g=G,
+                                            target_block=target_block)
+        with pytest.raises(ValueError, match="target_block"):
+            resolve_tiles(4096, target_block=target_block)
+    else:
+        assert allpairs.allpairs_slices(target_block) == slices
+        assert resolve_tiles(4096, target_block=target_block)[0] == (
+            target_block)

@@ -79,18 +79,43 @@ def test_state_round_trip_from_jax():
     m, p, v = _bodies(100)
     jstate = jmake_state(m, p, v, time=2.0, step=3)
     tstate = from_numpy(*nbody_tpu.state.to_numpy(jstate)[:3], time=2.0,
-                        step=3)
+                        step=3, device="cpu")
     for a, b in zip(nbody_tpu.state.to_numpy(jstate), to_numpy(tstate)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     assert int(tstate.overflow) == 0 and tstate.step.dtype == torch.int32
     with pytest.raises(ValueError):
-        from_numpy(m, p[:, :1], v)
+        from_numpy(m, p[:, :1], v, device="cpu")
+
+
+@pytest.mark.parametrize("fn", ["state.make_state", "state.from_numpy",
+                                "rng.random_state",
+                                "utils.checkpoint.load_checkpoint"])
+def test_state_helpers_default_to_the_card(fn):
+    """A state made without a device lands on the card, as Simulation and
+    the CLI default to: the kernels' CPU twins never run by accident."""
+    import importlib
+    import inspect
+
+    mod, name = fn.rsplit(".", 1)
+    helper = getattr(importlib.import_module(f"nbody_tpu_torch.{mod}"), name)
+    assert inspect.signature(helper).parameters["device"].default == "cuda"
+
+
+def test_make_state_on_the_cpu_keeps_cpu_tensors_there():
+    from nbody_tpu_torch.state import make_state
+
+    m, p, v = (torch.tensor(a) for a in _bodies(50))
+    st = make_state(m, p, v, time=1.5, device="cpu")
+    for t in (st.masses, st.positions, st.velocities, st.time, st.step,
+              st.overflow):
+        assert t.device.type == "cpu"
+    assert torch.equal(st.positions, p) and float(st.time) == 1.5
 
 
 @pytest.mark.parametrize("mode", ["uniform", "blobs"])
 def test_rng_ranges_and_log_uniform_masses(mode):
     cfg = nbody_tpu_torch.SimConfig(n_bodies=20000, init_mode=mode, seed=5)
-    s = trng.random_state(cfg)
+    s = trng.random_state(cfg, device="cpu")
     r = cfg.init
     m = s.masses.numpy()
     assert m.min() >= r.lower_m * (1 - 1e-6)
@@ -105,7 +130,7 @@ def test_rng_ranges_and_log_uniform_masses(mode):
         assert abs(p.mean()) < 0.005
     else:  # two tight clusters: alternate bodies share a centre
         assert np.abs(p[0::2] - p[0::2].mean(0)).mean() < 0.01
-    again = trng.random_state(cfg)
+    again = trng.random_state(cfg, device="cpu")
     assert torch.equal(again.positions, s.positions)
 
 
@@ -145,7 +170,7 @@ def test_integrate_energies_momentum_match_jax():
     m, p, v = _bodies(256, seed=4)
     acc = np.random.default_rng(9).normal(size=(256, 2)).astype(np.float32)
     js = jmake_state(m, p, v)
-    ts = from_numpy(m, p, v)
+    ts = from_numpy(m, p, v, device="cpu")
     js2 = jphys.integrate(js, jnp.asarray(acc), 0.5)
     ts2 = tphys.integrate(ts, torch.tensor(acc), 0.5)
     # identical elementwise f32 ops: bit-equal

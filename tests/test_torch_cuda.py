@@ -54,8 +54,49 @@ def test_k1_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         pt = p.t().contiguous().t()
         allpairs.allpairs_accelerations_vs(pt, pt, m, g=G)
-    with pytest.raises(ValueError, match="threads per block"):
+    with pytest.raises(ValueError, match="K1's blocks hold"):
         allpairs.allpairs_accelerations(p, m, g=G, target_block=100)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+@pytest.mark.parametrize("nt,ns,sb", [
+    (700, 700, 128), (700, 700, 768), (4099, 4099, 500), (4099, 4099, 512),
+    (33, 10000, 128), (33, 10000, 500)])
+@pytest.mark.parametrize("soft,comp", [(0.0, False), (1e-3, False),
+                                       (0.0, True)])
+def test_k1_every_shape_gives_the_same_bits(cuda, dims, nt, ns, sb, soft,
+                                           comp):
+    """Every slice count (target_block) and the default shape give equal
+    bits: each unit's partial is summed whole, partials in unit order; on
+    ragged N, ragged tiles and Kahan chunks, and nt != ns (targets apart
+    from the sources)."""
+    cloud = _cloud if dims == 2 else _cloud3
+    p, m = cloud(ns, ns + sb, cuda)
+    t = p if nt == ns else cloud(nt, nt + 1, cuda)[0]
+    kw = dict(g=G, softening=soft, source_block=sb, compensated=comp)
+    before = allpairs.KERNEL_LAUNCHES
+    ref = allpairs.allpairs_accelerations_vs(t, p, m, **kw)
+    for tb in allpairs.allpairs_target_blocks():
+        got = allpairs.allpairs_accelerations_vs(t, p, m, target_block=tb,
+                                                 **kw)
+        assert torch.equal(got, ref), f"target_block={tb}"
+    assert allpairs.KERNEL_LAUNCHES == before + 5
+    want = allpairs.allpairs_accelerations_plain(t, p, m, **kw)
+    assert (ref - want).abs().max() <= TOL * want.abs().max()
+
+
+def test_k1_subnormal_d2_counts_as_coincident(cuda):
+    """A pair at d2 = 1e-40 (bodies 1e-20 apart) is dropped, as on the
+    TPU, which flushes subnormals: the result stays finite, and each of
+    the two feels only the third body."""
+    p = torch.tensor([[0.0, 0.0], [1e-20, 0.0], [0.05, -0.03]], device=cuda)
+    m = torch.ones(3, device=cuda)
+    got = allpairs.allpairs_accelerations(p, m, g=G)
+    assert torch.isfinite(got).all()
+    for i, keep in ((0, [0, 2]), (1, [1, 2]), (2, [0, 1, 2])):
+        want = allpairs.allpairs_accelerations_plain(
+            p[i:i + 1].cpu(), p[keep].cpu(), m[keep].cpu(), g=G)
+        assert torch.allclose(got[i:i + 1].cpu(), want, rtol=1e-6, atol=0)
 
 
 def test_k2_matches_twin_on_engine_tables(cuda):
@@ -552,7 +593,8 @@ def test_potential_energy_scalable_takes_k5_on_the_card(cuda):
     rng = np.random.default_rng(3)
     n = 8192
     st = from_numpy(10 ** rng.uniform(-1, np.log10(0.5), n),
-                    rng.uniform(-0.1, 0.1, (n, 3)), np.zeros((n, 3)))
+                    rng.uniform(-0.1, 0.1, (n, 3)), np.zeros((n, 3)),
+                    device="cpu")
     want = physics.potential_energy_scalable(st, G)
     before = allpairs.POTENTIAL_LAUNCHES
     got = physics.potential_energy_scalable(
@@ -575,7 +617,7 @@ def test_potential_energy_scalable_dtypes_on_the_card(cuda, dtype, launches):
     args = (10 ** rng.uniform(-1, np.log10(0.5), n),
             rng.uniform(-0.1, 0.1, (n, 2)), np.zeros((n, 2)))
     want = physics.potential_energy_scalable(
-        from_numpy(*args, dtype=torch.float64), G)
+        from_numpy(*args, dtype=torch.float64, device="cpu"), G)
     before = allpairs.POTENTIAL_LAUNCHES
     got = physics.potential_energy_scalable(
         from_numpy(*args, dtype=dtype, device=cuda), G)

@@ -60,7 +60,7 @@ def _bodies(n, dims, seed, blobs=False):
 def _states(n, dims, seed, **kw):
     m, p, v = _bodies(n, dims, seed, **kw)
     return (jax_make_state(m, p, v, time=2.0, step=2),
-            from_numpy(m, p, v, time=2.0, step=2))
+            from_numpy(m, p, v, time=2.0, step=2, device="cpu"))
 
 
 # -- the potential -------------------------------------------------------------
@@ -95,7 +95,7 @@ def test_potential_energy_scalable_matches_jax(n, dims):
 def test_potential_energy_float64_branch():
     """A float64 state takes the chunked path and keeps float64."""
     m, p, v = _bodies(4200, 3, 11)
-    st = from_numpy(m, p, v, dtype=torch.float64)
+    st = from_numpy(m, p, v, dtype=torch.float64, device="cpu")
     got = tphys.potential_energy_scalable(st, G)
     assert got.dtype == torch.float64
     p64, m64 = p.astype(np.float64), m.astype(np.float64)
@@ -219,7 +219,8 @@ def test_run_contract_metrics_match_jax(tmp_path, engine, dims, tree):
     m, p, v, _, _ = jax_to_numpy(jsim.state)
     tcfg = nbody_tpu_torch.SimConfig.from_dict(
         {**dataclasses.asdict(jcfg), "output_dir": str(tmp_path / "torch")})
-    Simulation(tcfg, state=from_numpy(m, p, v), device="cpu").run_contract()
+    Simulation(tcfg, state=from_numpy(m, p, v, device="cpu"),
+               device="cpu").run_contract()
     jsim.run_contract()
     rows = []
     for side in ("jax", "torch"):
@@ -255,7 +256,7 @@ def test_checkpoint_written_by_jax_loads_in_the_port(tmp_path, dims):
     js, _ = _states(100, dims, 8)
     path = str(tmp_path / "j.npz")
     jck.save_checkpoint(path, js)
-    ts = tck.load_checkpoint(path)
+    ts = tck.load_checkpoint(path, device="cpu")
     assert ts.dtype == torch.float32 and ts.step.dtype == torch.int32
     _assert_states_equal(
         jax_make_state(ts.masses.numpy(), ts.positions.numpy(),
@@ -292,7 +293,7 @@ def test_resume_continues_identically(tmp_path, engine):
     ck = str(tmp_path / "mid.npz")
     Simulation(cfg.replace(n_steps=3, checkpoint_every=3,
                            checkpoint_path=ck), device="cpu").run_contract()
-    mid = tck.load_checkpoint(ck)
+    mid = tck.load_checkpoint(ck, device="cpu")
     assert int(mid.step) == 3
     resumed, _ = Simulation(cfg.replace(n_steps=3), state=mid).run_contract()
     assert torch.equal(resumed.positions, full.positions)

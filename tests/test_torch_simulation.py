@@ -40,7 +40,8 @@ def test_run_contract_matches_jax(tmp_path, engine, n):
     m, p, v, _, _ = jax_to_numpy(jsim.state)
     tcfg = nbody_tpu_torch.SimConfig.from_dict(
         {**dataclasses.asdict(jcfg), "output_dir": str(tmp_path / "torch")})
-    tsim = Simulation(tcfg, state=from_numpy(m, p, v), device="cpu")
+    tsim = Simulation(tcfg, state=from_numpy(m, p, v, device="cpu"),
+                      device="cpu")
     jstate, jtiming = jsim.run_contract()
     tstate, ttiming = tsim.run_contract()
 
@@ -62,7 +63,7 @@ def test_naive_engine_matches_allpairs():
     from nbody_tpu_torch.models.engines import make_accel_fn
 
     cfg = nbody_tpu_torch.SimConfig(n_bodies=600, seed=2)
-    s = nbody_tpu_torch.random_state(cfg)
+    s = nbody_tpu_torch.random_state(cfg, device="cpu")
     a = make_accel_fn(cfg.replace(engine="naive"))(s.positions, s.masses)
     b = make_accel_fn(cfg.replace(engine="allpairs"))(s.positions, s.masses)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-4, atol=1e-11)

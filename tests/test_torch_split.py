@@ -529,7 +529,8 @@ def test_run_contract_3d_dense_split_matches_jax(tmp_path, interpret_split,
     m, p, v, _, _ = jax_to_numpy(jsim.state)
     tcfg = nbody_tpu_torch.SimConfig.from_dict(
         {**dataclasses.asdict(jcfg), "output_dir": str(tmp_path / "torch")})
-    tsim = Simulation(tcfg, state=from_numpy(m, p, v), device="cpu")
+    tsim = Simulation(tcfg, state=from_numpy(m, p, v, device="cpu"),
+                      device="cpu")
     seen = _spy_split(monkeypatch)
     jstate, _ = jsim.run_contract()
     tstate, _ = tsim.run_contract()
