@@ -81,7 +81,26 @@ Phases, each printing what it found; the first failure exits non-zero:
    every slice count, and one 3D step at N=1,048,576 on the dynamic
    route (K7) against the default (K4), with peak memory and a
    ``torch.profiler`` split into K7 and the rest, beside the packed
-   lists' build.
+   lists' build;
+6. the fused runs (``run --fused``: a CUDA graph of the step, captured
+   once and replayed, or step by step on the card where a 3D host gate
+   forbids the graph), each held bit for bit (SHA-256 of the final
+   positions) to the contract loop from the same seed, with both
+   ms/step, the capture time and the fused run's kernel launches
+   (captured launches x replays): 6a 2D grouped BH at N=40,960 and
+   65,536 with ``--save-positions`` (byte-equal), and a profiler view of
+   the graph's replays; 6b all-pairs N=65,536 in 2D and 3D, and 2D
+   ``--eval-mode grid|dynamic`` / ``--compensated`` at 40,960; 6c 3D BH
+   at 131,072 (the segment-packing gate's step-by-step route; against
+   the loop with its 4x retry off when a fused step overflowed); 6d
+   ``--bh-mode exact`` at 2D 40,960: one force pass against the native
+   f64 engine (2e-4 x max|a| wherever its own f32 CPU run meets that;
+   elsewhere that run's error + 1e-5 x max|a|) and against its CPU run
+   (1e-5 x max|a|, equal overflow flags), then eager against fused;
+   6e ``--save-tree-dumps`` (the 40,960 runs of 6a: both dumps
+   byte-equal); 6f ``compare
+   --engine-a native --engine-b barnes_hut`` at 40,960, 2 steps, with
+   the verdict, return code and both engines' times.
 
 The summary gives each kernel its bound: the larger of the FP32 work
 over 67 TFLOP/s, the special-function work (rsqrt, and the reciprocal of
@@ -99,6 +118,7 @@ no result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -793,6 +813,284 @@ def first_packed_n(device) -> int:
         if kw["seg_pack"] > 1:
             return n
     fail("the run-length gate picks K2 for every N of [131072, 262144)")
+
+
+
+# -- phase 6: the fused run (a CUDA graph of the step), the exact BH, ---------
+# -- quadtree dumps and the compare verb -------------------------------------
+
+def cli_run(argv, tag: str):
+    """One CLI call in-process, the kernels' launch counters reset just
+    before and read just after; returns (stdout, stderr, the run's
+    Simulation, counts).  Fails on a non-zero exit."""
+    from nbody_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    counts = read_counts()
+    if rc != 0:
+        print(out.getvalue()[-2000:], err.getvalue()[-2000:])
+        fail(f"{tag}: {' '.join(argv)} exited {rc}")
+    return out.getvalue(), err.getvalue(), cli.last_simulation, counts
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def parallel_ms(stdout: str) -> float:
+    m = re.search(r"GPU parallel computation took (\d+) microseconds", stdout)
+    if not m:
+        fail("a run printed no parallel timing line")
+    return int(m.group(1)) / 1e3
+
+
+def fused_pair(tag: str, flags, steps: int, files=(), card: str = ""):
+    """``run`` and ``run --fused`` from one seed through cli.main.  The
+    fused run's final positions must be bit-equal (SHA-256) to a contract
+    loop's: the plain loop where no fused step overflowed (its 4x retry
+    then never fires), else the loop with the retry off; every file in
+    ``files`` byte-equal.  Returns (eager ms/step, fused ms/step, capture
+    ms, fused launch counts, the fused Simulation)."""
+    import torch
+
+    base = ["run", "--device", "cuda", "--steps", str(steps), *flags]
+    d_f = os.path.join(OUT_DIR, "fused", tag, "fused")
+    out_f, err_f, sim_f, c_f = cli_run(
+        base + ["--output-dir", d_f, "--fused"], f"{tag} --fused")
+    counts = sim_f.last_scan_overflow
+    held = "the contract loop"
+    loop_flags = []
+    if counts.any():
+        held = "the contract loop with the 4x retry off"
+        loop_flags = ["--no-adaptive-caps"]
+    d_e = os.path.join(OUT_DIR, "fused", tag, "eager")
+    out_e, err_e, sim_e, _ = cli_run(base + ["--output-dir", d_e]
+                                     + loop_flags, tag)
+    fin_f, fin_e = sim_f.state.positions, sim_e.state.positions
+    if not torch.equal(fin_f, fin_e):
+        fail(f"{tag}: the fused run's final positions ({digest(fin_f)}) "
+             f"differ from {held}'s ({digest(fin_e)})")
+    for name in files:
+        with open(os.path.join(d_e, name), "rb") as a, open(
+                os.path.join(d_f, name), "rb") as b:
+            if a.read() != b.read():
+                fail(f"{tag}: {name} differs between loop and fused runs")
+    route = [ln for ln in err_f.splitlines() if ln.startswith("fused:")]
+    eager_ms = parallel_ms(out_e) / steps
+    fused_ms = sim_f.last_scan_ms / steps
+    print(f"  {tag}: {steps} steps, route {sim_f.last_scan_route}; fused "
+          f"overflow per step {counts.tolist()}; final positions SHA-256 "
+          f"{digest(fin_f)} = {held}'s"
+          f"{'; ' + ', '.join(files) + ' byte-equal' if files else ''}; "
+          f"eager {eager_ms:.3f} ms/step, fused {fused_ms:.3f} ms/step "
+          f"({eager_ms / fused_ms:.2f}x), capture "
+          f"{sim_f.last_capture_ms:.1f} ms; fused launches K1 {c_f['k1']}, "
+          f"K2 {c_f['k2']}, K3 {c_f['k3']}, K4 {c_f['k4']}, K6 "
+          f"{c_f['k6']}, K7 {c_f['k7']}  [{card}]", flush=True)
+    for ln in route:
+        print(f"    {ln}", flush=True)
+    return eager_ms, fused_ms, sim_f.last_capture_ms, c_f, sim_f
+
+
+def quiet_seed(n: int, dev, steps: int = 10) -> int:
+    """The first seed from 7 whose 2D grouped-BH run of ``steps`` fused
+    steps overflows no cap: the fused run does not retry, so only such a
+    run can be held bit for bit to the contract loop, whose 4x retry then
+    never fires.  Every seed tried is printed with its counts."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.simulation import Simulation
+
+    for seed in range(7, 15):
+        sim = Simulation(SimConfig(n_bodies=n, n_steps=steps,
+                                   engine="barnes_hut", seed=seed),
+                         device=dev)
+        with contextlib.redirect_stderr(io.StringIO()):
+            sim.run_scan()
+        counts = sim.last_scan_overflow
+        print(f"  N={n} seed {seed}: fused overflow per step "
+              f"{counts.tolist()}", flush=True)
+        if not counts.any():
+            return seed
+    fail(f"every seed of 7-14 overflows a cap at N={n} within {steps} "
+         "steps")
+
+
+def phase6(dev, card: str) -> dict:
+    """Phase 6; returns the fused main path's launch counts by run."""
+    import numpy as np
+    import torch
+
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.engines import make_accel_fn
+    from nbody_tpu_torch.models.simulation import StepGraph
+    from nbody_tpu_torch.ops import barnes_hut
+    from nbody_tpu_torch.rng import random_state
+    from nbody_tpu_torch.utils import native
+
+    runs = {}
+    print("phase 6a: 2D grouped BH, run against run --fused (a CUDA graph "
+          "of the step) through nbody_tpu_torch.cli.main, --save-positions "
+          "(and at 40,960 --save-tree-dumps: phase 6e)", flush=True)
+    for n, dumps in ((40960, True), (65536, False)):
+        files = ["positions.txt"] + (
+            ["quadtree_init.txt", "quadtree_final.txt"] if dumps else [])
+        flags = ["--engine", "barnes_hut", "--n-bodies", str(n), "--seed",
+                 str(quiet_seed(n, dev)), "--save-positions"] + (
+            ["--save-tree-dumps"] if dumps else [])
+        *_, c, sim = fused_pair(f"BH 2D N={n}", flags, 10, files, card)
+        if sim.last_scan_route != "graph" or c["k2"] <= 0:
+            fail(f"BH 2D N={n} --fused did not replay K2 in a graph")
+        if sim.last_scan_overflow.any():
+            fail(f"BH 2D N={n} --fused overflowed")
+        runs[("bh", n)] = c
+    if runs:
+        print("phase 6e: quadtree_init.txt and quadtree_final.txt of the "
+              "40,960 runs above byte-equal between loop and fused -> ok",
+              flush=True)
+    # where a graph step's time goes: the profiler over replays
+    cfg = SimConfig(n_bodies=40960, engine="barnes_hut", seed=7)
+    st = random_state(cfg, device=dev)
+    accel = make_accel_fn(cfg, return_diagnostics=True)
+    from nbody_tpu_torch.physics import integrate
+
+    def step(s):
+        acc, ovf = accel(s.positions, s.masses)
+        return integrate(s, acc, cfg.dt, overflow=ovf.sum())
+
+    g = StepGraph(step, st, 12)
+    g.replay(2)
+    wall, kern = device_profile(lambda: g.replay(1), reps=10)
+    busy = sum(kern.values())
+    print(f"  profiler, BH 2D N=40,960 graph replays: wall {wall:.3f} "
+          f"ms/step, device busy {busy:.3f} ms/step, idle share "
+          f"{100 * (1 - busy / wall) if busy else float('nan'):.1f}%, "
+          f"{len(kern)} kernel names  [{card}]", flush=True)
+    del g
+
+    print("phase 6b: all-pairs N=65,536 2D and 3D, and 2D BH --eval-mode "
+          "grid / dynamic / --compensated at 40,960, run against run "
+          "--fused", flush=True)
+    for dims in (2, 3):
+        *_, c, sim = fused_pair(
+            f"allpairs {dims}D N=65536",
+            ["--engine", "allpairs", "--n-bodies", "65536", "--dims",
+             str(dims), "--seed", "7", "--save-positions"], 10,
+            ["positions.txt"], card)
+        if sim.last_scan_route != "graph" or c["k1"] <= 0:
+            fail(f"allpairs {dims}D --fused did not replay K1 in a graph")
+        runs[("allpairs", dims)] = c
+    for mode, flags, want in (("grid", ["--eval-mode", "grid"], "k6"),
+                              ("dynamic", ["--eval-mode", "dynamic"], "k7"),
+                              ("compensated", ["--compensated"], "k6")):
+        *_, c, sim = fused_pair(
+            f"BH 2D N=40960 {mode}",
+            ["--engine", "barnes_hut", "--n-bodies", "40960", "--seed", "7",
+             *flags], 10, (), card)
+        if sim.last_scan_route != "graph" or c[want] <= 0:
+            fail(f"BH 2D {mode} --fused did not replay {want.upper()} in a "
+                 "graph")
+        runs[(mode, 2)] = c
+
+    print("phase 6c: 3D BH --fused at N=131,072 (the segment-packing "
+          "gate's route: step by step on the card)", flush=True)
+    *_, c, sim = fused_pair(
+        "BH 3D N=131072", ["--engine", "barnes_hut", "--dims", "3",
+                           "--n-bodies", "131072", "--seed", "7"], 10, (),
+        card)
+    if sim.last_scan_route != "eager" or c["k2"] + c["k3"] <= 0:
+        fail("BH 3D N=131072 --fused did not run step by step through "
+             "K2/K3")
+    runs[("bh3", 131072)] = c
+
+    print("phase 6d: --bh-mode exact, 2D N=40,960: one force pass on the "
+          "card against the native f64 engine (2e-4 x max|a|, the JAX "
+          "package's oracle budget, on every element where the f32 CPU run "
+          "meets it; elsewhere the CPU run's error + 1e-5 x max|a|) and "
+          "against its CPU run (1e-5 x max|a|, flags equal); then 10 steps "
+          "eager and --fused", flush=True)
+    cfg = SimConfig(n_bodies=40960, engine="barnes_hut", bh_mode="exact",
+                    seed=7)
+    st = random_state(cfg, device=dev)
+    kw = dict(g=G, theta=cfg.theta, max_depth=cfg.resolved_max_depth,
+              frontier_cap=256, return_diagnostics=True)
+    acc, ovf = barnes_hut.bh_accelerations(st.positions, st.masses, **kw)
+    pass_ms = cuda_ms(lambda: barnes_hut.bh_accelerations(
+        st.positions, st.masses, **kw), reps=3)
+    t0 = time.perf_counter()
+    acc_c, ovf_c = barnes_hut.bh_accelerations(st.positions.cpu(),
+                                               st.masses.cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = native.bh_accelerations(
+        st.positions.double().cpu().numpy(), st.masses.double().cpu().numpy(),
+        g=G, theta=cfg.theta, max_depth=cfg.resolved_max_depth)
+    native_s = time.perf_counter() - t0
+    # the JAX package's oracle budget, 2e-4 x max|a| (its
+    # tests/test_barnes_hut.py, at N=600), on every body where the f32
+    # algorithm itself meets it: at 40,960 a body beside a near-coincident
+    # neighbour can miss it in f32 (the aggregate COM's rounding), and the
+    # JAX package's engine misses it there by the same amount.  There the
+    # card must carry its CPU run's error, within KERNEL_TOL x max|a|.
+    a = acc.double().cpu().numpy()
+    a_c = acc_c.double().numpy()
+    s_nat = float(np.abs(ref).max())
+    err_card, err_cpu = np.abs(a - ref), np.abs(a_c - ref)
+    budget = 2e-4 * s_nat
+    beyond = err_cpu > budget
+    ok_nat = bool(np.all(err_card <= np.where(
+        beyond, err_cpu + KERNEL_TOL * s_nat, budget)))
+    e_cpu = float((acc.cpu() - acc_c).abs().max())
+    s_cpu = float(acc_c.abs().max())
+    n_ovf = int(ovf.sum())
+    print(f"  exact BH force pass: card vs native f64 max "
+          f"{float(err_card.max()):.3e} = {float(err_card.max()) / s_nat:.3e}"
+          f" x max|a| (budget {budget:.3e}); elements beyond the budget: "
+          f"card {int((err_card > budget).sum())}, CPU run "
+          f"{int(beyond.sum())} (the CPU run's worst "
+          f"{float(err_cpu.max()) / s_nat:.3e} x max|a|); card vs CPU "
+          f"{e_cpu:.3e} (bound {KERNEL_TOL * s_cpu:.3e}); overflowed bodies "
+          f"card {n_ovf}, CPU {int(ovf_c.sum())}, flags equal "
+          f"{bool(torch.equal(ovf.cpu(), ovf_c))}; eager pass "
+          f"{pass_ms:.3f} ms (CUDA events), CPU run {cpu_s:.1f} s, native "
+          f"f64 {native_s:.2f} s  [{card}]", flush=True)
+    if not (ok_nat and e_cpu <= KERNEL_TOL * s_cpu
+            and torch.equal(ovf.cpu(), ovf_c)):
+        fail("the exact BH on the card disagrees with the native engine or "
+             "its CPU run")
+    *_, c, sim = fused_pair(
+        "exact BH 2D N=40960", ["--engine", "barnes_hut", "--bh-mode",
+                                "exact", "--n-bodies", "40960", "--seed",
+                                "7"], 10, (), card)
+    if sim.last_scan_route != "graph":
+        fail("exact BH --fused did not run as a graph")
+
+    print("phase 6f: compare --engine-a native --engine-b barnes_hut, "
+          "N=40,960, 2 steps", flush=True)
+    p0 = random_state(SimConfig(n_bodies=40960, seed=7), device=dev)
+    # BASELINE.json: "theta=0.5 within 1e-3 relative trajectory error",
+    # relative to the position scale
+    tol = 1e-3 * float(p0.positions.abs().max())
+    from nbody_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["compare", "--device", "cuda", "--n-bodies", "40960",
+                       "--steps", "2", "--seed", "7", "--engine-a",
+                       "native", "--engine-b", "barnes_hut", "--tol",
+                       f"{tol:.6g}"])
+    text = out.getvalue()
+    verdict = [ln for ln in text.splitlines() if "final positions" in ln]
+    times = [ln for ln in text.splitlines() if "total computation" in ln]
+    n_diff = text.count("Difference at index")
+    print(f"  --tol {tol:.6g}: rc {rc}; {' | '.join(times)}; verdict "
+          f"{verdict[0].strip() if verdict else None!r}; rows beyond tol "
+          f"{n_diff}  [{card}]", flush=True)
+    if rc not in (0, 1) or not verdict or len(times) != 2:
+        fail("compare printed no verdict")
+    return runs
 
 
 def main() -> int:
@@ -1575,6 +1873,7 @@ def main() -> int:
     else:
         print("  profiler: no device time recorded for the dynamic step",
               flush=True)
+    phase6(dev, card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -1,7 +1,8 @@
 """Force engines: naive dense, all-pairs (kernel K1), grouped Barnes-Hut
 in 2D (kernel K2, or K4 with quarter-split evaluation) and 3D (kernels
 K2 and K3, or K4), each with the padded-list evaluators K6 (grid,
-compensated) and K7 (dynamic) on request — counterpart of
+compensated) and K7 (dynamic) on request, and the exact per-body 2D
+Barnes-Hut (``bh_mode="exact"``, eager torch) — counterpart of
 ``nbody_tpu.models.engines``.
 
 Every engine is an acceleration function of one signature:
@@ -124,9 +125,18 @@ def make_accel_fn(config: SimConfig,
 
             return grouped3
         if config.bh_mode == "exact":
-            raise NotImplementedError(
-                "bh_mode='exact' (ops.barnes_hut) is not yet ported "
-                "(ROADMAP A9)")
+            from ..ops.barnes_hut import bh_accelerations
+
+            def exact(positions, masses):
+                return bh_accelerations(
+                    positions, masses, g=g, theta=config.theta,
+                    max_depth=config.resolved_max_depth,
+                    softening=config.softening,
+                    frontier_cap=config.frontier_cap or 256,
+                    return_diagnostics=return_diagnostics,
+                )
+
+            return exact
         from ..ops.bh_grouped import bh_accelerations_grouped
 
         def grouped(positions, masses):

@@ -170,3 +170,39 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
             f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# Every kernel wrapper's launch counter, as (module of nbody_tpu_torch.ops,
+# attribute).  A wrapper adds one where it launches; under CUDA graph
+# capture that launch is recorded once and runs at every replay, so the
+# graph's owner adds the captured launches times the further replays
+# (:func:`add_launches`).
+LAUNCH_COUNTERS = (
+    ("allpairs", "KERNEL_LAUNCHES"),  # K1
+    ("list_eval", "KERNEL_LAUNCHES"),  # K2
+    ("list_eval", "PACKED_LAUNCHES"),  # K3
+    ("list_eval", "SPLIT_LAUNCHES"),  # K4
+    ("allpairs", "POTENTIAL_LAUNCHES"),  # K5
+    ("list_eval", "GRID_LAUNCHES"),  # K6
+    ("list_eval", "DYNAMIC_LAUNCHES"),  # K7
+)
+
+
+def launch_counts() -> dict:
+    """{(module, counter): launches so far} of every kernel wrapper."""
+    import importlib
+
+    return {(mod, name): getattr(
+        importlib.import_module(f"{__package__}.{mod}"), name)
+        for mod, name in LAUNCH_COUNTERS}
+
+
+def add_launches(per_replay: dict, replays: int) -> None:
+    """Count ``replays`` more runs of launches recorded once in a graph:
+    ``per_replay`` maps (module, counter) to the launches a replay
+    makes."""
+    import importlib
+
+    for (mod, name), k in per_replay.items():
+        m = importlib.import_module(f"{__package__}.{mod}")
+        setattr(m, name, getattr(m, name) + k * replays)

@@ -26,7 +26,7 @@ Every default resolves from N exactly as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -272,6 +272,71 @@ def _resolve_collect(collect: str | None, n_sources: int) -> str:
     return mode
 
 
+class Route3D(NamedTuple):
+    """How a 3D grouped pass runs, resolved from its options and N."""
+
+    eval_mode: str  # "runs" | "grid" | "dynamic"
+    k_tile: int
+    dense: bool  # the dense window collector (else the gather walk)
+    group_size: int  # targets a group (at most N)
+    n_sub: int  # sub-bboxes a group
+    direct_cell_max: int
+    split_eval: bool  # quarter-split evaluation (K4)
+    seg_pack: int  # runs segments a kernel step may pack (K3 when > 1)
+
+
+def resolve_route_3d(n: int, ns: int, *, eval_mode=None, compensated=False,
+                     eval_k_tile=None, group_size=None, direct_cell_max=None,
+                     split_eval=None, seg_pack=None,
+                     collect=None) -> Route3D:
+    """The route of a pass of ``n`` targets against ``ns`` sources: the
+    evaluator, the collector, the group shape and the JAX package's auto
+    gates for quarter-split evaluation (on only for the runs evaluator at
+    dcm >= 128 and >= 768K bodies) and segment packing (requested at
+    dcm <= 64 from 131,072 sources; whether a pass then packs is the
+    run-length gate's decision, made per pass)."""
+    eval_mode, k_tile = bh_grouped.resolve_eval(eval_mode, compensated,
+                                                eval_k_tile, 512)
+    if group_size is None:
+        group_size = default_group_size3(ns)
+    if direct_cell_max is None:
+        direct_cell_max = direct_cell_max_default(ns)
+    gs = min(group_size, max(n, 1))
+    n_sub = max(4, gs // 128)
+    if gs % n_sub:
+        n_sub = 1
+    if split_eval is None:
+        split_eval = (eval_mode == "runs" and gs % 4 == 0 and gs >= 512
+                      and n_sub % 4 == 0 and direct_cell_max >= 128
+                      and ns >= 768 * 1024)
+    elif split_eval and (gs % 4 or n_sub % 4):
+        raise ValueError(
+            "split_eval=True requires group_size and n_sub divisible by 4 "
+            f"(got {gs}, {n_sub})")
+    split_eval = bool(split_eval) and eval_mode == "runs"
+    if seg_pack is None:
+        seg_pack = 4 if direct_cell_max <= 64 and ns >= 131072 else 1
+    if seg_pack > 1 and k_tile % (128 * seg_pack):
+        seg_pack = 1
+    return Route3D(eval_mode, k_tile, _resolve_collect(collect, ns) == "dense",
+                   gs, n_sub, direct_cell_max, split_eval, seg_pack)
+
+
+def host_gate_3d(route: Route3D):
+    """The host read a 3D pass on ``route`` makes every pass, or None:
+    the dense collector's spill gate, or the run-length gate of the
+    runs evaluator when it may pack segments (K3).  A CUDA graph cannot
+    hold a pass that reads the host."""
+    if route.dense:
+        return ("the dense collector's spill gate reads the escaped groups' "
+                "count on the host (ops/collect_dense3.py)")
+    if route.eval_mode == "runs" and not route.split_eval and (
+            route.seg_pack > 1):
+        return ("the runs evaluator's segment-packing gate reads the mean "
+                "run length on the host (ops/bh_grouped._evaluate_runs)")
+    return None
+
+
 def bh3_accelerations_grouped(
     positions: torch.Tensor,  # [N, 3]
     masses: torch.Tensor,  # [N]
@@ -368,19 +433,20 @@ def grouped_eval_3d(
     n = target_positions.shape[0]
     ns = sorted_srcs[0].shape[0]
     max_depth = tree.max_depth
-    eval_mode, k_tile = bh_grouped.resolve_eval(eval_mode, compensated,
-                                                eval_k_tile, 512)
-    use_dense = _resolve_collect(collect, ns) == "dense"
-    if use_dense and spyr is None:
+    route = resolve_route_3d(
+        n, ns, eval_mode=eval_mode, compensated=compensated,
+        eval_k_tile=eval_k_tile, group_size=group_size,
+        direct_cell_max=direct_cell_max, split_eval=split_eval,
+        seg_pack=seg_pack, collect=collect)
+    eval_mode, k_tile = route.eval_mode, route.k_tile
+    gs, n_sub = route.group_size, route.n_sub
+    direct_cell_max, split_eval = route.direct_cell_max, route.split_eval
+    if route.dense and spyr is None:
         raise ValueError(
             "the dense collector (collect='dense', or 'auto' at N >= "
             "262,144) needs spyr=collect_dense3.build_spatial_pyramid(tree)")
 
     defaults = cap_defaults_3d(ns)
-    if group_size is None:
-        group_size = default_group_size3(ns)
-    if direct_cell_max is None:
-        direct_cell_max = direct_cell_max_default(ns)
     frontier_cap = frontier_cap or defaults["frontier_cap"]
     list_cap = list_cap or defaults["list_cap"]
     direct_cap = direct_cap or defaults["direct_cap"]
@@ -388,37 +454,21 @@ def grouped_eval_3d(
 
     # groups of gs Morton-consecutive targets, the last padded with
     # copies of the last body (a tight bbox; results sliced off)
-    gs = min(group_size, max(n, 1))
     n_pad = ((n + gs - 1) // gs) * gs
     tsort = torch.cat(
         [target_sorted, target_sorted[-1:].expand(n_pad - n, 3)], dim=0)
     pg = tsort.reshape(-1, gs, 3)  # [G, S, 3]
 
-    n_sub = max(4, gs // 128)
-    if gs % n_sub:
-        n_sub = 1
     sub = pg.reshape(pg.shape[0], n_sub, gs // n_sub, 3)
     bbox = tuple(f(sub[..., a], 2) for a in range(3)
                  for f in (torch.amin, torch.amax))
-
-    if split_eval is None:
-        # the JAX package's auto gate: on only for the runs evaluator at
-        # dcm >= 128 and >= 768K bodies
-        split_eval = (eval_mode == "runs" and gs % 4 == 0 and gs >= 512
-                      and n_sub % 4 == 0 and direct_cell_max >= 128
-                      and ns >= 768 * 1024)
-    elif split_eval and (gs % 4 or n_sub % 4):
-        raise ValueError(
-            "split_eval=True requires group_size and n_sub divisible by 4 "
-            f"(got {gs}, {n_sub})")
-    split_eval = split_eval and eval_mode == "runs"
 
     walk = dict(
         theta=theta, softening=softening,
         frontier_caps=frontier_schedule_3d(frontier_cap, max_depth, ns),
         list_cap=list_cap, direct_cap=direct_cap,
         direct_cell_max=direct_cell_max, quarter_bits=split_eval)
-    if use_dense:
+    if route.dense:
         from .collect_dense3 import collect_lists_3d_dense
 
         collected = collect_lists_3d_dense(bbox, tree, spyr, **walk)
@@ -444,13 +494,9 @@ def grouped_eval_3d(
             pg, (lx, ly, lz), lm, ranges, collected[3], sorted_srcs[0:3],
             sorted_srcs[3], **kw)
     else:
-        if seg_pack is None:
-            seg_pack = 4 if direct_cell_max <= 64 and ns >= 131072 else 1
-        if seg_pack > 1 and k_tile % (128 * seg_pack):
-            seg_pack = 1
         acc, ovf_e = bh_grouped._evaluate_runs(
             pg, (lx, ly, lz), lm, ranges, sorted_srcs[0:3], sorted_srcs[3],
-            seg_pack=seg_pack, **kw)
+            seg_pack=route.seg_pack, **kw)
     overflow_g = overflow_g | ovf_e
 
     # un-sort: ``target_order`` is a permutation, so one scatter restores

@@ -92,6 +92,15 @@ def morton_codes(positions: torch.Tensor, bounds: torch.Tensor,
     return code
 
 
+def leaf_counts(codes: torch.Tensor, n_leaf: int) -> torch.Tensor:
+    """Bodies per leaf cell [n_leaf] int64: a scatter-add of ones, which
+    gives ``torch.bincount``'s integer counts without its host read of
+    the codes' maximum (so a CUDA graph can hold the tree build)."""
+    counts = torch.zeros(n_leaf, dtype=torch.int64, device=codes.device)
+    return counts.scatter_add_(0, codes.long(),
+                               torch.ones_like(codes, dtype=torch.int64))
+
+
 def leaf_raw(positions: torch.Tensor, masses: torch.Tensor,
              codes: torch.Tensor, max_depth: int) -> torch.Tensor:
     """Packed per-leaf rows [4^max_depth, 8] (cols per RAW_*): sums over
@@ -104,9 +113,11 @@ def leaf_raw(positions: torch.Tensor, masses: torch.Tensor,
         [masses, masses * x, masses * y, x, y, torch.ones_like(masses),
          zero, zero], dim=1)  # [N, 8]
     order = torch.argsort(codes, stable=True)
-    lengths = torch.bincount(codes.long(), minlength=n_leaf)
+    lengths = leaf_counts(codes, n_leaf)
+    # the lengths sum to N by construction: unsafe=True skips the check
+    # that would read them on the host
     return torch.segment_reduce(packed[order], "sum", lengths=lengths,
-                                axis=0)
+                                axis=0, unsafe=True)
 
 
 def _finish_level(raw: torch.Tensor, dtype) -> TreeLevel:
@@ -127,8 +138,9 @@ def pyramid_from_raw(raw: torch.Tensor, bounds: torch.Tensor,
     Fields 0..5 are the children's sums in child order; RAW_OCC packs the
     four child-occupancy bits (count > 0) so the traversal can prune empty
     children from the parent's own row."""
-    bits = torch.tensor([1.0, 2.0, 4.0, 8.0], dtype=raw.dtype,
-                        device=raw.device)
+    # 1, 2, 4, 8 made on the device (a host tensor's copy would stop a
+    # CUDA graph capture)
+    bits = (1 << torch.arange(4, device=raw.device)).to(raw.dtype)
     raws = [raw]
     for _ in range(max_depth):
         v = raw.reshape(-1, 4, 8)

@@ -30,6 +30,7 @@ from typing import Tuple
 import torch
 
 from ..config import ROOT_PAD_FRACTION
+from .tree import leaf_counts
 
 # Column layout of the packed per-level rows [8^level, 16].
 R3_M, R3_MX, R3_MY, R3_MZ, R3_SX, R3_SY, R3_SZ, R3_CNT, R3_OCC = range(9)
@@ -112,9 +113,11 @@ def leaf_raw_3d(positions: torch.Tensor, masses: torch.Tensor,
                    (R3_CNT, 1.0)):
         packed[:, col] = v
     order = torch.argsort(codes, stable=True)
-    lengths = torch.bincount(codes.long(), minlength=n_leaf)
+    lengths = leaf_counts(codes, n_leaf)
+    # the lengths sum to N by construction: unsafe=True skips the check
+    # that would read them on the host
     return torch.segment_reduce(packed[order], "sum", lengths=lengths,
-                                axis=0)
+                                axis=0, unsafe=True)
 
 
 def pyramid_from_raw_3d(raw: torch.Tensor, bounds: torch.Tensor,

@@ -13,7 +13,9 @@ Formats replicated byte-for-byte:
   step 0), written with ``std::to_string`` (fixed 6 decimals; savePositions
   project.cu:855-863, consumed by plot_2d.py:3-14).
 
-(The quadtree dump writer is not ported yet: ROADMAP A6.)
+The quadtree dump lines come from the oracle
+(``models.oracle.AdaptiveQuadtree.dump_lines``) or the native engine
+(``utils.native.tree_dump``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ def cxx_ostream(v: float) -> str:
     exponents (``1e-05``) and trailing-zero stripping (``0.1``).
     """
     return f"{float(v):.6g}"
+
+
+def cxx_to_string(v: float) -> str:
+    """Format like C++ ``std::to_string(double)`` (fixed, 6 decimals)."""
+    return f"{float(v):.6f}"
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +165,41 @@ class PositionsWriter:
     def flush(self) -> None:
         with open(self.path, "w") as f:
             f.write("".join(self._chunks))
+
+
+def read_positions_file(path: str) -> np.ndarray:
+    """Parse a positions.txt into an array of rows [time, body, x, y]
+    (the plot_2d.py:6-14 consumption logic)."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            vals = line.split()
+            if not vals:
+                continue
+            rows.append([float(v) for v in vals])
+    return np.asarray(rows)
+
+
+def format_bodies(masses, positions, velocities) -> str:
+    """printBodies pretty-printer (project.cu:838-853)."""
+    masses = np.asarray(masses)
+    positions = np.asarray(positions)
+    velocities = np.asarray(velocities)
+    out = []
+    for i in range(masses.shape[0]):
+        out.append(f"Body {i}:")
+        out.append(f"  Mass: {cxx_ostream(masses[i])}")
+        out.append(
+            "  Position: [ "
+            + " ".join(cxx_ostream(c) for c in positions[i])
+            + " ]"
+        )
+        out.append(
+            "  Velocity: [ "
+            + " ".join(cxx_ostream(c) for c in velocities[i])
+            + " ]"
+        )
+    return "\n".join(out)
 
 
 def check_equal(first, second, name: str, tol: float = 1e-10) -> bool:

@@ -41,8 +41,12 @@ def test_port_imports_without_jax():
     code = (
         "import sys, nbody_tpu_torch, nbody_tpu_torch.cli, "
         "nbody_tpu_torch.models.simulation, nbody_tpu_torch.ops.bh_grouped, "
-        "nbody_tpu_torch.ops.experiments; "
-        "assert 'jax' not in sys.modules, 'jax imported'"
+        "nbody_tpu_torch.ops.experiments, nbody_tpu_torch.ops.barnes_hut, "
+        "nbody_tpu_torch.models.oracle, nbody_tpu_torch.utils.native, "
+        "nbody_tpu_torch.utils.debug, nbody_tpu_torch.utils.profiling; "
+        "assert 'jax' not in sys.modules, 'jax imported'; "
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'nbody_tpu']; "
+        "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -820,3 +820,82 @@ def test_padded_list_kernels_reject_what_they_cannot_take(cuda):
         list_eval.list_eval_dynamic(args[0].double(), *args[1:], **kw)
     with pytest.raises(ValueError, match="not tileable"):
         list_eval.list_eval_dynamic(*args, softening=0.0, section_offset=100)
+
+
+# -- the fused run as a CUDA graph, and the exact per-body Barnes-Hut ------
+
+def _sim_pair(cuda, **kw):
+    """Two Simulations of one config from one initial state on the card."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.rng import random_state
+    from nbody_tpu_torch.state import SimState
+
+    cfg = SimConfig(seed=2, **kw)
+    s0 = random_state(cfg, device=cuda)
+
+    def copy():
+        return SimState(**{f: getattr(s0, f).clone() for f in (
+            "masses", "positions", "velocities", "time", "step",
+            "overflow")})
+
+    return s0, Simulation(cfg, state=copy()), Simulation(cfg, state=copy())
+
+
+@pytest.mark.parametrize("engine,n,counter", [
+    ("barnes_hut", 8192, ("list_eval", "KERNEL_LAUNCHES")),
+    ("allpairs", 4096, ("allpairs", "KERNEL_LAUNCHES"))])
+def test_graph_route_equals_eager_loop(cuda, engine, n, counter):
+    """The graph replays the eager step's kernels in its order: a fused
+    run without overflow ends bit-equal to the contract loop, and each
+    replay counts its kernels' launches (warm-up 1 + 3 replays)."""
+    from nbody_tpu_torch.ops import _cuda
+
+    s0, eager, fused = _sim_pair(cuda, n_bodies=n, n_steps=3, engine=engine)
+    loop, _ = eager.run_contract()
+    before = _cuda.launch_counts()[counter]
+    final = fused.run_scan()
+    torch.cuda.synchronize()
+    assert fused.last_scan_route == "graph"
+    assert _cuda.launch_counts()[counter] - before == 4
+    assert torch.equal(final.positions, loop.positions)
+    assert torch.equal(final.velocities, loop.velocities)
+    assert int(final.step) == 3 and float(final.time) == 3.0
+    np.testing.assert_array_equal(fused.last_scan_overflow, [0, 0, 0])
+    _, _, traj_sim = _sim_pair(cuda, n_bodies=n, n_steps=3, engine=engine)
+    final_t, traj = traj_sim.run_scan_trajectory()
+    assert traj.shape == (4, n, 2)
+    assert torch.equal(traj[0], s0.positions)
+    assert torch.equal(traj[-1], loop.positions)
+    assert torch.equal(final_t.positions, loop.positions)
+
+
+@pytest.mark.parametrize("theta,cap", [(0.5, 256), (0.05, 16)])
+def test_exact_bh_on_the_card_matches_cpu(cuda, theta, cap):
+    from nbody_tpu_torch.ops import barnes_hut
+
+    p, m = _cloud(8192, 21, cuda)
+    kw = dict(g=G, theta=theta, frontier_cap=cap, return_diagnostics=True)
+    got, ovf = barnes_hut.bh_accelerations(p, m, **kw)
+    want, want_ovf = barnes_hut.bh_accelerations(p.cpu(), m.cpu(), **kw)
+    assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
+    assert torch.equal(ovf.cpu(), want_ovf)
+    assert bool(want_ovf.any()) == (cap == 16)
+
+
+def test_capture_with_a_host_read_raises(cuda):
+    """A step that reads the host cannot be captured, and run_scan raises
+    rather than falling back to a step-by-step run."""
+    from nbody_tpu_torch.physics import integrate
+
+    _, sim, _ = _sim_pair(cuda, n_bodies=1024, n_steps=2, engine="allpairs")
+
+    def step(state):
+        if state.positions.abs().max().item() < 0:  # a deliberate sync
+            raise AssertionError
+        return integrate(state, torch.zeros_like(state.positions), 1.0)
+
+    sim.step_fn = step
+    with pytest.raises(RuntimeError):
+        sim.run_scan()
+    torch.cuda.synchronize()
