@@ -100,7 +100,24 @@ Phases, each printing what it found; the first failure exits non-zero:
    6e ``--save-tree-dumps`` (the 40,960 runs of 6a: both dumps
    byte-equal); 6f ``compare
    --engine-a native --engine-b barnes_hut`` at 40,960, 2 steps, with
-   the verdict, return code and both engines' times.
+   the verdict, return code and both engines' times;
+7. the multi-device steps (``nbody_tpu_torch/parallel``): 7a each of the
+   eight sharded modes on an NCCL process group of one rank, bit for bit
+   (SHA-256) its single-device step (the sharded modes: the grouped pass
+   with the whole cloud's window); 7b each mode on D = 2 and 4 thread
+   ranks of this process on the one card (all-pairs modes at 2D 65,536
+   from ``random_state``, the exact BH at 2D 40,960, the grouped and
+   sharded modes at 2D and 3D 262,144 from a Morton-sorted jittered
+   grid; ``dp_barnes_hut_sharded3`` also at 1,048,576 on 4 ranks, 2
+   steps) against its single-device step within the JAX package's bound
+   (tests/test_parallel.py), with its K1-K7 launches (each mode must
+   launch its kernel and call no twin), the collectives its first step
+   recorded against ``parallel.memory.collective_inventory`` (equal),
+   peak memory, overflowed and retried steps, and ms/step labelled as D
+   ranks serialised on one card; 7c ``run --devices min(cards, 4)``
+   through the CLI over NCCL, one card a rank, when two or more cards
+   are visible (contract lines once, ``positions.txt`` of every body).
+   ``python3 chip_smoke.py --only-phase-7`` runs phases 0, 1 and 7 alone.
 
 The summary gives each kernel its bound: the larger of the FP32 work
 over 67 TFLOP/s, the special-function work (rsqrt, and the reciprocal of
@@ -1093,6 +1110,444 @@ def phase6(dev, card: str) -> dict:
     return runs
 
 
+# -- phase 7: the multi-device steps (nbody_tpu_torch/parallel) ----------------
+
+# mode -> (dims, engine, N, steps, the JAX package's bound on the positions
+# after those steps, x max|p|, tests/test_parallel.py): all-pairs at the
+# bench's N from random_state, the exact BH at the reference's 40,960, the
+# grouped and sharded modes at BASELINE config 4's N from a Morton-sorted
+# jittered grid (bounded separations keep the BH-class difference of local
+# groups and window gates assertable, and ranks must hold Morton-contiguous
+# slabs for the window to cover them)
+P7_MODES = {
+    "dp_allpairs": (2, "allpairs", 65536, 3, 5e-6),
+    "ring_allpairs": (2, "allpairs", 65536, 3, 5e-6),
+    "dp2d_allpairs": (2, "allpairs", 65536, 2, 5e-6),
+    "dp_barnes_hut": (2, "barnes_hut", 40960, 3, 5e-6),
+    "dp_barnes_hut_grouped": (2, "barnes_hut", 262144, 3, 5e-5),
+    "dp_barnes_hut_sharded": (2, "barnes_hut", 262144, 3, 5e-5),
+    "dp_barnes_hut_grouped3": (3, "barnes_hut", 262144, 3, 5e-5),
+    "dp_barnes_hut_sharded3": (3, "barnes_hut", 262144, 3, 5e-5),
+}
+# BASELINE config 5's weak scaling: 262,144 bodies a rank on 4 ranks
+P7_WEAK = ("dp_barnes_hut_sharded3", 1048576, 4, 2)
+# jittered grids: counts per axis, at tests/test_parallel.py's spacing (a
+# 48-body side in 0.2): scaled up by more cells, not by a finer grid,
+# whose neighbours would pull bodies past their spacing within a step at
+# dt=1 (at 512 in 0.2 the 2D grid melts into close encounters)
+P7_GRIDS = {(2, 40960): (256, 160), (2, 262144): (512, 512),
+            (3, 262144): (64, 64, 64), (3, 1048576): (128, 128, 64)}
+P7_SPACING = 0.2 / 48
+# the kernel counter(s) each mode's main path must move (the exact BH is
+# eager torch: no kernel)
+P7_KERNELS = {"allpairs": ("k1",), "dp_barnes_hut": (),
+              "2d": ("k2",), "3d": ("k2", "k3"), "split": ("k4",)}
+# a valid reorder of K1's sum (its tiles' width) in the single-device step
+P7_ALT_SOURCE_BLOCK = 256
+P7_TWINS = (("allpairs", "allpairs_accelerations_plain"),
+            ("list_eval", "list_eval_runs_plain"),
+            ("list_eval", "list_eval_runs_split_plain"),
+            ("list_eval", "list_eval_pallas_plain"),
+            ("list_eval", "list_eval_dynamic_plain"))
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def p7_state(mode: str, n: int, dev):
+    """The phase's initial state of ``mode`` at ``n`` bodies."""
+    import numpy as np
+    import torch
+
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.ops.tree import morton_codes, root_bounds
+    from nbody_tpu_torch.ops.tree3d import morton_codes_3d, root_bounds_3d
+    from nbody_tpu_torch.rng import random_state
+    from nbody_tpu_torch.state import from_numpy
+
+    dims, engine = P7_MODES[mode][:2]
+    if engine == "allpairs":
+        return random_state(SimConfig(n_bodies=n, n_dim=dims), device=dev)
+    shape = P7_GRIDS[(dims, n)]
+    rng = np.random.default_rng(3)
+    idx = np.stack(np.meshgrid(*[np.arange(k) for k in shape],
+                               indexing="ij"), -1).reshape(-1, dims)
+    p = ((idx + rng.uniform(0.25, 0.75, idx.shape)) * P7_SPACING
+         - 0.1).astype(np.float32)
+    m = (10 ** rng.uniform(-1, np.log10(0.5), n)).astype(np.float32)
+    v = rng.uniform(-1e-4, 1e-4, (n, dims)).astype(np.float32)
+    pos = torch.from_numpy(p).to(dev)
+    depth = SimConfig(n_bodies=n, n_dim=dims).resolved_max_depth
+    if dims == 2:
+        codes = morton_codes(pos, root_bounds(pos), depth)
+    else:
+        codes = morton_codes_3d(pos, root_bounds_3d(pos), depth)
+    o = torch.argsort(codes, stable=True).cpu().numpy()
+    return from_numpy(m[o], p[o], v[o], device=dev)
+
+
+def p7_config(mode: str, n: int):
+    from nbody_tpu_torch.config import SimConfig
+
+    dims, engine = P7_MODES[mode][:2]
+    return SimConfig(n_bodies=n, n_dim=dims, engine=engine,
+                     bh_mode="exact" if mode == "dp_barnes_hut" else "grouped")
+
+
+def engine_of(mode: str) -> str:
+    return P7_MODES[mode][1]
+
+
+def p7_expected(mode: str, n_eff: int) -> tuple:
+    if "allpairs" in mode:
+        return P7_KERNELS["allpairs"]
+    if mode == "dp_barnes_hut":
+        return P7_KERNELS["dp_barnes_hut"]
+    if not mode.endswith("3"):
+        return P7_KERNELS["2d"]
+    return P7_KERNELS["split" if n_eff >= 786432 else "3d"]
+
+
+def windowed_step(cfg, state):
+    """One single-device step of the grouped pass with the whole cloud's
+    window: what a sharded mode computes on one rank (the window gate keeps
+    close cells whose leaf span reaches past the cloud's first or last
+    occupied leaf from being direct, so it is not the plain grouped step;
+    the JAX package alike)."""
+    import torch
+
+    from nbody_tpu_torch.ops import bh3d, bh_grouped
+    from nbody_tpu_torch.physics import integrate
+
+    p, m = state.positions, state.masses
+    md = cfg.resolved_max_depth
+    if cfg.n_dim == 3:
+        tree = bh3d.build_octree(p, m, max_depth=md)
+    else:
+        tree = bh_grouped.build_quadtree(p, m, max_depth=md)
+    order = torch.argsort(tree.codes, stable=True)
+    ps = p[order]
+    srcs = [ps[:, d].contiguous() for d in range(cfg.n_dim)]
+    kw = dict(window_cells=(tree.codes.min(), tree.codes.max()),
+              range_offset=torch.zeros((), dtype=torch.int32,
+                                       device=p.device),
+              n_sources_hint=p.shape[0], g=cfg.g, return_diagnostics=True)
+    if cfg.n_dim == 3:
+        acc, ovf = bh3d.grouped_eval_3d(
+            p, tree, sorted_srcs=(*srcs, cfg.g * m[order]), **kw)
+    else:
+        acc, ovf = bh_grouped.grouped_eval(
+            tree, target_positions=p, sorted_x=srcs[0], sorted_y=srcs[1],
+            sorted_gm=cfg.g * m[order],
+            direct_cell_max=cfg.resolved_direct_cell_max, **kw)
+    return integrate(state, acc, cfg.dt, overflow=ovf.sum())
+
+
+def p7_single(cfg, state, steps: int, dev):
+    """``steps`` single-device steps, an overflowed step retried at 4x
+    caps as the contract loop does; returns (positions, overflowed steps,
+    retried steps, ms/step over the steps after the first)."""
+    from nbody_tpu_torch.models.simulation import Simulation
+
+    sim = Simulation(cfg, state=state)
+    over = retried = 0
+    t0 = time.perf_counter()
+    for k in range(steps):
+        prev = state
+        state = sim.step_fn(prev)
+        if int(state.overflow):
+            retried += 1
+            state = sim._fallback_step()(prev)
+        over += bool(int(state.overflow))
+        if k == 0:
+            sync(dev)
+            t0 = time.perf_counter()
+    sync(dev)
+    return (state.positions, over, retried,
+            (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1))
+
+
+def p7_rank(mesh, mode: str, cfg, state, steps: int):
+    """One thread rank of phase 7b: ``steps`` sharded steps from its slab,
+    an overflowed step retried with the 4x-caps sharded step (the CLI's
+    policy); returns (gathered positions, overflowed steps, retried
+    steps, the collectives of the first step, ms/step over the steps
+    after the first).  The mesh's axes record into one log."""
+    from nbody_tpu_torch.models.engines import resolved_caps
+    from nbody_tpu_torch.parallel import make_sharded_step, shard_state
+    from nbody_tpu_torch.parallel.mesh import gather_state
+
+    log = next(iter(mesh.axes.values())).log
+    s = shard_state(state, mesh)
+    step = make_sharded_step(cfg, mesh, mode)
+    retry = None
+    over = retried = n_first = 0
+    t0 = time.perf_counter()
+    for k in range(steps):
+        prev = s
+        s = step(prev)
+        if k == 0:
+            n_first = len(log)
+        if int(s.overflow):
+            if retry is None:
+                caps = {c: 4 * v for c, v in resolved_caps(cfg).items()}
+                retry = make_sharded_step(cfg.replace(**caps), mesh, mode)
+            retried += 1
+            s = retry(prev)
+        over += bool(int(s.overflow))
+        if k == 0:
+            sync(mesh.device)
+            t0 = time.perf_counter()
+    sync(mesh.device)
+    ms = (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1)
+    return (gather_state(s, mesh).positions, over, retried, log[:n_first],
+            ms)
+
+
+def p7_one_rank(dev) -> None:
+    """7a: every mode on a process group of ONE rank (NCCL on the card)
+    gives the bits of its single-device step."""
+    import torch
+    import torch.distributed as dist
+
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.parallel import (
+        make_mesh, make_mesh_2d, make_sharded_step, shard_state)
+
+    import datetime
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    init = os.path.abspath(os.path.join(OUT_DIR, "pg7a"))
+    if os.path.exists(init):
+        os.remove(init)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{init}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        for mode, (dims, engine, n, _, _) in P7_MODES.items():
+            cfg = p7_config(mode, n)
+            state = p7_state(mode, n, dev)
+            mesh = (make_mesh_2d(1, 1) if mode == "dp2d_allpairs"
+                    else make_mesh(1))
+            if mesh.device != dev:
+                fail(f"7a: the {backend} mesh is on {mesh.device}, not {dev}")
+            step = make_sharded_step(cfg, mesh, mode)
+            s = shard_state(state, mesh)
+            ref = state
+            single = Simulation(cfg, state=state).step_fn
+            for _ in range(2):
+                s = step(s)
+                ref = (windowed_step(cfg, ref) if "sharded" in mode
+                       else single(ref))
+            got, want = digest(s.positions), digest(ref.positions)
+            print(f"  7a {mode} {dims}D N={n}: 2 steps on a {backend} group "
+                  f"of 1 rank, sha256 {got} against the single-device "
+                  f"{'windowed grouped ' if 'sharded' in mode else ''}step's "
+                  f"{want} (overflow {int(s.overflow)} / "
+                  f"{int(ref.overflow)}) -> "
+                  f"{'ok' if got == want else 'FAIL'}", flush=True)
+            if got != want:
+                fail(f"7a: {mode} on one rank is not the single-device step")
+    finally:
+        dist.destroy_process_group()
+
+
+def p7_threads(mode: str, n: int, n_dev: int, steps: int, tol: float, dev,
+               card: str) -> dict:
+    """7b: ``mode`` on ``n_dev`` thread ranks of this process on the one
+    card against its single-device step; returns the run's counts."""
+    import torch
+
+    from nbody_tpu_torch.ops import allpairs, list_eval
+    from nbody_tpu_torch.parallel import steps as steps_mod
+    from nbody_tpu_torch.parallel.collectives import RecordingAxis
+    from nbody_tpu_torch.parallel.memory import collective_inventory
+    from nbody_tpu_torch.parallel.mesh import (
+        Mesh, run_ranks, thread_meshes, thread_meshes_2d)
+
+    cfg = p7_config(mode, n)
+    state = p7_state(mode, n, dev)
+    want, s_over, s_retried, s_ms = p7_single(cfg, state, steps, dev)
+    if mode == "dp2d_allpairs":
+        meshes = thread_meshes_2d(n_dev // 2, 2, dev)
+        inv = collective_inventory(cfg, n_dev // 2, mode, sp=2)
+    else:
+        meshes = thread_meshes(n_dev, dev)
+        inv = collective_inventory(cfg, n_dev, mode)
+    logs = [[] for _ in meshes]
+    meshes = [Mesh({k: RecordingAxis(ax, log) for k, ax in m.axes.items()},
+                   m.device) for m, log in zip(meshes, logs)]
+    twins, windows = [], {}
+    orig_window = steps_mod._source_window
+
+    def window_spy(ax, *a):
+        out = orig_window(ax, *a)
+        c_lo, c_hi = out[1]
+        windows.setdefault(ax.axis_index(), int(c_lo) <= int(c_hi))
+        return out
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        for mod, name in P7_TWINS:
+            stack.enter_context(spying(
+                {"allpairs": allpairs, "list_eval": list_eval}[mod], name,
+                twins))
+        steps_mod._source_window = window_spy
+        stack.callback(setattr, steps_mod, "_source_window", orig_window)
+        got, over, retried, first, ms = run_ranks(
+            p7_rank, meshes, mode, cfg, state, steps)[0]
+    counts = read_counts()
+    counts["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                          if dev.type == "cuda" else 0.0)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    # the sharded modes' windows of the first step: real, or degraded (a
+    # failed count match).  At D >= 4 the first and last ranks' windows
+    # wrap around the ring ([D-1 | 0 | 1], [D-2 | D-1 | 0]) and never
+    # match, in the JAX package alike: their bodies' close cells all
+    # aggregate at max depth (PERF.md, PR 10).  The bound is then held on
+    # the bodies of the ranks whose windows are real.
+    degraded = sorted(r for r, ok in windows.items() if not ok)
+    slab = n // n_dev
+    err_real = max((float((got - want)[r * slab:(r + 1) * slab].abs().max())
+                    for r in range(n_dev) if r not in degraded), default=0.0)
+    # the all-pairs modes sum each target's pairs in another order than
+    # the single-device step; on random_state at 65,536 bodies close
+    # encounters amplify those last bits past the JAX package's bound,
+    # which the single-device step itself misses under a valid reorder of
+    # its sum (K1 at another source_block; PERF.md, PR 10).  The bound is
+    # then held on the bodies whose single-device trajectory that reorder
+    # leaves within it.
+    sensitive, err_calm = None, err
+    if engine_of(mode) == "allpairs" and not err <= tol * scale:
+        alt = p7_single(cfg.replace(source_block=P7_ALT_SOURCE_BLOCK),
+                        state, steps, dev)[0]
+        moved = (alt - want).abs().amax(1) > tol * scale
+        sensitive = int(moved.sum())
+        if sensitive > n // 2:
+            fail(f"7b {mode} D={n_dev}: {sensitive} of {n} bodies are "
+                 "sensitive to a reorder of the single-device sum")
+        err_calm = float((got - want)[~moved].abs().max())
+    expect = p7_expected(mode, n)
+    tag = f"7b {mode} {cfg.n_dim}D N={n} D={n_dev}"
+    print(f"  {tag}: positions after {steps} steps within "
+          f"{err / scale:.3e} x max|p| of the single-device step (bound "
+          f"{tol:g}){'' if not windows else f'; windows degraded on ranks {degraded}, the other ranks within {err_real / scale:.3e}'}"
+          f"{'' if sensitive is None else f'; {sensitive} bodies move by more than the bound in the single-device step under K1 at source_block {P7_ALT_SOURCE_BLOCK}, the others within {err_calm / scale:.3e}'}"
+          f"; launches K1 {counts['k1']}, K2 {counts['k2']}, K3 "
+          f"{counts['k3']}, K4 {counts['k4']}, K6 {counts['k6']}, K7 "
+          f"{counts['k7']} (all ranks; twin calls {len(twins)}); "
+          f"collectives of a step recorded {sorted(first)} against "
+          f"collective_inventory {sorted(inv)}; peak device memory "
+          f"{counts['peak_gib']:.2f} GiB; overflowed steps {over} (single "
+          f"{s_over}), retried {retried} (single {s_retried}); "
+          f"{ms:.2f} ms/step ({n_dev} ranks serialised on one card), "
+          f"single device {s_ms:.2f} ms/step  [{card}]", flush=True)
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{tag}: non-finite positions")
+    if degraded and degraded != ([0, n_dev - 1] if n_dev >= 4 else []):
+        fail(f"{tag}: the windows of ranks {degraded} degraded")
+    held = err  # the error on the bodies the bound is held on
+    if degraded:
+        held = err_real
+    if sensitive:
+        held = err_calm
+    if not held <= tol * scale:
+        fail(f"{tag}: {err / scale:.3e} x max|p| from the single-device "
+             f"step ({held / scale:.3e} on the bodies held), beyond the "
+             f"JAX package's {tol:g}")
+    if sorted(first) != sorted(inv):
+        fail(f"{tag}: the collectives a step issued are not the model's")
+    if twins:
+        fail(f"{tag}: {len(twins)} calls of the kernels' plain twins")
+    if expect and not sum(counts[k] for k in expect):
+        fail(f"{tag}: none of {expect} launched")
+    counts.update(ms=ms, single_ms=s_ms, rel_err=err / scale,
+                  rel_err_held=held / scale, degraded=degraded,
+                  sensitive=sensitive, retried=retried, overflowed=over)
+    return counts
+
+
+def p7_cli(dev, card: str) -> None:
+    """7c: ``run --devices D`` through the CLI over NCCL, one card a rank
+    (D = min(cards, 4)), when the machine has two cards or more."""
+    import torch
+
+    count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if count < 2:
+        print(f"  7c: only {count} card visible: run --devices over NCCL "
+              "needs two or more; not run here", flush=True)
+        return
+    n_dev = min(count, 4)
+    for mode, (dims, _, _, _, _) in P7_MODES.items():
+        n = 65536
+        out = os.path.abspath(os.path.join(OUT_DIR, f"7c_{mode}"))
+        shutil.rmtree(out, ignore_errors=True)
+        argv = [sys.executable, "-m", "nbody_tpu_torch", "run", "--device",
+                "cuda", "--devices", str(n_dev), "--mode", mode, "--dims",
+                str(dims), "--n-bodies", str(n), "--steps", "3",
+                "--engine", engine_of(mode),
+                "--save-positions", "--output-dir", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        totals = re.findall(r"GPU total computation took (\d+) ms",
+                            proc.stdout.replace("milliseconds", "ms"))
+        lines = (sum(1 for _ in open(os.path.join(out, "positions.txt")))
+                 if proc.returncode == 0 else 0)
+        print(f"  7c {mode} {dims}D N={n}: run --devices {n_dev} over NCCL "
+              f"exited {proc.returncode} in {wall:.1f} s, contract lines "
+              f"{len(totals)} + {proc.stdout.count('GPU parallel')}, "
+              f"positions.txt {lines} rows ({4 * n} expected)  [{card}]",
+              flush=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:], proc.stderr[-4000:])
+            fail(f"7c: {' '.join(argv)} exited {proc.returncode}")
+        if len(totals) != 1 or proc.stdout.count("GPU parallel") != 1:
+            fail(f"7c {mode}: the contract lines were not printed once")
+        if lines != 4 * n:
+            fail(f"7c {mode}: positions.txt has {lines} rows")
+
+
+def phase7(dev, card: str) -> dict:
+    """Phase 7; returns {(mode, D): counts} of the thread-rank runs."""
+    print("phase 7a: each sharded mode on a process group of one rank "
+          "(NCCL) against its single-device step, bit for bit (SHA-256)",
+          flush=True)
+    p7_one_rank(dev)
+    print("phase 7b: each sharded mode on D = 2 and 4 thread ranks of one "
+          "process on this card (collectives met in the process, psum in "
+          "rank order; the ranks share one stream, so ms/step is not a "
+          "scaling number) against its single-device step, within the JAX "
+          "package's bound (tests/test_parallel.py)", flush=True)
+    runs, failed = {}, []
+    cases = [(mode, n, n_dev, steps, tol)
+             for mode, (_, _, n, steps, tol) in P7_MODES.items()
+             for n_dev in (2, 4)]
+    mode, n, n_dev, steps = P7_WEAK
+    cases.append((mode, n, n_dev, steps, P7_MODES[mode][4]))
+    for mode, n, n_dev, steps, tol in cases:
+        key = (mode if n == P7_MODES[mode][2] else f"{mode}@{n}", n_dev)
+        try:  # every case runs and reports; the phase fails after
+            runs[key] = p7_threads(mode, n, n_dev, steps, tol, dev, card)
+        except SystemExit:
+            failed.append(key)
+    if failed:
+        fail(f"phase 7b: {failed} failed (above)")
+    print("phase 7c: run --devices D through the CLI over NCCL", flush=True)
+    p7_cli(dev, card)
+    return runs
+
+
+
 def main() -> int:
     import torch
 
@@ -1150,6 +1605,14 @@ def main() -> int:
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
+    if sys.argv[1:] == ["--only-phase-7"]:
+        # a short run for the multi-device path alone (phases 0, 1, 7)
+        phase7(dev, card)
+        print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- phase 2: K1 against its twin ------------------------------------
     err = {}
@@ -1874,6 +2337,7 @@ def main() -> int:
         print("  profiler: no device time recorded for the dynamic step",
               flush=True)
     phase6(dev, card)
+    par = phase7(dev, card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -1901,9 +2365,21 @@ def main() -> int:
                "nbody_tpu/ops/list_eval.py:663", "k4_3d",
                launches[(3, "barnes_hut", n1m)]["k4"], 3, **k4_info[3])
     k4["max_abs_err_2d"] = err["k4_2d"]
+
+    def par_launches(counter, modes):
+        """This kernel's launches on phase 7's thread-rank runs."""
+        return {f"{m} D={d}": c[counter] for (m, d), c in par.items()
+                if m.split("@")[0] in modes}
+
+    ap_modes = ("dp_allpairs", "ring_allpairs", "dp2d_allpairs")
+    bh2 = ("dp_barnes_hut_grouped", "dp_barnes_hut_sharded")
+    bh3 = ("dp_barnes_hut_grouped3", "dp_barnes_hut_sharded3")
+    k4["parallel_launches"] = {f"{m} D={d}": c["k4"]
+                               for (m, d), c in par.items() if "@" in m}
     k1_2d = entry("allpairs_k1", "allpairs.cu", ap, "k1_2d",
                   launches[(2, "allpairs", 65536)]["k1"], 2,
                   **k1_info["k1_2d"])
+    k1_2d["parallel_launches"] = par_launches("k1", ap_modes)
     k1_2d["compensated_ms"] = ms["k1_2d_compensated"][0]
     k1_2d["compensated_shape_ms"] = k1_info["k1_2d_compensated"]["shape_ms"]
     summary = {"kernels": [
@@ -1913,14 +2389,17 @@ def main() -> int:
               **k1_info["k1_3d"]),
         entry("runs_eval_k2", "runs_eval.cu", le, "k2_2d",
               launches[(2, "barnes_hut", 40960)]["k2"], 2,
+              parallel_launches=par_launches("k2", bh2),
               **runs_info["k2_2d"]),
         entry("runs_eval_k2_3d", "runs_eval.cu", le, "k2_3d",
               sum(c["k2"] for (d_, e_, _), c in launches.items()
                   if d_ == 3 and e_ == "barnes_hut"), 3,
+              parallel_launches=par_launches("k2", bh3),
               **runs_info["k2_3d"]),
         entry("runs_eval_k3_3d", "runs_eval.cu", le, "k3_3d",
               sum(c["k3"] for (d_, e_, _), c in launches.items()
                   if d_ == 3 and e_ == "barnes_hut"), 3,
+              parallel_launches=par_launches("k3", bh3),
               **runs_info["k3_3d"]),
         k4,
     ]}

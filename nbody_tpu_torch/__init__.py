@@ -2,12 +2,12 @@
 H100.
 
 A second package beside the JAX reference ``nbody_tpu``, with the same
-module layout and public names: the 2D single-device ``run`` path for the
-``naive``, ``allpairs`` and grouped ``barnes_hut`` engines.  The two
-Pallas kernels on that path are hand-written CUDA C++ for ``sm_90a``
-(``csrc/``): K1 all-pairs and K2 grouped Barnes-Hut list evaluation.
-Everything else is eager PyTorch on explicit devices.  Imports torch and
-numpy, never jax.
+module layout and public names: the ``run`` and ``compare`` paths in 2D
+and 3D for every engine, on one device or sharded over several
+(``parallel/``, torch.distributed).  The JAX package's seven Pallas
+kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/``); everything
+else is eager PyTorch on explicit devices.  Imports torch and numpy,
+never jax.
 
 Float32 matrix products and convolutions are pinned to full f32 (no
 TF32) for every user of the package: a TF32 product would truncate sums

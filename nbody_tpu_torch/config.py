@@ -3,9 +3,7 @@
 Field for field the same dataclasses as :mod:`nbody_tpu.config` (the JAX
 reference package), so a reference config carries across with
 ``SimConfig.from_dict(dataclasses.asdict(cfg))``.  Knobs that only the
-TPU package acts on (``eval_mode="grid"``, ``hbm_bytes``, ...) are kept
-as fields so configs round-trip; the engines raise ``NotImplementedError``
-where a value asks for a path not yet ported.
+TPU package acts on are kept as fields so configs round-trip.
 """
 
 from __future__ import annotations
@@ -54,8 +52,8 @@ class InitRanges:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout for multi-device runs (not ported yet: the port
-    runs on one device; ``dp > 1`` raises in the simulation driver)."""
+    """Device-mesh layout for multi-device runs: ``dp`` devices on the
+    body axis ``axis_name`` (``run --devices``; ``parallel/``)."""
 
     dp: int = 1
     axis_name: str = "dp"

@@ -24,7 +24,14 @@
   (3D Barnes-Hut on the dense collector or the segment-packing route);
   that step and every CPU run go step by step with the same semantics.
 
-Not ported yet (the constructor raises): multi-device steps (A11).
+A multi-device run gives each rank a ``Simulation`` of its slab with the
+sharded step of ``parallel/steps.py`` (``step_fn``), its 4x-caps retry
+builder (``step_fallback_fn``) and its ``mesh``: every rank steps its
+slab, the retry decision reads the global overflow count every rank
+holds, and rank 0 alone writes positions, dumps, metrics and
+checkpoints, from the state gathered over the mesh (a collective every
+rank joins).  Its fused run goes step by step (a CUDA graph across ranks
+is not ported).
 """
 
 from __future__ import annotations
@@ -46,12 +53,6 @@ from ..utils.metrics import MetricsWriter, tree_stats, tree_stats_3d
 from ..utils.textio import PositionsWriter
 from ..utils.timing import RunTiming, Stopwatch
 from .engines import make_accel_fn, resolved_caps
-
-
-def _unported(config: SimConfig) -> Optional[str]:
-    if config.mesh.dp > 1:
-        return "multi-device runs, --devices > 1 (ROADMAP A11)"
-    return None
 
 
 def host_gate(config: SimConfig,
@@ -82,19 +83,30 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# why a fused multi-device run goes step by step
+MESH_GATE = ("a multi-device step runs step by step (a CUDA graph of its "
+             "collectives is not ported)")
+
+
 class Simulation:
     def __init__(self, config: SimConfig, state: Optional[SimState] = None,
-                 device="cuda"):
+                 device="cuda", step_fn=None, step_fallback_fn=None,
+                 mesh=None):
         """``state`` defaults to ``random_state(config, device)``; a given
-        state keeps its own device."""
-        missing = _unported(config)
-        if missing:
-            raise NotImplementedError(f"{missing} is not yet ported")
+        state keeps its own device.  ``step_fn`` replaces the engine's
+        step (a sharded step of ``parallel/steps.py``: ``state`` is then
+        the rank's slab and ``mesh`` its mesh); ``step_fallback_fn`` is a
+        0-arg builder of its 4x-caps retry step, without which an
+        overflowed custom step warns but is not retried."""
         self.config = config
         self.state = state if state is not None else random_state(
             config, device=device)
-        self.step_fn = self._make_step(config)
+        self.mesh = mesh
+        self.is_root = mesh is None or mesh.is_root
+        self._custom_step = step_fn is not None
+        self.step_fn = step_fn or self._make_step(config)
         self._step_fallback = None  # lazily-built 4x-cap retry step
+        self._step_fallback_builder = step_fallback_fn
         # the last fused run: per-step overflow counts, its route
         # ("graph" or "eager"), the capture's and the run's wall times
         self.last_scan_overflow = None
@@ -123,20 +135,19 @@ class Simulation:
         if cfg.save_positions or cfg.save_tree_dumps or cfg.metrics_csv:
             os.makedirs(cfg.output_dir or ".", exist_ok=True)
 
-        writer = None
-        if cfg.save_positions:
+        writer = metrics = None
+        if self.is_root and cfg.save_positions:
             writer = PositionsWriter(
                 os.path.join(cfg.output_dir, "positions.txt"))
-            writer.append(float(state.time), state.positions.cpu().numpy())
-
-        metrics = None
-        if cfg.metrics_csv:
+        if self.is_root and cfg.metrics_csv:
             metrics = MetricsWriter(
                 os.path.join(cfg.output_dir, cfg.metrics_csv), g=cfg.g)
-            # tree stats only mean something for the tree engine, and
-            # rebuild the tree once per recorded step
-            record_tree = cfg.metrics_tree and cfg.engine == "barnes_hut"
-            metrics.record(state, self._tree_stats(state, record_tree))
+        # tree stats only mean something for the tree engine, and rebuild
+        # the tree once per recorded step
+        record_tree = cfg.metrics_tree and cfg.engine == "barnes_hut"
+        if cfg.save_positions or cfg.metrics_csv:
+            self._record(self._host_state(state), writer, metrics,
+                         record_tree)
 
         if device.type == "cuda":
             # build the kernels before the clock starts, as the
@@ -159,12 +170,14 @@ class Simulation:
             watch.stop()
             n_ovf = int(state.overflow)
 
-            if n_ovf and cfg.adaptive_caps:
+            retry = self._fallback_step() if (
+                n_ovf and cfg.adaptive_caps) else None
+            if retry is not None:
                 print(
                     f"step {step_idx}: caps overflowed for {n_ovf} bodies; "
                     "retrying with 4x caps (adaptive)", file=sys.stderr)
                 watch.start()
-                state = self._fallback_step()(prev)
+                state = retry(prev)
                 _sync(device)
                 watch.stop()
                 n_ovf = int(state.overflow)
@@ -178,14 +191,13 @@ class Simulation:
                         "interactions); raise --frontier-cap / list/direct "
                         "caps", file=sys.stderr)
 
-            if writer is not None:
-                writer.append(float(state.time),
-                              state.positions.cpu().numpy())
-            if metrics is not None:
-                metrics.record(state, self._tree_stats(state, record_tree))
-            if cfg.checkpoint_every and (
-                    step_idx + 1) % cfg.checkpoint_every == 0:
-                save_checkpoint(self._checkpoint_path(), state)
+            ckpt = cfg.checkpoint_every and (
+                step_idx + 1) % cfg.checkpoint_every == 0
+            if cfg.save_positions or cfg.metrics_csv or ckpt:
+                host = self._host_state(state)
+                self._record(host, writer, metrics, record_tree)
+                if ckpt and self.is_root:
+                    save_checkpoint(self._checkpoint_path(), host)
 
         if overflow_steps > 3:
             print(
@@ -201,6 +213,32 @@ class Simulation:
             metrics.flush()
         self.state = state
         return state, timing
+
+    def _host_state(self, state: SimState) -> SimState:
+        """The whole state for host outputs: ``state`` itself, or under a
+        mesh the state gathered from every rank (every rank calls this at
+        the same points)."""
+        if self.mesh is None:
+            return state
+        from ..parallel.mesh import gather_state
+
+        return gather_state(state, self.mesh)
+
+    def _record(self, state: SimState, writer, metrics,
+                record_tree: bool) -> None:
+        """Append ``state`` to the positions file and the metrics CSV
+        (each None on ranks other than 0)."""
+        if writer is not None:
+            writer.append(float(state.time), state.positions.cpu().numpy())
+        if metrics is not None:
+            metrics.record(state, self._tree_stats(state, record_tree))
+
+    def fused_gate(self) -> Optional[str]:
+        """Why a fused run of this simulation on the card goes step by
+        step, or None when it is one CUDA graph of the step."""
+        if self.mesh is not None:
+            return MESH_GATE
+        return host_gate(self.config, self.state.n_bodies)
 
     def run_scan(self, n_steps: Optional[int] = None) -> SimState:
         """The whole run with no per-step host crossing (the JAX
@@ -223,9 +261,14 @@ class Simulation:
         """:meth:`run_scan` that also returns the stacked position
         history [n_steps + 1, N, D] (step 0 included, like
         savePositions), kept on the device: the per-step positions.txt
-        capture without per-step crossings.  Returns (final, traj)."""
+        capture without per-step crossings.  Returns (final, traj); under
+        a mesh ``traj`` holds every rank's bodies (gathered once, at the
+        end) and ``final`` the rank's slab."""
         n = n_steps if n_steps is not None else self.config.n_steps
         final, traj, ovf = self._fused(n, trajectory=True)
+        if self.mesh is not None:
+            ax = self.mesh.axes[self.config.mesh.axis_name]
+            traj = ax.all_gather(traj.transpose(0, 1)).transpose(0, 1)
         self.state = final
         self._report_scan_overflow(ovf)
         return final, traj
@@ -235,8 +278,7 @@ class Simulation:
         on the device) of ``n`` fused steps from ``self.state``."""
         state = self.state
         device = state.device
-        graph = device.type == "cuda" and host_gate(
-            self.config, state.n_bodies) is None
+        graph = device.type == "cuda" and self.fused_gate() is None
         self.last_scan_route = "graph" if graph else "eager"
         if device.type == "cuda":
             from ..ops import _cuda
@@ -318,8 +360,13 @@ class Simulation:
         reference builds it there every step (project.cu:959): the
         native C++ engine, else the f64 oracle (byte-equal to it).
         ``positions`` overrides the state's (the fused run dumps the
-        final tree from a trajectory row)."""
+        final tree from a trajectory row; under a mesh, a row of every
+        rank's bodies).  Under a mesh every rank calls this (the state is
+        gathered) and rank 0 writes."""
         cfg = self.config
+        state = self._host_state(state)
+        if not self.is_root:
+            return
         pos = state.positions if positions is None else positions
         pos = pos.detach().double().cpu().numpy()
         masses = state.masses.detach().double().cpu().numpy()
@@ -339,14 +386,20 @@ class Simulation:
             f.write(text)
 
     def _fallback_step(self):
-        """The adaptive-caps retry step: every traversal cap at 4x its
-        resolved value (built on first overflow).  In 3D it re-collects
-        through the gather walk, as the JAX package's retry does: 4x caps
-        widen its frontiers."""
+        """The adaptive-caps retry step (built on first overflow): every
+        traversal cap at 4x its resolved value; in 3D it re-collects
+        through the gather walk, as the JAX package's retry does (4x caps
+        widen its frontiers).  A custom step's comes from its
+        ``step_fallback_fn``, and is None without one."""
         if self._step_fallback is None:
-            caps = {k: 4 * v for k, v in resolved_caps(self.config).items()}
-            self._step_fallback = self._make_step(
-                self.config.replace(collect3="gather", **caps))
+            if self._custom_step:
+                if self._step_fallback_builder is not None:
+                    self._step_fallback = self._step_fallback_builder()
+            else:
+                caps = {k: 4 * v
+                        for k, v in resolved_caps(self.config).items()}
+                self._step_fallback = self._make_step(
+                    self.config.replace(collect3="gather", **caps))
         return self._step_fallback
 
     def _tree_stats(self, state: SimState, enabled: bool):

@@ -30,6 +30,10 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+# guards the wrappers' launch counters: ranks of a thread group (parallel/
+# collectives.ThreadGroup) launch from several threads, and ``+= 1`` on a
+# module global is not atomic
+counter_lock = threading.Lock()
 _lib = None
 # what the last build in this process printed (ptxas register / shared
 # memory report) and how long it took; "" / 0.0 when the library was
@@ -203,6 +207,7 @@ def add_launches(per_replay: dict, replays: int) -> None:
     makes."""
     import importlib
 
-    for (mod, name), k in per_replay.items():
-        m = importlib.import_module(f"{__package__}.{mod}")
-        setattr(m, name, getattr(m, name) + k * replays)
+    with counter_lock:
+        for (mod, name), k in per_replay.items():
+            m = importlib.import_module(f"{__package__}.{mod}")
+            setattr(m, name, getattr(m, name) + k * replays)

@@ -210,7 +210,8 @@ def allpairs_accelerations_vs(
             _cuda.stream_of(out),
         )
     _cuda.check(code, "allpairs (K1)")
-    KERNEL_LAUNCHES += 1
+    with _cuda.counter_lock:
+        KERNEL_LAUNCHES += 1
     return out
 
 
@@ -288,7 +289,8 @@ def allpairs_potential(
             POTENTIAL_THREADS, slices, dims, _cuda.stream_of(out),
         )
     _cuda.check(code, "allpairs potential (K5)")
-    POTENTIAL_LAUNCHES += 1
+    with _cuda.counter_lock:
+        POTENTIAL_LAUNCHES += 1
     return out
 
 

@@ -52,6 +52,7 @@ from .tree3d import (
     build_octree,
     default_max_depth3,
     level_cell_size_3d,
+    morton_codes_3d,
 )
 
 
@@ -144,6 +145,7 @@ def _collect_lists_3d(
     direct_cap: int,
     direct_cell_max: int,
     quarter_bits: bool = False,
+    window_cells=None,
 ):
     """Per-group interaction lists via the dual cell-vs-bbox octree walk.
 
@@ -157,7 +159,9 @@ def _collect_lists_3d(
     zero-count padded; overflow [G] bool), and with ``quarter_bits`` a
     fourth item, the quarter-split payload of each direct entry:
     ``dict(bits=[G, D] int32 per-quarter theta-fail masks,
-    com=(x, y, z) [G, D], mass=[G, D])``."""
+    com=(x, y, z) [G, D], mass=[G, D])``.  ``window_cells=(c_lo, c_hi)``
+    gates direct emission to the sharded window's leaf cells, as in 2D
+    (``bh_grouped._collect_lists``)."""
     x0, x1, y0, y1, z0, z1 = bbox
     g = x0.shape[0]
     dev = x0.device
@@ -199,6 +203,11 @@ def _collect_lists_3d(
         direct = multi & ~theta_ok & (cnt <= direct_cell_max)
         if at_leaf:
             direct = torch.zeros_like(direct)
+        if window_cells is not None:
+            c_lo, c_hi = window_cells
+            shift_w = 3 * (max_depth - level)
+            direct = direct & ((idx << shift_w) >= c_lo) & (
+                ((idx + 1) << shift_w) <= c_hi + 1)
 
         for lst, v in zip(app, com + [torch.where(approx, m, 0.0), approx]):
             lst.append(v)
@@ -397,8 +406,9 @@ def grouped_eval_3d(
     target_positions: torch.Tensor,  # [Nt, 3] bodies to accelerate
     tree: Octree,
     *,
-    target_order: torch.Tensor,  # [Nt] targets' stable Morton order
-    target_sorted: torch.Tensor,  # [Nt, 3] targets in that order
+    target_order: torch.Tensor | None = None,  # [Nt] stable Morton order
+    target_sorted: torch.Tensor | None = None,  # [Nt, 3] in that order
+    target_codes: torch.Tensor | None = None,  # [Nt] leaf codes in tree
     sorted_srcs,  # (x, y, z, g*m) [Ns] each, all sources in Morton order
     g: float,
     theta: float = THETA_DEFAULT,
@@ -418,6 +428,9 @@ def grouped_eval_3d(
     seg_pack: int | None = None,
     collect: str | None = None,
     spyr=None,
+    window_cells=None,
+    range_offset=None,
+    n_sources_hint: int | None = None,
 ):
     """Grouped 3D evaluation of targets against a prebuilt octree.
 
@@ -429,15 +442,29 @@ def grouped_eval_3d(
     kernels' twins.  With ``eval_mode="grid"`` or ``"dynamic"`` (and
     ``compensated``, which forces grid) the lists are packed per group
     with their gathered superblocks, 64 groups at a time, and evaluated
-    by K6 or K7, behind either collector."""
+    by K6 or K7, behind either collector.
+
+    Without ``target_order`` the targets are stably Morton-sorted here
+    (by ``target_codes`` when given).  The sharded-source trio
+    ``window_cells``, ``range_offset`` and ``n_sources_hint`` is the 2D
+    one (``bh_grouped.grouped_eval``): every N-keyed default, cap and gate
+    takes n_eff = ``n_sources_hint`` or Ns, and a windowed pass collects
+    through the gather walk."""
     n = target_positions.shape[0]
-    ns = sorted_srcs[0].shape[0]
+    ns = n_sources_hint or sorted_srcs[0].shape[0]  # n_eff
     max_depth = tree.max_depth
+    if target_order is None:
+        if target_codes is None:
+            target_codes = morton_codes_3d(target_positions, tree.bounds,
+                                           max_depth)
+        target_order = torch.argsort(target_codes, stable=True)
+        target_sorted = target_positions[target_order]
     route = resolve_route_3d(
         n, ns, eval_mode=eval_mode, compensated=compensated,
         eval_k_tile=eval_k_tile, group_size=group_size,
         direct_cell_max=direct_cell_max, split_eval=split_eval,
-        seg_pack=seg_pack, collect=collect)
+        seg_pack=seg_pack,
+        collect=collect if window_cells is None else "gather")
     eval_mode, k_tile = route.eval_mode, route.k_tile
     gs, n_sub = route.group_size, route.n_sub
     direct_cell_max, split_eval = route.direct_cell_max, route.split_eval
@@ -473,8 +500,11 @@ def grouped_eval_3d(
 
         collected = collect_lists_3d_dense(bbox, tree, spyr, **walk)
     else:
-        collected = _collect_lists_3d(bbox, tree, **walk)
+        collected = _collect_lists_3d(bbox, tree, window_cells=window_cells,
+                                      **walk)
     (lx, ly, lz, lm), ranges, overflow_g = collected[:3]
+    if range_offset is not None:
+        ranges = bh_grouped.window_local(ranges, range_offset)
 
     rc = run_cap or defaults["run_cap"]
     kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,

@@ -49,6 +49,7 @@ from .tree import (
     Quadtree,
     build_quadtree,
     level_cell_size,
+    morton_codes,
 )
 
 _INT_MAX = 2**31 - 1
@@ -171,6 +172,7 @@ def _collect_lists(
     direct_cap: int,
     direct_cell_max: int,
     quarter_bits: bool = False,
+    window_cells=None,
 ):
     """Per-group interaction lists via a dual (cell-vs-group-bbox) walk.
 
@@ -182,7 +184,14 @@ def _collect_lists(
     padded; overflow [G] bool), and with ``quarter_bits`` a fourth item,
     the quarter-split payload of each direct entry: ``dict(bits=[G, D]
     int32 per-quarter theta-fail masks, com=(x, y) [G, D], mass=[G, D])``
-    (a direct cell fails theta for at least one quarter)."""
+    (a direct cell fails theta for at least one quarter).
+
+    ``window_cells=(c_lo, c_hi)`` (int32 device scalars: no host read)
+    restricts direct emission to cells whose leaf span lies inside
+    [c_lo, c_hi], the sources a sharded rank holds
+    (``parallel/steps.py``); out-of-window close cells open on to
+    singletons and max-depth aggregates, which need only the replicated
+    pyramid."""
     x0, x1, y0, y1 = bbox
     g = x0.shape[0]
     dev = x0.device
@@ -225,6 +234,12 @@ def _collect_lists(
         direct = multi & ~theta_ok & (cnt <= direct_cell_max)
         if at_leaf:
             direct = torch.zeros_like(direct)
+        if window_cells is not None:
+            # a cell at this level spans leaf cells [idx << s, (idx+1) << s)
+            c_lo, c_hi = window_cells
+            shift_w = 2 * (max_depth - level)
+            direct = direct & ((idx << shift_w) >= c_lo) & (
+                ((idx + 1) << shift_w) <= c_hi + 1)
 
         app_x.append(cx)
         app_y.append(cy)
@@ -592,6 +607,15 @@ def _evaluate_pallas(
     return torch.cat(out)
 
 
+def window_local(ranges: torch.Tensor, range_offset) -> torch.Tensor:
+    """Direct ranges [G, D, 2] with their starts made window-local (the
+    sources start at global slot ``range_offset``); empty entries keep
+    start 0."""
+    starts = torch.where(ranges[:, :, 1] > 0,
+                         ranges[:, :, 0] - range_offset, 0)
+    return torch.stack([starts.to(ranges.dtype), ranges[:, :, 1]], dim=-1)
+
+
 def resolve_eval(eval_mode, compensated: bool, eval_k_tile,
                  runs_k_tile: int):
     """The JAX package's evaluator resolution on its kernel route:
@@ -659,8 +683,10 @@ def bh_accelerations_grouped(
 def grouped_eval(
     tree: Quadtree,
     *,
-    target_order: torch.Tensor,  # [Nt] targets' stable Morton order
-    target_sorted: torch.Tensor,  # [Nt, 2] targets in that order
+    target_order: torch.Tensor | None = None,  # [Nt] stable Morton order
+    target_sorted: torch.Tensor | None = None,  # [Nt, 2] in that order
+    target_positions: torch.Tensor | None = None,  # [Nt, 2]
+    target_codes: torch.Tensor | None = None,  # [Nt] leaf codes in tree
     sorted_x: torch.Tensor,  # [Ns] all sources in Morton order
     sorted_y: torch.Tensor,
     sorted_gm: torch.Tensor,  # [Ns] g * mass, same order
@@ -679,14 +705,35 @@ def grouped_eval(
     eval_mode: str | None = None,
     run_cap: int | None = None,
     split_eval: bool | None = None,
+    window_cells=None,
+    range_offset=None,
+    n_sources_hint: int | None = None,
 ):
     """Grouped evaluation of targets against a prebuilt tree, through the
     runs evaluator (kernel K2 on CUDA, its twin on the CPU), per Morton
     quarter (K4) where ``split_eval`` resolves on, or through the padded
     two-section lists: K6 with ``eval_mode="grid"`` or ``compensated``,
-    K7 with ``eval_mode="dynamic"``."""
+    K7 with ``eval_mode="dynamic"``.
+
+    The targets come as ``target_order`` / ``target_sorted``, or as
+    ``target_positions`` (with their leaf codes ``target_codes``, else
+    computed in ``tree``), which are stably Morton-sorted here.
+
+    Sharded sources (``parallel/steps.py``): ``sorted_*`` may hold only a
+    Morton-contiguous window of the global sorted order.  Then
+    ``window_cells=(c_lo, c_hi)`` gates direct emission to the leaf cells
+    the window covers (see :func:`_collect_lists`), ``range_offset`` is
+    the global index of the window's first slot (device scalar), and
+    ``n_sources_hint`` (the global body count) keys the caps, the
+    frontier schedule and the split gate, as in the JAX package."""
+    if target_order is None:
+        if target_codes is None:
+            target_codes = morton_codes(target_positions, tree.bounds,
+                                        tree.max_depth)
+        target_order = torch.argsort(target_codes, stable=True)
+        target_sorted = target_positions[target_order]
     n = target_sorted.shape[0]
-    ns = sorted_x.shape[0]
+    ns = n_sources_hint or sorted_x.shape[0]
     eval_mode, k_tile = resolve_eval(eval_mode, compensated, eval_k_tile,
                                      256)
 
@@ -732,8 +779,11 @@ def grouped_eval(
         frontier_caps=frontier_schedule(frontier_cap, tree.max_depth, ns),
         list_cap=list_cap, direct_cap=direct_cap,
         direct_cell_max=direct_cell_max, quarter_bits=split_eval,
+        window_cells=window_cells,
     )
     (lx, ly, lm), ranges, overflow_g = collected[:3]
+    if range_offset is not None:
+        ranges = window_local(ranges, range_offset)
     rc = run_cap or defaults["run_cap"]
     kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
               t_cap=direct_body_cap // k_tile + 2 * rc)

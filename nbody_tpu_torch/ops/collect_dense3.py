@@ -44,6 +44,7 @@ from typing import List, Tuple
 import torch
 
 from ..config import MASS_SKIP_THRESHOLD
+from . import _cuda
 from .bh_grouped import _quarter_fail_bits, _sort_compact, _theta_distances
 from .tree3d import (
     R3_CNT,
@@ -335,10 +336,12 @@ def collect_lists_3d_dense(
     esc_rank = torch.cumsum(escape.to(torch.int32), 0) - 1
     overflow = overflow | (escape & (esc_rank >= spill_cap))
     n_esc = int(escape.sum())  # the host's spill decision
-    DENSE_PASSES += 1
-    ESCAPED_GROUPS += n_esc
+    with _cuda.counter_lock:
+        DENSE_PASSES += 1
+        ESCAPED_GROUPS += n_esc
+        if spill_cap > 0 and n_esc:
+            SPILL_PASSES += 1
     if spill_cap > 0 and n_esc:
-        SPILL_PASSES += 1
         ids = torch.nonzero(escape).reshape(-1)[:spill_cap]
         # compacted to the dense outputs' widths; the gather walk's own
         # overflow flag covers any truncation

@@ -207,10 +207,11 @@ def list_eval_runs(
     global KERNEL_LAUNCHES, PACKED_LAUNCHES
     out = _launch_runs(targets, approx, sources_t, tiles, lens,
                        softening=softening, k_tile=k_tile, seg_pack=seg_pack)
-    if seg_pack == 1:
-        KERNEL_LAUNCHES += 1
-    else:
-        PACKED_LAUNCHES += 1
+    with _cuda.counter_lock:
+        if seg_pack == 1:
+            KERNEL_LAUNCHES += 1
+        else:
+            PACKED_LAUNCHES += 1
     return out
 
 
@@ -393,7 +394,8 @@ def list_eval_runs_split(
     global SPLIT_LAUNCHES
     out = _launch_split(targets, approx, ext, sources_t, tiles, lens,
                         softening=softening, k_tile=k_tile)
-    SPLIT_LAUNCHES += 1
+    with _cuda.counter_lock:
+        SPLIT_LAUNCHES += 1
     return out
 
 
@@ -675,7 +677,8 @@ def list_eval_pallas(
         mode=1 if compensated else 0,
         name="list_eval grid (K6, compensated)" if compensated
         else "list_eval grid (K6)")
-    GRID_LAUNCHES += 1
+    with _cuda.counter_lock:
+        GRID_LAUNCHES += 1
     return out
 
 
@@ -703,5 +706,6 @@ def list_eval_dynamic(
         targets, sources, lens, softening=softening,
         section_offset=section_offset, k_tile=k_tile,
         mode=2, name="list_eval dynamic (K7)")
-    DYNAMIC_LAUNCHES += 1
+    with _cuda.counter_lock:
+        DYNAMIC_LAUNCHES += 1
     return out

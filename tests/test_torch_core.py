@@ -43,7 +43,8 @@ def test_port_imports_without_jax():
         "nbody_tpu_torch.models.simulation, nbody_tpu_torch.ops.bh_grouped, "
         "nbody_tpu_torch.ops.experiments, nbody_tpu_torch.ops.barnes_hut, "
         "nbody_tpu_torch.models.oracle, nbody_tpu_torch.utils.native, "
-        "nbody_tpu_torch.utils.debug, nbody_tpu_torch.utils.profiling; "
+        "nbody_tpu_torch.utils.debug, nbody_tpu_torch.utils.profiling, "
+        "nbody_tpu_torch.parallel, nbody_tpu_torch.parallel.collectives; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "bad = [m for m in sys.modules if m.split('.')[0] == 'nbody_tpu']; "
         "assert not bad, bad"

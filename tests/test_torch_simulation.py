@@ -111,13 +111,9 @@ def test_cli_in_process_save_outputs(tmp_path, capsys):
     ["--fused"], ["--save-tree-dumps"],
 ], ids=lambda f: "_".join(f))
 def test_unported_flag_raises(flags, tmp_path):
-    """Only --devices > 1 is still refused (ROADMAP A11); the flags that
-    have been ported since (--bh-mode exact, --fused, --save-tree-dumps)
-    run through."""
+    """No flag is refused any more: the ones the port once refused
+    (--bh-mode exact, --fused, --save-tree-dumps, and --devices > 1, two
+    gloo ranks here) run through."""
     argv = ["run", "--device", "cpu", "--n-bodies", "64", "--steps", "1",
             "--output-dir", str(tmp_path)] + flags
-    if flags == ["--devices", "2"]:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            cli.main(argv)
-    else:
-        assert cli.main(argv) == 0
+    assert cli.main(argv) == 0
