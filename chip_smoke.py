@@ -117,7 +117,30 @@ Phases, each printing what it found; the first failure exits non-zero:
    ranks serialised on one card; 7c ``run --devices min(cards, 4)``
    through the CLI over NCCL, one card a rank, when two or more cards
    are visible (contract lines once, ``positions.txt`` of every body).
-   ``python3 chip_smoke.py --only-phase-7`` runs phases 0, 1 and 7 alone.
+   ``python3 chip_smoke.py --only-phase-7`` runs phases 0, 1 and 7 alone;
+8. the tooling (``nbody_tpu_torch/bench``, ``nbody_tpu_torch/scripts``):
+   8a ``python -m nbody_tpu_torch bench`` as a subprocess, its last line
+   a JSON object whose numbers are all present, finite and positive, on
+   backend ``cuda`` and phase 0's card; the same measurement in-process
+   must launch K1, K2 and the runs wrapper in 3D (K2 or K3) at both of
+   its 3D sizes and call no plain twin, and its fused all-pairs ms/step must lie within 1.0-1.5x
+   of one K1 launch at the bench's N by CUDA events; 8b ``sweep``:
+   strong at 2D BH 40,960 (device counts 1, or the visible cards up to 4),
+   bodies at 40,960 and 65,536, the tiles axis at all-pairs 65,536, 2
+   repeats of 10 steps, every requested point in the results file as the
+   port's ``_parse_scaling_results`` reads it (no ``plot``: the card's
+   machine has no matplotlib); 8c ``python -m
+   nbody_tpu_torch.bench.baseline --configs 1,2,3,4,5`` into
+   build/chip_smoke/, exit 1: config 1 the error record naming the
+   missing triplet, config 2 within 2e-4 of the dense form, config 3 with 0
+   overflowed bodies and its dump, configs 4-5 with their one-card
+   point; 8d ``scripts.demand`` on evolved states (2D 40,960, 3D 131,072,
+   10 steps); 8e ``scripts.phase_split`` at 2D 65,536 and 3D 262,144 (21
+   rounds), every stage's median positive, the evaluate stage's least
+   round (CUDA events around the runs wrapper in the pass) within 0.9-3x
+   the wrapper alone on the same inputs, and the stages' sum at most 1.2x the pass
+   timed alone.
+   ``python3 chip_smoke.py --only-phase-8`` runs phases 0, 1 and 8 alone.
 
 The summary gives each kernel its bound: the larger of the FP32 work
 over 67 TFLOP/s, the special-function work (rsqrt, and the reciprocal of
@@ -1547,6 +1570,313 @@ def phase7(dev, card: str) -> dict:
     return runs
 
 
+# -- phase 8: the tooling (bench, sweep, baseline, demand, phase split) -------
+
+# the bench line's numbers: every one present, finite and positive; its
+# counts present and >= 0
+P8_MS_KEYS = ("allpairs2d_loop_ms", "allpairs2d_fused_ms", "bh2d_loop_ms",
+              "bh2d_fused_ms", "bh3d_loop_ms", "bh3d_fused_ms",
+              "bh3d_large_loop_ms")
+P8_POSITIVE = ("value", "vs_baseline", "n", "steps", "repeats",
+               "bh3d_large_n") + P8_MS_KEYS
+P8_COUNTS = ("bh2d_overflowed_bodies", "bh3d_large_retried_steps")
+P8_STRINGS = ("metric", "unit", "backend", "card", "power_limit",
+              "bh3d_large_route")
+# the fused all-pairs step against one K1 launch at the bench's N: at
+# least the kernel, at most half again (the integrator and the replay)
+P8_K1_RATIO = (1.0, 1.5)
+# the evaluate stage's least round (the runs wrapper's call in the pass,
+# host work and kernel one after the other; the least round is the one
+# the host's noise touched least) against the wrapper alone on the same
+# inputs, back to back (host work hidden behind the previous kernel): at
+# least the kernel, less 10% for the card's clocks moving between the two
+# timings (3D 262,144, a device-bound K3, read 1.04-1.06x), at most the
+# kernel plus twice the wrapper's host work (2D 65,536 read 1.44-1.72x;
+# the medians 1.51-2.19x as the host slowed)
+P8_EVAL_RATIO = (0.9, 3.0)
+
+
+def tool_env() -> dict:
+    """The environment of a tool run as a subprocess: the checkout first
+    on the path, and no reference triplet (config 1 must say so)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.abspath(".")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env.pop("NBODY_REFERENCE_DIR", None)
+    return env
+
+
+def run_tool(argv, tag: str, timeout: int = 900, rc: int = 0) -> str:
+    """``python -m <argv>`` in a subprocess; returns its stdout, fails on
+    an exit code other than ``rc``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
+                          text=True, timeout=timeout, env=tool_env())
+    print(f"  {tag}: python -m {' '.join(argv)} exited {proc.returncode} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    if proc.returncode != rc:
+        print(proc.stdout[-3000:], proc.stderr[-6000:])
+        fail(f"{tag}: {' '.join(argv)} exited {proc.returncode}, not {rc}")
+    return proc.stdout
+
+
+def check_bench_line(line: dict, tag: str, card: str) -> None:
+    missing = [k for k in P8_POSITIVE + P8_COUNTS + P8_STRINGS
+               if k not in line]
+    if missing:
+        fail(f"{tag}: the bench line lacks {missing}")
+    bad = [k for k in P8_POSITIVE
+           if not (isinstance(line[k], (int, float)) and
+                   math.isfinite(line[k]) and line[k] > 0)]
+    bad += [k for k in P8_COUNTS
+            if not (isinstance(line[k], int) and line[k] >= 0)]
+    bad += [k for k in P8_STRINGS if not (isinstance(line[k], str)
+                                          and line[k])]
+    if bad:
+        fail(f"{tag}: bench keys {bad} are not finite and positive")
+    if line["backend"] != "cuda":
+        fail(f"{tag}: backend {line['backend']!r}, not 'cuda'")
+    if f"{line['card']}, {line['power_limit']}" != card:
+        fail(f"{tag}: the bench line's card {line['card']!r}, "
+             f"{line['power_limit']!r} is not phase 0's {card!r}")
+
+
+def p8_bench(dev, card: str) -> dict:
+    """8a: ``python -m nbody_tpu_torch bench`` as a subprocess, then the
+    same measurement in-process under the launch counters and the twin
+    spies, and one K1 launch at the bench's N by CUDA events."""
+    from nbody_tpu_torch.bench import headline
+    from nbody_tpu_torch.ops import allpairs, list_eval
+
+    stdout = run_tool(["nbody_tpu_torch", "bench"], "8a bench")
+    lines = stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"8a: bench's last stdout line is no JSON object: {lines[-1:]}")
+    print(f"  8a bench line: {lines[-1]}", flush=True)
+    check_bench_line(line, "8a subprocess", card)
+
+    twins, runs_calls = [], []
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        import importlib
+
+        for mod, name in P7_TWINS:
+            stack.enter_context(spying(importlib.import_module(
+                f"nbody_tpu_torch.ops.{mod}"), name, twins))
+        stack.enter_context(spying(list_eval, "list_eval_runs", runs_calls))
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            again = headline.measure(dev)
+    counts = read_counts()
+    check_bench_line(again, "8a in-process", card)
+    # 3D runs-wrapper calls by the pass's size: the targets [G, S, 3]
+    # hold the N bodies (padded to whole groups)
+    n, big = again["n"], again["bh3d_large_n"]
+    runs_3d = {}
+    for a, kw in runs_calls:
+        if a[0].shape[2] == 3:
+            size = big if a[0].shape[0] * a[0].shape[1] >= big else n
+            runs_3d.setdefault(size, []).append(kw.get("seg_pack", 1))
+    print(f"  8a in-process: {json.dumps(again)}", flush=True)
+    print(f"  8a in-process launches: K1 {counts['k1']}, K2 {counts['k2']}, "
+          f"K3 {counts['k3']}, K4 {counts['k4']}, K6 {counts['k6']}, K7 "
+          f"{counts['k7']}; runs-wrapper calls in 3D " + ", ".join(
+              f"at N={size}: {len(v)} (seg_pack {sorted(set(v))})"
+              for size, v in sorted(runs_3d.items()))
+          + f"; plain twin calls {len(twins)}", flush=True)
+    if not counts["k1"] or not counts["k2"]:
+        fail("8a: the bench did not launch K1 and K2")
+    if not runs_3d.get(n) or not runs_3d.get(big):
+        fail(f"8a: the bench's 3D cases at N={n} and {big} did not both "
+             f"launch K2 or K3 (calls by N: "
+             f"{ {k: len(v) for k, v in runs_3d.items()} })")
+    if twins:
+        fail(f"8a: the bench called the kernels' plain twins {len(twins)} "
+             "times")
+
+    p, m = cloud(n, seed=8, device=dev)
+    k1_ms = cuda_ms(lambda: allpairs.allpairs_accelerations(p, m, g=G),
+                    reps=20)
+    for tag, ln in (("subprocess", line), ("in-process", again)):
+        ratio = ln["allpairs2d_fused_ms"] / k1_ms
+        print(f"  8a {tag}: fused all-pairs {ln['allpairs2d_fused_ms']:.3f} "
+              f"ms/step against one K1 launch at N={n} {k1_ms:.3f} ms "
+              f"(CUDA events, 20 launches): {ratio:.3f}x (bound "
+              f"{P8_K1_RATIO[0]}-{P8_K1_RATIO[1]}x)  [{card}]", flush=True)
+        if not P8_K1_RATIO[0] <= ratio <= P8_K1_RATIO[1]:
+            fail(f"8a {tag}: the fused all-pairs step is {ratio:.3f}x one "
+                 "K1 launch")
+    return {"line": line, "in_process": again, "k1_ms": k1_ms,
+            "counts": counts}
+
+
+def p8_sweeps(card: str) -> None:
+    """8b: the sweep verb's strong, bodies and tiles runs; every results
+    file parsed by the port's ``_parse_scaling_results``, every requested
+    point present with both timing lines."""
+    import torch
+
+    from nbody_tpu_torch import cli
+    from nbody_tpu_torch.bench.plots import _parse_scaling_results
+
+    cards = torch.cuda.device_count()
+    counts = [1] if cards < 2 else [d for d in (1, 2, 4) if d <= cards]
+    common = ["--device", "cuda", "--steps", "10", "--repeats", "2"]
+    runs = {
+        "strong": (["--experiment", "strong", "--engine", "barnes_hut",
+                    "--n-bodies", "40960", "--device-counts",
+                    ",".join(map(str, counts))],
+                   [(40960, d) for d in counts]),
+        "bodies": (["--experiment", "bodies", "--engine", "barnes_hut",
+                    "--body-counts", "40960,65536"],
+                   [(40960, 1), (65536, 1)]),
+        "tiles": (["--sweep-axis", "tiles", "--engine", "allpairs",
+                   "--n-bodies", "65536"],
+                  [(65536, tb) for tb in (64, 128, 256, 512)]),
+    }
+    for name, (flags, want) in runs.items():
+        path = os.path.join(OUT_DIR, f"sweep_{name}.txt")
+        if os.path.exists(path):
+            os.remove(path)
+        t0 = time.perf_counter()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["sweep", *common, *flags, "--results-file", path])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            print(err.getvalue()[-4000:])
+            fail(f"8b sweep {name} exited {rc}")
+        records, _ = _parse_scaling_results(path)
+        got = {}
+        for n, procs, par_us, tot_ms in records:
+            if par_us is None or tot_ms is None:
+                fail(f"8b sweep {name}: a run without both timing lines")
+            got.setdefault((n, procs), []).append(par_us / 1e3 / 10)
+        label = open(path).read().strip().splitlines()[-1]
+        print(f"  8b sweep {name} in {wall:.1f} s ({label}): " + "; ".join(
+            f"N={n} x{procs}: " + " / ".join(f"{ms:.3f}" for ms in v)
+            + " ms/step" for (n, procs), v in sorted(got.items()))
+            + f"  [{card}]", flush=True)
+        short = [pt for pt in want if len(got.get(pt, [])) != 2]
+        if short or len(got) != len(want):
+            fail(f"8b sweep {name}: points {short or sorted(got)} are not "
+                 f"the requested {want}, 2 repeats each")
+
+
+def p8_baseline(card: str) -> None:
+    """8c: ``python -m nbody_tpu_torch.bench.baseline --configs 1,2,3,4,5``
+    into build/chip_smoke/, each record held to its check."""
+    out = os.path.join(OUT_DIR, "baseline_results_torch.json")
+    for f in (out, out + ".tmp"):
+        if os.path.exists(f):
+            os.remove(f)
+    # exit 1: config 1 fails without the reference's triplet
+    run_tool(["nbody_tpu_torch.bench.baseline", "--configs", "1,2,3,4,5",
+              "--out", out], "8c baseline", timeout=1200, rc=1)
+    with open(out) as f:
+        recs = {r["config"]: r for r in json.load(f)}
+    for c in sorted(recs):
+        print(f"  8c config {c}: {json.dumps(recs[c])}  [{card}]",
+              flush=True)
+    if sorted(recs) != [1, 2, 3, 4, 5]:
+        fail(f"8c: records for configs {sorted(recs)}")
+    if "triplet" not in recs[1].get("error", ""):
+        fail("8c: config 1 is not the error record naming the missing "
+             "triplet")
+    for c in (2, 3, 4, 5):
+        if "error" in recs[c]:
+            fail(f"8c: config {c} failed: {recs[c]['error']}")
+    # tests/test_allpairs.py:62, the kernel against f64
+    if not recs[2]["max_rel_err_vs_dense"] <= 2e-4:
+        fail(f"8c: config 2's error {recs[2]['max_rel_err_vs_dense']:.3e} "
+             "is above 2e-4")
+    if recs[3]["overflowed_bodies"] != 0 or not recs[3]["dump_written"]:
+        fail("8c: config 3 overflowed or wrote no dump")
+    for c in (4, 5):
+        one = [pt for pt in recs[c]["points"] if pt["devices"] == 1]
+        if len(one) != 1 or one[0]["label"] != "1 card":
+            fail(f"8c: config {c} has no devices=1 point labelled one card")
+
+
+def p8_demand(dev, card: str) -> None:
+    """8d: the demand script on evolved states (10 steps of the engine):
+    2D 40,960 and 3D 131,072, the run cap's open case."""
+    from nbody_tpu_torch.ops.bh3d import run_cap_default_3d
+    from nbody_tpu_torch.scripts import demand
+
+    for n, dims in ((40960, 2), (131072, 3)):
+        t0 = time.perf_counter()
+        got = demand.run(n, dims, steps=10, device=dev)
+        cap = 256 if dims == 2 else run_cap_default_3d(n)
+        side = max(hi - lo for lo, hi in zip(got["bounds"][0::2],
+                                             got["bounds"][1::2]))
+        print(f"  8d demand {dims}D N={n}, 10 steps, in "
+              f"{time.perf_counter() - t0:.1f} s: merged runs max/group "
+              f"{got['runs']} against the engine's run cap {cap}; levels "
+              f"truncated at 2x the schedule {got['truncated']}; root box "
+              f"side {side:.4g} (0.24 at step 0)  [{card}]", flush=True)
+        if not got["frontier"] or got["approx"] <= 0 or got["direct"] <= 0:
+            fail(f"8d demand {dims}D N={n}: empty demand")
+
+
+def p8_phase_split(dev, card: str) -> None:
+    """8e: the phase split at 2D 65,536 and 3D 262,144: every stage's
+    median positive, the evaluate stage's least round (events around the
+    runs wrapper in the pass) within P8_EVAL_RATIO of the wrapper alone
+    on the same inputs, and the stages' sum (its median over the rounds: the tables
+    prefix plus the evaluate stage of one round) at most 1.2x the
+    engine's pass alone."""
+    from nbody_tpu_torch.scripts import phase_split
+
+    for n, dims in ((65536, 2), (262144, 3)):
+        out = phase_split.split(n, dims, reps=21, device=dev)
+        total = out["spread"]["sum"]["median"]
+        ratio = out["spread"]["evaluate"]["min"] / out["kernel_ms"]
+        print(f"  8e {dims}D N={n}: median [min, max] ms over 21 rounds "
+              + json.dumps({k: [round(v[q], 3) for q in ("median", "min",
+                                                          "max")]
+                            for k, v in out["spread"].items()})
+              + f"; stages sum {total:.3f} against the pass alone "
+              f"{out['pass_ms']:.3f} ms ({total / out['pass_ms']:.3f}x, "
+              f"bound 1.2x); evaluate's least round {ratio:.3f}x "
+              f"{out['kernel']} alone "
+              f"({out['kernel_ms']:.3f} ms; bound {P8_EVAL_RATIO[0]}-"
+              f"{P8_EVAL_RATIO[1]}x)  [{card}]", flush=True)
+        neg = [s for s, ms in out["stages"].items() if not ms > 0]
+        if neg:
+            fail(f"8e {dims}D N={n}: stages {neg} are not positive")
+        if not P8_EVAL_RATIO[0] <= ratio <= P8_EVAL_RATIO[1]:
+            fail(f"8e {dims}D N={n}: the evaluate stage's least round is "
+                 f"{ratio:.3f}x the runs wrapper alone")
+        if not total <= 1.2 * out["pass_ms"]:
+            fail(f"8e {dims}D N={n}: the stages sum to {total:.3f} ms, "
+                 f"over 1.2x the pass ({out['pass_ms']:.3f} ms)")
+
+
+def phase8(dev, card: str) -> dict:
+    """Phase 8; returns 8a's bench lines, K1 time and launches."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    print("phase 8a: python -m nbody_tpu_torch bench, its JSON line, and the "
+          "same measurement in-process (launches, twins, K1)", flush=True)
+    bench = p8_bench(dev, card)
+    print("phase 8b: sweep: strong, bodies, tiles (2 repeats of 10 steps)",
+          flush=True)
+    p8_sweeps(card)
+    print("phase 8c: python -m nbody_tpu_torch.bench.baseline --configs "
+          "1,2,3,4,5", flush=True)
+    p8_baseline(card)
+    print("phase 8d: scripts.demand on evolved states", flush=True)
+    p8_demand(dev, card)
+    print("phase 8e: scripts.phase_split", flush=True)
+    p8_phase_split(dev, card)
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return bench
+
+
 
 def main() -> int:
     import torch
@@ -1605,9 +1935,10 @@ def main() -> int:
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
-    if sys.argv[1:] == ["--only-phase-7"]:
-        # a short run for the multi-device path alone (phases 0, 1, 7)
-        phase7(dev, card)
+    only = {"--only-phase-7": phase7, "--only-phase-8": phase8}
+    if len(sys.argv) == 2 and sys.argv[1] in only:
+        # a short run of one later path alone (phases 0, 1 and it)
+        only[sys.argv[1]](dev, card)
         print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -2338,6 +2669,7 @@ def main() -> int:
               flush=True)
     phase6(dev, card)
     par = phase7(dev, card)
+    phase8(dev, card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

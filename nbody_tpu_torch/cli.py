@@ -1,7 +1,9 @@
-"""Command-line interface of the port: the ``run`` and ``compare`` verbs.
+"""Command-line interface of the port: the ``run``, ``compare``,
+``sweep``, ``plot`` and ``bench`` verbs.
 
-The same flags as ``python -m nbody_tpu run`` / ``compare`` plus
-``--device`` (default ``cuda``).  ``run --fused`` runs the whole loop
+The same flags as ``python -m nbody_tpu`` plus ``--device`` (default
+``cuda``), less ``sweep --fake-mesh`` (D thread ranks on one card are not
+a scaling number; ``bench/sweeps.py``).  ``run --fused`` runs the whole loop
 with no per-step host crossing (on the card a CUDA graph of the step;
 ``models/simulation.py``).  ``run --devices D`` runs a sharded step
 (``--mode``, ``parallel/steps.py``) in D processes over
@@ -317,11 +319,23 @@ def _run_distributed(args) -> int:
 
 def _run_rank(rank: int, args, mode: str) -> None:
     """One rank of ``run --devices D`` (in its own process, its process
-    group joined): its slab of the state, the sharded step and its 4x-caps
-    retry, the contract loop or the fused run; rank 0 alone prints and
-    writes."""
+    group joined): the contract loop or the fused run of
+    :func:`rank_simulation`; rank 0 alone prints and writes."""
     import contextlib
 
+    with contextlib.ExitStack() as stack:
+        if rank:
+            quiet = stack.enter_context(open(os.devnull, "w"))
+            stack.enter_context(contextlib.redirect_stdout(quiet))
+            stack.enter_context(contextlib.redirect_stderr(quiet))
+        config = _build_config(args)
+        _run_and_report(args, config,
+                        rank_simulation(rank, args, mode, config))
+
+
+def rank_simulation(rank: int, args, mode: str, config):
+    """This rank's Simulation of ``run --devices D``: its slab of the
+    state, the sharded step and its 4x-caps retry (rank r on card r)."""
     import torch
 
     from .models.simulation import Simulation
@@ -331,40 +345,33 @@ def _run_rank(rank: int, args, mode: str) -> None:
     device = torch.device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", rank)
-    with contextlib.ExitStack() as stack:
-        if rank:
-            quiet = stack.enter_context(open(os.devnull, "w"))
-            stack.enter_context(contextlib.redirect_stdout(quiet))
-            stack.enter_context(contextlib.redirect_stderr(quiet))
-        config = _build_config(args)
-        state = _make_state(args, config, device)
-        if args.save_init and rank == 0:
-            from .utils.textio import save_init_triplet
+    state = _make_state(args, config, device)
+    if args.save_init and rank == 0:
+        from .utils.textio import save_init_triplet
 
-            save_init_triplet(args.output_dir, state.masses.cpu().numpy(),
-                              state.positions.cpu().numpy(),
-                              state.velocities.cpu().numpy())
-        if mode == "dp2d_allpairs":
-            mesh = make_mesh_2d(max(args.devices // 2, 1), 2)
-        else:
-            mesh = make_mesh(args.devices)
-        # contiguous slabs of the state as made: no Morton sort first, as
-        # the JAX package's CLI (the sharded modes' window then degrades)
-        state = shard_state(state, mesh)
-        step_fn = make_sharded_step(config, mesh, mode)
-        fallback = None
-        if "barnes_hut" in mode:
-            # the same 4x policy as the single-device loop; the overflow
-            # count is psum'd inside the step, so every rank retries alike
-            def fallback():
-                from .models.engines import resolved_caps
+        save_init_triplet(args.output_dir, state.masses.cpu().numpy(),
+                          state.positions.cpu().numpy(),
+                          state.velocities.cpu().numpy())
+    if mode == "dp2d_allpairs":
+        mesh = make_mesh_2d(max(args.devices // 2, 1), 2)
+    else:
+        mesh = make_mesh(args.devices)
+    # contiguous slabs of the state as made: no Morton sort first, as
+    # the JAX package's CLI (the sharded modes' window then degrades)
+    state = shard_state(state, mesh)
+    step_fn = make_sharded_step(config, mesh, mode)
+    fallback = None
+    if "barnes_hut" in mode:
+        # the same 4x policy as the single-device loop; the overflow
+        # count is psum'd inside the step, so every rank retries alike
+        def fallback():
+            from .models.engines import resolved_caps
 
-                caps = {k: 4 * v for k, v in resolved_caps(config).items()}
-                return make_sharded_step(config.replace(**caps), mesh, mode)
+            caps = {k: 4 * v for k, v in resolved_caps(config).items()}
+            return make_sharded_step(config.replace(**caps), mesh, mode)
 
-        sim = Simulation(config, state=state, step_fn=step_fn,
-                         step_fallback_fn=fallback, mesh=mesh)
-        _run_and_report(args, config, sim)
+    return Simulation(config, state=state, step_fn=step_fn,
+                      step_fallback_fn=fallback, mesh=mesh)
 
 
 def _run_fused(args, config, sim):
@@ -514,6 +521,45 @@ def cmd_compare(args) -> int:
     return 0 if equal else 1
 
 
+def cmd_sweep(args) -> int:
+    from .bench import DeviceUnavailable
+    from .bench.sweeps import run_sweep
+
+    try:
+        return run_sweep(args)
+    except DeviceUnavailable as e:
+        print(f"sweep: {e}", file=sys.stderr)
+        return 1
+
+
+def cmd_plot(args) -> int:
+    from .bench import plots
+
+    if args.positions:
+        print(plots.trajectories(args.positions, args.out))
+    if args.positions_3d:
+        print(plots.trajectories_3d(args.positions_3d, args.out))
+    if args.quadtree:
+        print(plots.quadtree(args.quadtree, args.out))
+    if args.analysis:
+        for png in plots.scaling_analysis(args.analysis, args.out,
+                                          metric=args.metric):
+            print(png)
+    if not (args.positions or args.quadtree or args.positions_3d
+            or args.analysis):
+        print("nothing to plot: pass --positions, --positions-3d, "
+              "--quadtree and/or --analysis")
+        return 2
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """The headline benchmark line (``bench/headline.py``)."""
+    from .bench.headline import main as bench_main
+
+    return bench_main(args.device)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="nbody_tpu_torch",
@@ -545,6 +591,62 @@ def main(argv=None) -> int:
         "a looser budget, e.g. 1e-5)",
     )
     p_compare.set_defaults(fn=cmd_compare)
+
+    p_sweep = sub.add_parser(
+        "sweep", help="strong/weak scaling experiment sweeps")
+    _add_common(p_sweep)
+    p_sweep.add_argument(
+        "--experiment", choices=["strong", "weak", "bodies"],
+        default="strong",
+        help="strong: fixed N, vary devices (first_scaling_script.sh "
+        "analogue); weak: N per device fixed, vary devices; bodies: vary N "
+        "on fixed devices (second_scaling_script.sh analogue)")
+    p_sweep.add_argument("--repeats", type=int, default=5,
+                         help="repetitions per config (scripts use 5)")
+    p_sweep.add_argument("--device-counts", type=str, default="",
+                         help="comma list, e.g. 1,2,4,8; counts above the "
+                              "visible cards are dropped with a warning")
+    p_sweep.add_argument("--body-counts", type=str, default="",
+                         help="comma list for --experiment bodies")
+    p_sweep.add_argument("--results-file", default="scaling_results.txt")
+    p_sweep.add_argument(
+        "--sweep-axis", choices=["devices", "group-chunk", "tiles"],
+        default="devices",
+        help="processor axis: devices, one process a device (default), or "
+        "tiles: K1's target block on ONE device, the single-card analogue "
+        "of the reference's N_THREADS axis (project.cu:983); group-chunk "
+        "sizes an evaluator the port does not have and exits 2")
+    p_sweep.add_argument("--axis-values", type=str, default="",
+                         help="comma list for --sweep-axis tiles (default "
+                              "64,128,256,512)")
+    p_sweep.set_defaults(fn=cmd_sweep)
+
+    p_bench = sub.add_parser("bench", help="headline benchmark JSON line")
+    p_bench.add_argument("--device", default="cuda",
+                         help="torch device: cuda (the kernels) or cpu "
+                              "(their plain twins, N=2,048)")
+    p_bench.set_defaults(fn=cmd_bench)
+
+    p_plot = sub.add_parser(
+        "plot", help="vectorised analysis plots (large-N capable; needs "
+                     "matplotlib)")
+    p_plot.add_argument("--positions", default=None, metavar="FILE")
+    p_plot.add_argument("--positions-3d", default=None, metavar="FILE",
+                        help="five-column 3D positions.txt (functional "
+                        "replacement for the reference's broken "
+                        "plot_3d.py)")
+    p_plot.add_argument("--quadtree", default=None, metavar="FILE")
+    p_plot.add_argument("--analysis", default=None, metavar="FILE",
+                        help="sweep results file: the reference's "
+                        "mean-runtime / speedup / efficiency analyses "
+                        "(plot_first_scale.py:105-154) or the runtime-"
+                        "vs-N errorbar plot for weak/bodies sweeps "
+                        "(plot_second_scale.py:58-88)")
+    p_plot.add_argument("--metric", choices=["parallel", "total"],
+                        default="parallel",
+                        help="which timing line the analysis uses")
+    p_plot.add_argument("--out", default=None)
+    p_plot.set_defaults(fn=cmd_plot)
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -146,6 +146,7 @@ def _collect_lists_3d(
     direct_cell_max: int,
     quarter_bits: bool = False,
     window_cells=None,
+    return_demand: bool = False,
 ):
     """Per-group interaction lists via the dual cell-vs-bbox octree walk.
 
@@ -157,11 +158,13 @@ def _collect_lists_3d(
     would cost a host sync per level).  Returns ((lx, ly, lz, lm) [G, L]
     approx list, zero-mass padded; ranges [G, D, 2] (start, count),
     zero-count padded; overflow [G] bool), and with ``quarter_bits`` a
-    fourth item, the quarter-split payload of each direct entry:
+    further item, the quarter-split payload of each direct entry:
     ``dict(bits=[G, D] int32 per-quarter theta-fail masks,
     com=(x, y, z) [G, D], mass=[G, D])``.  ``window_cells=(c_lo, c_hi)``
-    gates direct emission to the sharded window's leaf cells, as in 2D
-    (``bh_grouped._collect_lists``)."""
+    gates direct emission to the sharded window's leaf cells, and
+    ``return_demand=True`` appends the calibration dict (frontier demand
+    per level, approx and direct maxima; :func:`frontier_schedule_3d`,
+    :func:`cap_defaults_3d`), as in 2D (``bh_grouped._collect_lists``)."""
     x0, x1, y0, y1, z0, z1 = bbox
     g = x0.shape[0]
     dev = x0.device
@@ -179,6 +182,7 @@ def _collect_lists_3d(
     app = ([], [], [], [], [])  # x, y, z, m, mask
     dir_s, dir_c, dir_mask = [], [], []
     dir_q = ([], [], [], [], [])  # quarter_bits payload: bits, x, y, z, m
+    demand = []  # return_demand: opened children entering each level
 
     for level in range(max_depth + 1):
         valid = frontier >= 0
@@ -230,6 +234,8 @@ def _collect_lists_3d(
         occ = rows[..., R3_OCC].to(torch.int32)
         child_bits = ((occ[:, :, None] >> octant) & 1).reshape(g, -1)
         cmask = open_.repeat_interleave(8, dim=1) & (child_bits > 0)
+        if return_demand:
+            demand.append(cmask.sum(1).max())
 
         next_cap = min(8 * fcap, frontier_caps[level + 1])
         if next_cap == 8 * fcap:
@@ -257,6 +263,8 @@ def _collect_lists_3d(
     if quarter_bits:
         out += (dict(bits=compacted[2], com=tuple(compacted[3:6]),
                      mass=compacted[6]),)
+    if return_demand:
+        out += (bh_grouped.demand_stats(demand, app[4], dir_mask),)
     return out
 
 

@@ -173,6 +173,7 @@ def _collect_lists(
     direct_cell_max: int,
     quarter_bits: bool = False,
     window_cells=None,
+    return_demand: bool = False,
 ):
     """Per-group interaction lists via a dual (cell-vs-group-bbox) walk.
 
@@ -181,7 +182,7 @@ def _collect_lists(
     2 <= count <= direct_cell_max go to the direct list as a Morton body
     range; other close cells open.  Returns ((lx, ly, lm) [G, L] approx
     list, zero-mass padded; ranges [G, D, 2] (start, count), zero-count
-    padded; overflow [G] bool), and with ``quarter_bits`` a fourth item,
+    padded; overflow [G] bool), and with ``quarter_bits`` a further item,
     the quarter-split payload of each direct entry: ``dict(bits=[G, D]
     int32 per-quarter theta-fail masks, com=(x, y) [G, D], mass=[G, D])``
     (a direct cell fails theta for at least one quarter).
@@ -191,7 +192,15 @@ def _collect_lists(
     [c_lo, c_hi], the sources a sharded rank holds
     (``parallel/steps.py``); out-of-window close cells open on to
     singletons and max-depth aggregates, which need only the replicated
-    pyramid."""
+    pyramid.
+
+    ``return_demand=True`` appends the calibration dict of the JAX
+    package's walk (the measurements behind :func:`frontier_schedule` and
+    :func:`cap_defaults`; ``scripts/demand.py``), device tensors read by
+    no host: ``frontier`` [max_depth], the max over groups of the opened
+    children entering each level, and ``approx`` / ``direct``, the max
+    over groups of the list masks' totals, all counted before truncation
+    but only as deep as the given caps let the walk reach."""
     x0, x1, y0, y1 = bbox
     g = x0.shape[0]
     dev = x0.device
@@ -210,6 +219,7 @@ def _collect_lists(
     app_x, app_y, app_m, app_mask = [], [], [], []
     dir_s, dir_c, dir_mask = [], [], []
     dir_q = ([], [], [], [])  # quarter_bits payload: bits, x, y, m
+    demand = []  # return_demand: opened children entering each level
 
     for level in range(max_depth + 1):
         valid = frontier >= 0
@@ -264,6 +274,8 @@ def _collect_lists(
         occ = rows[..., RAW_OCC].to(torch.int32)
         child_bits = ((occ[:, :, None] >> quad) & 1).reshape(g, -1)
         cmask = open_.repeat_interleave(4, dim=1) & (child_bits > 0)
+        if return_demand:
+            demand.append(cmask.sum(1).max())
 
         next_cap = min(4 * fcap, frontier_caps[level + 1])
         if next_cap == 4 * fcap:
@@ -293,7 +305,17 @@ def _collect_lists(
     if quarter_bits:
         out += (dict(bits=compacted[2], com=tuple(compacted[3:5]),
                      mass=compacted[5]),)
+    if return_demand:
+        out += (demand_stats(demand, app_mask, dir_mask),)
     return out
+
+
+def demand_stats(demand, app_mask, dir_mask) -> dict:
+    """The walks' ``return_demand`` dict from the per-level opened-children
+    maxima and the per-level list masks."""
+    return dict(frontier=torch.stack(demand),
+                approx=torch.cat(app_mask, 1).sum(1).max(),
+                direct=torch.cat(dir_mask, 1).sum(1).max())
 
 
 def _expand_runs_tiles(runs: torch.Tensor, k_tile: int, t_cap: int):

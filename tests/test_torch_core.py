@@ -44,8 +44,15 @@ def test_port_imports_without_jax():
         "nbody_tpu_torch.ops.experiments, nbody_tpu_torch.ops.barnes_hut, "
         "nbody_tpu_torch.models.oracle, nbody_tpu_torch.utils.native, "
         "nbody_tpu_torch.utils.debug, nbody_tpu_torch.utils.profiling, "
-        "nbody_tpu_torch.parallel, nbody_tpu_torch.parallel.collectives; "
+        "nbody_tpu_torch.parallel, nbody_tpu_torch.parallel.collectives, "
+        "nbody_tpu_torch.bench.headline, nbody_tpu_torch.bench.baseline, "
+        "nbody_tpu_torch.bench.sweeps, nbody_tpu_torch.bench.plots, "
+        "nbody_tpu_torch.scripts.demand, nbody_tpu_torch.scripts.windows, "
+        "nbody_tpu_torch.scripts.phase_split, "
+        "nbody_tpu_torch.examples.three_d_demo, "
+        "nbody_tpu_torch.examples.reference_experiment; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'; "
         "bad = [m for m in sys.modules if m.split('.')[0] == 'nbody_tpu']; "
         "assert not bad, bad"
     )

@@ -10,10 +10,8 @@ Bounds, each with its reason:
   these modes (f32 both sides; K1's twin and the JAX package's dense XLA
   route sum in other orders);
 * the grouped and sharded modes, 2D and 3D, at D = 2 and 4 against the
-  port's single-device grouped step on a Morton-sorted jittered grid:
-  5e-5 x max|p| after 3 steps (tests/test_parallel.py's bound for the
-  window mode: local groups and the window gate change which cells
-  open, a BH-class difference the grid's bounded separations keep small);
+  port's single-device grouped step: tests/test_torch_parallel_grouped.py
+  (its own file: at 70-90 s a case they set this file's time);
 * one rank's windowed grouped pass against the JAX function with the
   same window, offset and source hint: 1e-5 x max|a| (the runs twin
   against the JAX package's XLA route, tests/test_list_eval.py:131);
@@ -41,7 +39,7 @@ from nbody_tpu.parallel import make_mesh as jmake_mesh
 from nbody_tpu.parallel import make_mesh_2d as jmake_mesh_2d
 from nbody_tpu.parallel import make_sharded_step as jmake_step
 from nbody_tpu.parallel import shard_state as jshard_state
-from nbody_tpu_torch.config import MeshConfig, SimConfig
+from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.models.simulation import Simulation
 from nbody_tpu_torch.ops import bh3d, bh_grouped
 from nbody_tpu_torch.ops.tree import morton_codes, root_bounds
@@ -154,24 +152,6 @@ def test_sharded_matches_jax(cloud, mode):
 @pytest.fixture(scope="module")
 def grids():
     return {2: _grid(48, 2), 3: _grid(12, 3)}
-
-
-@pytest.mark.parametrize("n_dev", [2, 4])
-@pytest.mark.parametrize("mode", ["dp_barnes_hut_grouped",
-                                  "dp_barnes_hut_sharded",
-                                  "dp_barnes_hut_grouped3",
-                                  "dp_barnes_hut_sharded3"])
-def test_grouped_and_sharded_match_single_device(grids, mode, n_dev):
-    dims = 3 if mode.endswith("3") else 2
-    m, p, v = grids[dims]
-    cfg = SimConfig(n_bodies=m.shape[0], n_dim=dims, engine="barnes_hut",
-                    group_size=96, mesh=MeshConfig(dp=n_dev))
-    state = from_numpy(m, p, v, device="cpu")
-    want = single_device(cfg, state, 3)
-    got, ovf = run_threads(mode, cfg, state, n_dev, 3)
-    assert ovf == 0
-    scale = float(want.abs().max())
-    assert float((got - want).abs().max()) <= 5e-5 * scale
 
 
 class _Capture:
