@@ -83,16 +83,21 @@ Phases, each printing what it found; the first failure exits non-zero:
    ``torch.profiler`` split into K7 and the rest, beside the packed
    lists' build;
 6. the fused runs (``run --fused``: a CUDA graph of the step, captured
-   once and replayed, or step by step on the card where a 3D host gate
-   forbids the graph), each held bit for bit (SHA-256 of the final
-   positions) to the contract loop from the same seed, with both
-   ms/step, the capture time and the fused run's kernel launches
-   (captured launches x replays): 6a 2D grouped BH at N=40,960 and
-   65,536 with ``--save-positions`` (byte-equal), and a profiler view of
-   the graph's replays; 6b all-pairs N=65,536 in 2D and 3D, and 2D
-   ``--eval-mode grid|dynamic`` / ``--compensated`` at 40,960; 6c 3D BH
-   at 131,072 (the segment-packing gate's step-by-step route; against
-   the loop with its 4x retry off when a fused step overflowed); 6d
+   once and replayed, the 3D gates conditional nodes in it), each held
+   bit for bit (SHA-256 of the final positions) to the contract loop
+   from the same seed (with its 4x retry off when a fused step
+   overflowed), with both ms/step, the capture time, the fused run's
+   kernel launches (a replay's outside the branches, and the replays
+   that took each branch) and peak device memory: 6a 2D grouped BH at
+   N=40,960 and 65,536 with ``--save-positions`` (byte-equal), and a
+   profiler view of the graph's replays; 6b all-pairs N=65,536 in 2D and
+   3D, and 2D ``--eval-mode grid|dynamic`` / ``--compensated`` at
+   40,960; 6c 3D BH at 131,072 (the packing gate's plain branch, K2),
+   229,376 (its packed branch, K3), 262,144 uniform (the dense
+   collector, spill branch not taken), 262,144 ``--init-mode blobs``
+   (spill branch taken, escaped groups > 0) and 1,048,576 (K4), each
+   route "graph", and the profiler over replays at 131,072 and 262,144
+   (``python3 chip_smoke.py --only-phase-6c`` runs phases 0, 1 and 6c); 6d
    ``--bh-mode exact`` at 2D 40,960: one force pass against the native
    f64 engine (2e-4 x max|a| wherever its own f32 CPU run meets that;
    elsewhere that run's error + 1e-5 x max|a|) and against its CPU run
@@ -140,14 +145,24 @@ Phases, each printing what it found; the first failure exits non-zero:
    round (CUDA events around the runs wrapper in the pass) within 0.9-3x
    the wrapper alone on the same inputs, and the stages' sum at most 1.2x the pass
    timed alone.
-   ``python3 chip_smoke.py --only-phase-8`` runs phases 0, 1 and 8 alone.
+   ``python3 chip_smoke.py --only-phase-8`` runs phases 0, 1 and 8 alone;
+9. the tree builds' leaf sums (``ops/tree.leaf_sums``, csrc/tree_sums.cu)
+   against ``torch.segment_reduce``, bit for bit, on the inputs the tree
+   build hands them at 2D 40,960 uniform, 3D 1,048,576 uniform, 3D
+   262,144 blobs and 3D 1,048,576 after 10 contract-loop steps, and on
+   1,048,576 rows in one leaf; each timed beside the twin and the
+   library call, with its bound; and the evolved 1M step with the leaf
+   sums on segment_reduce and on the kernel, in turns
+   (``--only-phase-9`` runs phases 0, 1 and 9).
 
 The summary gives each kernel its bound: the larger of the FP32 work
 over 67 TFLOP/s, the special-function work (rsqrt, and the reciprocal of
 an IEEE divide) over 16 per SM per clock at the SM clock ``nvidia-smi``
 reads, and the bytes each input is read and each output written once
 over 3.35 TB/s, for the pairs this run's inputs need (no tile padding:
-approx lanes, direct [lo, hi) lanes, no self-pairs).
+approx lanes, direct [lo, hi) lanes, no self-pairs); the leaf sums'
+entry (not a TPU kernel) is timed on the evolved 1M state, beside
+``torch.segment_reduce`` as its library call.
 
 The line before the last is the kernel summary JSON, the last line
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without CUDA,
@@ -684,7 +699,7 @@ def device_profile(step, reps: int = 2):
 @contextlib.contextmanager
 def plain_twins():
     """Route the main path's kernel wrappers to their plain twins."""
-    from nbody_tpu_torch.ops import allpairs, list_eval
+    from nbody_tpu_torch.ops import allpairs, list_eval, tree, tree3d
 
     names = ("list_eval_runs", "list_eval_runs_split", "list_eval_pallas",
              "list_eval_dynamic")
@@ -695,12 +710,15 @@ def plain_twins():
         allpairs.allpairs_accelerations_plain(t, s, m, **kw))
     for n in names:
         setattr(list_eval, n, getattr(list_eval, f"{n}_plain"))
+    leaf = tree.leaf_sums
+    tree.leaf_sums = tree3d.leaf_sums = tree.leaf_sums_plain
     try:
         yield
     finally:
         allpairs.allpairs_accelerations_vs = orig[0]
         for n, fn in zip(names, orig[1:]):
             setattr(list_eval, n, fn)
+        tree.leaf_sums = tree3d.leaf_sums = leaf
 
 
 COUNTERS = (("k1", "allpairs", "KERNEL_LAUNCHES"),
@@ -712,7 +730,8 @@ COUNTERS = (("k1", "allpairs", "KERNEL_LAUNCHES"),
             ("k7", "list_eval", "DYNAMIC_LAUNCHES"),
             ("dense", "collect_dense3", "DENSE_PASSES"),
             ("escaped", "collect_dense3", "ESCAPED_GROUPS"),
-            ("spills", "collect_dense3", "SPILL_PASSES"))
+            ("spills", "collect_dense3", "SPILL_PASSES"),
+            ("leaf", "tree", "LEAF_SUM_LAUNCHES"))
 
 
 def reset_counts():
@@ -768,7 +787,8 @@ def main_path_run(engine: str, n: int, dims: int, steps: int,
     print(f"  {tag}: {steps} steps, overflow 0, positions finite; kernel "
           f"launches K1 {counts['k1']}, K2 {counts['k2']}, K3 "
           f"{counts['k3']}, K4 {counts['k4']}, K5 {counts['k5']}, K6 "
-          f"{counts['k6']}, K7 {counts['k7']}; dense collector passes "
+          f"{counts['k6']}, K7 {counts['k7']}, leaf sums {counts['leaf']}; "
+          "dense collector passes "
           f"{counts['dense']}, escaped groups {counts['escaped']} (spill "
           f"passes {counts['spills']}); steps retried at 4x caps "
           f"{counts['retried']}; peak device memory "
@@ -898,8 +918,13 @@ def fused_pair(tag: str, flags, steps: int, files=(), card: str = ""):
 
     base = ["run", "--device", "cuda", "--steps", str(steps), *flags]
     d_f = os.path.join(OUT_DIR, "fused", tag, "fused")
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     out_f, err_f, sim_f, c_f = cli_run(
         base + ["--output-dir", d_f, "--fused"], f"{tag} --fused")
+    # the run's own peak: above what was live before it
+    c_f["peak_gib"] = (torch.cuda.max_memory_allocated() - live) / 2**30
     counts = sim_f.last_scan_overflow
     held = "the contract loop"
     loop_flags = []
@@ -907,8 +932,12 @@ def fused_pair(tag: str, flags, steps: int, files=(), card: str = ""):
         held = "the contract loop with the 4x retry off"
         loop_flags = ["--no-adaptive-caps"]
     d_e = os.path.join(OUT_DIR, "fused", tag, "eager")
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     out_e, err_e, sim_e, _ = cli_run(base + ["--output-dir", d_e]
                                      + loop_flags, tag)
+    peak_e = (torch.cuda.max_memory_allocated() - live) / 2**30
     fin_f, fin_e = sim_f.state.positions, sim_e.state.positions
     if not torch.equal(fin_f, fin_e):
         fail(f"{tag}: the fused run's final positions ({digest(fin_f)}) "
@@ -929,7 +958,11 @@ def fused_pair(tag: str, flags, steps: int, files=(), card: str = ""):
           f"({eager_ms / fused_ms:.2f}x), capture "
           f"{sim_f.last_capture_ms:.1f} ms; fused launches K1 {c_f['k1']}, "
           f"K2 {c_f['k2']}, K3 {c_f['k3']}, K4 {c_f['k4']}, K6 "
-          f"{c_f['k6']}, K7 {c_f['k7']}  [{card}]", flush=True)
+          f"{c_f['k6']}, K7 {c_f['k7']}, leaf sums {c_f['leaf']}; a replay "
+          f"outside branches {sim_f.last_replay_launches}; branches taken "
+          f"{sim_f.last_branch_counts}; peak device memory above the live "
+          f"tensors: fused {c_f['peak_gib']:.2f} GiB, loop {peak_e:.2f} GiB"
+          f"  [{card}]", flush=True)
     for ln in route:
         print(f"    {ln}", flush=True)
     return eager_ms, fused_ms, sim_f.last_capture_ms, c_f, sim_f
@@ -958,14 +991,102 @@ def quiet_seed(n: int, dev, steps: int = 10) -> int:
          "steps")
 
 
+def graph_profile(cfg, tag: str, dev, card: str) -> tuple:
+    """The profiler over 10 replays of ``cfg``'s step as a CUDA graph
+    (after 2 untimed): wall and device-busy ms/step, printed with the idle
+    share and the top kernels; returns (wall, busy)."""
+    from nbody_tpu_torch.models.engines import make_accel_fn
+    from nbody_tpu_torch.models.simulation import StepGraph
+    from nbody_tpu_torch.physics import integrate
+    from nbody_tpu_torch.rng import random_state
+
+    st = random_state(cfg, device=dev)
+    accel = make_accel_fn(cfg, return_diagnostics=True)
+
+    def step(s):
+        acc, ovf = accel(s.positions, s.masses)
+        return integrate(s, acc, cfg.dt, overflow=ovf.sum())
+
+    g = StepGraph(step, st, 12)
+    g.replay(2)
+    wall, kern = device_profile(lambda: g.replay(1), reps=10)
+    taken = g.settle()
+    busy = sum(kern.values())
+    print(f"  profiler, {tag} graph replays: wall {wall:.3f} ms/step, "
+          f"device busy {busy:.3f} ms/step, idle share "
+          f"{100 * (1 - busy / wall) if busy else float('nan'):.1f}%, "
+          f"{len(kern)} kernel names; branches taken over 12 replays "
+          f"{taken}  [{card}]", flush=True)
+    for k, t in sorted(kern.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"    {t:8.3f} ms/step  {k[:90]}", flush=True)
+    return wall, busy
+
+
+# phase 6c's five 3D runs: (N, extra flags, what the fused run must
+# show).  "no spill" holds for the uniform initial state only (JAX's census:
+# 0 escaped groups at every scale): the reference's dt = 1 pulls a
+# uniform cloud out of shape within a step, and later steps may spill, so
+# it is checked on a 1-step fused run of the same seed
+P6C_RUNS = ((131072, (), "plain (K2)"), (229376, (), "packed (K3)"),
+            (262144, (), "no spill"),
+            (262144, ("--init-mode", "blobs"), "spill"),
+            (1 << 20, (), "K4"))
+
+
+def phase6c(dev, card: str) -> dict:
+    """6c: 3D BH ``run --fused`` as one CUDA graph at five sizes, its
+    gates conditional nodes: each bit-equal to the loop and through the
+    branch named for it; then the profiler over replays at 131,072 and
+    262,144.  Returns the runs' fused launch counts."""
+    from nbody_tpu_torch.config import SimConfig
+
+    print("phase 6c: 3D BH --fused as one CUDA graph (the packing and spill "
+          "gates as conditional nodes) against the loop, 10 steps",
+          flush=True)
+    runs = {}
+    for n, extra, want in P6C_RUNS:
+        tag = f"BH 3D N={n}{' ' + ' '.join(extra) if extra else ''}"
+        *_, c, sim = fused_pair(
+            tag, ["--engine", "barnes_hut", "--dims", "3", "--n-bodies",
+                  str(n), "--seed", "7", *extra], 10, (), card)
+        taken = sim.last_branch_counts
+        per = sim.last_replay_launches
+        print(f"    escaped groups over the fused run (warm-up step "
+              f"included) {c['escaped']}, spill passes {c['spills']}",
+              flush=True)
+        if sim.last_scan_route != "graph":
+            fail(f"{tag} --fused did not run as a graph")
+        if want == "no spill":
+            _, _, one, _ = cli_run(
+                ["run", "--device", "cuda", "--steps", "1", "--fused",
+                 "--engine", "barnes_hut", "--dims", "3", "--n-bodies",
+                 str(n), "--seed", "7", "--output-dir",
+                 os.path.join(OUT_DIR, "fused", tag, "one")],
+                f"{tag} --fused --steps 1")
+            taken = one.last_branch_counts
+            print(f"    the first step alone, fused: branches taken "
+                  f"{taken}", flush=True)
+        ok = {"plain (K2)": taken.get("plain (K2)", 0) > 0,
+              "packed (K3)": taken.get("packed (K3)", 0) > 0,
+              "no spill": "spill" in taken and taken["spill"] == 0,
+              "spill": taken.get("spill", 0) > 0 and c["escaped"] > 0,
+              "K4": per.get("list_eval.SPLIT_LAUNCHES", 0) > 0}[want]
+        if not ok:
+            fail(f"{tag} --fused: the graph's replays did not show "
+                 f"'{want}' (branches {taken}, a replay's launches {per})")
+        runs[(n, extra)] = c
+    for n in (131072, 262144):
+        graph_profile(SimConfig(n_bodies=n, n_dim=3, engine="barnes_hut",
+                                seed=7), f"BH 3D N={n:,}", dev, card)
+    return runs
+
+
 def phase6(dev, card: str) -> dict:
     """Phase 6; returns the fused main path's launch counts by run."""
     import numpy as np
     import torch
 
     from nbody_tpu_torch.config import SimConfig
-    from nbody_tpu_torch.models.engines import make_accel_fn
-    from nbody_tpu_torch.models.simulation import StepGraph
     from nbody_tpu_torch.ops import barnes_hut
     from nbody_tpu_torch.rng import random_state
     from nbody_tpu_torch.utils import native
@@ -991,24 +1112,8 @@ def phase6(dev, card: str) -> dict:
               "40,960 runs above byte-equal between loop and fused -> ok",
               flush=True)
     # where a graph step's time goes: the profiler over replays
-    cfg = SimConfig(n_bodies=40960, engine="barnes_hut", seed=7)
-    st = random_state(cfg, device=dev)
-    accel = make_accel_fn(cfg, return_diagnostics=True)
-    from nbody_tpu_torch.physics import integrate
-
-    def step(s):
-        acc, ovf = accel(s.positions, s.masses)
-        return integrate(s, acc, cfg.dt, overflow=ovf.sum())
-
-    g = StepGraph(step, st, 12)
-    g.replay(2)
-    wall, kern = device_profile(lambda: g.replay(1), reps=10)
-    busy = sum(kern.values())
-    print(f"  profiler, BH 2D N=40,960 graph replays: wall {wall:.3f} "
-          f"ms/step, device busy {busy:.3f} ms/step, idle share "
-          f"{100 * (1 - busy / wall) if busy else float('nan'):.1f}%, "
-          f"{len(kern)} kernel names  [{card}]", flush=True)
-    del g
+    graph_profile(SimConfig(n_bodies=40960, engine="barnes_hut", seed=7),
+                  "BH 2D N=40,960", dev, card)
 
     print("phase 6b: all-pairs N=65,536 2D and 3D, and 2D BH --eval-mode "
           "grid / dynamic / --compensated at 40,960, run against run "
@@ -1034,16 +1139,7 @@ def phase6(dev, card: str) -> dict:
                  "graph")
         runs[(mode, 2)] = c
 
-    print("phase 6c: 3D BH --fused at N=131,072 (the segment-packing "
-          "gate's route: step by step on the card)", flush=True)
-    *_, c, sim = fused_pair(
-        "BH 3D N=131072", ["--engine", "barnes_hut", "--dims", "3",
-                           "--n-bodies", "131072", "--seed", "7"], 10, (),
-        card)
-    if sim.last_scan_route != "eager" or c["k2"] + c["k3"] <= 0:
-        fail("BH 3D N=131072 --fused did not run step by step through "
-             "K2/K3")
-    runs[("bh3", 131072)] = c
+    runs.update(phase6c(dev, card))
 
     print("phase 6d: --bh-mode exact, 2D N=40,960: one force pass on the "
           "card against the native f64 engine (2e-4 x max|a|, the JAX "
@@ -1576,7 +1672,7 @@ def phase7(dev, card: str) -> dict:
 # counts present and >= 0
 P8_MS_KEYS = ("allpairs2d_loop_ms", "allpairs2d_fused_ms", "bh2d_loop_ms",
               "bh2d_fused_ms", "bh3d_loop_ms", "bh3d_fused_ms",
-              "bh3d_large_loop_ms")
+              "bh3d_large_loop_ms", "bh3d_large_fused_ms")
 P8_POSITIVE = ("value", "vs_baseline", "n", "steps", "repeats",
                "bh3d_large_n") + P8_MS_KEYS
 P8_COUNTS = ("bh2d_overflowed_bodies", "bh3d_large_retried_steps")
@@ -1877,6 +1973,124 @@ def phase8(dev, card: str) -> dict:
     return bench
 
 
+# -- phase 9: the tree builds' leaf sums -------------------------------------
+
+def leaf_inputs(positions, masses, dims: int, max_depth=None) -> tuple:
+    """The (rows, lengths) the tree build of this state hands the leaf
+    sums (one build, the wrapper spied)."""
+    from nbody_tpu_torch.ops import tree, tree3d
+
+    seen = []
+    if dims == 2:
+        with spying(tree, "leaf_sums", seen):
+            tree.build_quadtree(positions, masses,
+                                **({} if max_depth is None
+                                   else dict(max_depth=max_depth)))
+    else:
+        with spying(tree3d, "leaf_sums", seen):
+            tree3d.build_octree(positions, masses, max_depth=max_depth or
+                                tree3d.default_max_depth3(len(masses)))
+    return seen[0][0]
+
+
+def leaf_bound(rows, lengths) -> tuple:
+    """(bound_ms, bound_by) of the leaf sums: rows read once, the sums
+    written once, the lengths read once (bytes), one add a row element
+    (FP32)."""
+    n, w = rows.shape
+    nbytes = (n * w + lengths.shape[0] * w) * rows.element_size() + (
+        lengths.shape[0] * 8)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, n * w / PEAK_FP32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase9(dev, card: str) -> dict:
+    """9: ``tree.leaf_sums`` (csrc/tree_sums.cu) against
+    ``torch.segment_reduce`` on five inputs, bit for bit, each timed
+    beside its twin and the library call; then the evolved 1M step with
+    the leaf sums on segment_reduce and on the kernel, in turns.  Returns
+    the evolved input's numbers for the summary."""
+    import torch
+
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.engines import make_accel_fn
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.ops import tree, tree3d
+    from nbody_tpu_torch.physics import integrate
+    from nbody_tpu_torch.rng import random_state
+
+    print("phase 9: the leaf sums (csrc/tree_sums.cu) against "
+          "torch.segment_reduce, bit for bit", flush=True)
+    n1m = 1 << 20
+    cfg1m = SimConfig(n_bodies=n1m, n_dim=3, engine="barnes_hut", seed=7,
+                      n_steps=10)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        evolved = Simulation(cfg1m, device=dev)
+        evolved.run_contract()
+    inputs = {}
+    for tag, cfg in (("2D N=40,960 uniform", SimConfig(n_bodies=40960)),
+                     ("3D N=1,048,576 uniform", cfg1m),
+                     ("3D N=262,144 blobs", SimConfig(
+                         n_bodies=262144, n_dim=3, init_mode="blobs"))):
+        st = random_state(cfg, device=dev)
+        inputs[tag] = leaf_inputs(st.positions, st.masses, cfg.n_dim,
+                                  cfg.resolved_max_depth)
+    est = evolved.state
+    inputs["3D N=1,048,576 after 10 contract-loop steps"] = leaf_inputs(
+        est.positions, est.masses, 3, cfg1m.resolved_max_depth)
+    rows = torch.rand((n1m, 16), generator=torch.Generator().manual_seed(9))
+    lengths = torch.zeros(8 ** 7, dtype=torch.int64)
+    lengths[12345] = n1m
+    inputs["3D all 1,048,576 rows in one leaf"] = (rows.to(dev),
+                                                  lengths.to(dev))
+    out = {}
+    for tag, (rows, lengths) in inputs.items():
+        got = tree.leaf_sums(rows, lengths)
+        want = tree.leaf_sums_plain(rows, lengths)
+        again = tree.leaf_sums(rows, lengths)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            fail(f"9 {tag}: leaf_sums differs from segment_reduce (max "
+                 f"{float((got - want).abs().max()):.3e}) or from itself")
+        k_ms = cuda_ms(lambda: tree.leaf_sums(rows, lengths), reps=10)
+        p_ms = cuda_ms(lambda: tree.leaf_sums_plain(rows, lengths), reps=3)
+        lib_ms = cuda_ms(lambda: torch.segment_reduce(
+            rows, "sum", lengths=lengths, axis=0, unsafe=True), reps=3)
+        b_ms, b_by = leaf_bound(rows, lengths)
+        print(f"  {tag}: rows {tuple(rows.shape)}, {lengths.shape[0]:,} "
+              f"leaves, the longest {int(lengths.max()):,} rows, "
+              f"{int((lengths > 64).sum())} past the light path's 64; "
+              f"bit-equal to segment_reduce and to itself; kernel "
+              f"{k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
+              f"torch.segment_reduce {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})  [{card}]", flush=True)
+        out[tag] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=float(
+                            (got - want).abs().max()))
+
+    accel = make_accel_fn(cfg1m, return_diagnostics=True)
+
+    def step():
+        acc, ovf = accel(est.positions, est.masses)
+        return integrate(est, acc, cfg1m.dt, overflow=ovf.sum())
+
+    leaf = tree.leaf_sums
+    t = []
+    try:
+        for plain in (True, False, False, True):
+            tree.leaf_sums = tree3d.leaf_sums = (
+                tree.leaf_sums_plain if plain else leaf)
+            t.append(cuda_ms(step, reps=3))
+    finally:
+        tree.leaf_sums = tree3d.leaf_sums = leaf
+    print(f"  3D N=1,048,576 step on the evolved state: leaf sums on "
+          f"segment_reduce {t[0]:.2f} / {t[3]:.2f} ms, on the kernel "
+          f"{t[1]:.2f} / {t[2]:.2f} ms (CUDA events, 3 steps each, in "
+          f"turns)  [{card}]", flush=True)
+    return out
+
 
 def main() -> int:
     import torch
@@ -1935,7 +2149,8 @@ def main() -> int:
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
-    only = {"--only-phase-7": phase7, "--only-phase-8": phase8}
+    only = {"--only-phase-6c": phase6c, "--only-phase-7": phase7,
+            "--only-phase-8": phase8, "--only-phase-9": phase9}
     if len(sys.argv) == 2 and sys.argv[1] in only:
         # a short run of one later path alone (phases 0, 1 and it)
         only[sys.argv[1]](dev, card)
@@ -2161,7 +2376,8 @@ def main() -> int:
         finals[engine], launches[(2, engine, n)] = main_path_run(
             engine, n, 2, 10)
     if launches[(2, "barnes_hut", 40960)]["k2"] <= 0 or (
-            launches[(2, "allpairs", 65536)]["k1"] <= 0):
+            launches[(2, "allpairs", 65536)]["k1"] <= 0) or (
+            launches[(2, "barnes_hut", 40960)]["leaf"] <= 0):
         fail("a kernel of the 2D main path was never launched")
     for engine, n in runs2:
         lockstep(engine, n, 2, 10, 10, finals[engine], dev)
@@ -2184,6 +2400,9 @@ def main() -> int:
              "N=65536")
     if launches[(3, "allpairs", 65536)]["k1"] <= 0:
         fail("K1 (3D) was never launched in the 3D allpairs run")
+    if any(launches[(3, e, n)]["leaf"] <= 0 for e, n in runs3
+           if e == "barnes_hut"):
+        fail("the leaf sums were not launched in a 3D barnes_hut run")
     for engine, n in runs3:
         lockstep(engine, n, 3, 10, 3, finals3[(engine, n)], dev)
 
@@ -2204,6 +2423,8 @@ def main() -> int:
         fail("the dense collector was not reached in a 3D run at scale")
     if c256["k2"] + c256["k3"] <= 0:
         fail("neither K2 nor K3 ran in the 3D barnes_hut run at N=262144")
+    if c256["leaf"] <= 0 or c1m["leaf"] <= 0:
+        fail("the leaf sums were not launched in a 3D run at scale")
     for n, steps in runs4c:
         lockstep("barnes_hut", n, 3, steps, 2, finals3[("barnes_hut", n)],
                  dev)
@@ -2670,6 +2891,7 @@ def main() -> int:
     phase6(dev, card)
     par = phase7(dev, card)
     phase8(dev, card)
+    leaf9 = phase9(dev, card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -2758,6 +2980,21 @@ def main() -> int:
             padded_entry("k6_compensated", grid, "k6c", "compensated", "k6"),
             padded_entry("k7", dyn, "k7", "dynamic", "k7"),
         ]
+    evo = leaf9["3D N=1,048,576 after 10 contract-loop steps"]
+    summary["kernels"].append({
+        "name": "leaf_sums", "route": "cuda",
+        "source": "nbody_tpu_torch/csrc/tree_sums.cu",
+        "replaces": "nbody_tpu/ops/tree3d.py:141",
+        "replaces_note": "XLA's segment_sum in the JAX package (no Pallas "
+                         "kernel); torch.segment_reduce in the port before",
+        "dims": 3, "launches": launches[(3, "barnes_hut", n1m)]["leaf"],
+        "max_abs_err": max(v["max_abs_err"] for v in leaf9.values()),
+        "ms": evo["ms"], "plain_ms": evo["plain_ms"],
+        "bound_ms": evo["bound_ms"], "bound_by": evo["bound_by"],
+        "library_ms": evo["library_ms"],
+        "n_bodies": 1 << 20, "state": "after 10 contract-loop steps",
+        "inputs_ms": {k: v["ms"] for k, v in leaf9.items()},
+        "inputs_library_ms": {k: v["library_ms"] for k, v in leaf9.items()}})
     print(f"card: {card}")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,9 @@ step, replayed) side by side for
   whose caps overflowed in the fused run,
 * grouped Barnes-Hut 3D at N (K2, the fused run a graph),
 * grouped Barnes-Hut 3D at 4N (the dense collector; K2 or K3 by the
-  run-length gate).  Its host gates run it step by step, so it gets the
-  loop alone, with its route and the steps retried at 4x caps.
+  run-length gate), with its route and the steps the loop retried at 4x
+  caps.  Its gates (segment packing, the spill pass) are conditional
+  nodes of the fused run's graph.
 
 N is 65,536 on the card and 2,048 on ``--device cpu``, the JAX package's
 sizes (``nbody_tpu/bench/headline.py:180``).  ``value`` is N^2 over the
@@ -124,8 +125,9 @@ def measure(device, repeats: int = REPEATS, steps: int = STEPS) -> dict:
             out["bh2d_overflowed_bodies"] = int(sim.last_scan_overflow.sum())
     big = base.replace(engine="barnes_hut", n_dim=3, n_bodies=4 * n)
     ms, _, retried = _timed("bh3d_large", big, device, False, repeats)
-    out.update(bh3d_large_loop_ms=ms, bh3d_large_n=4 * n,
-               bh3d_large_route=route_3d(4 * n),
+    fused_ms, _, _ = _timed("bh3d_large", big, device, True, repeats)
+    out.update(bh3d_large_loop_ms=ms, bh3d_large_fused_ms=fused_ms,
+               bh3d_large_n=4 * n, bh3d_large_route=route_3d(4 * n),
                bh3d_large_retried_steps=retried)
     pairs_per_sec = n * n / (out["allpairs2d_fused_ms"] / 1e3)
     log(f"bench: all-pairs {pairs_per_sec / 1e9:.1f} Gpairs/s (fused)")

@@ -380,7 +380,8 @@ def _run_fused(args, config, sim):
     written once, per-step side effects that need a host sync warned
     about and dropped.  Both timing lines report the fused run's time,
     synchronised; capture and warm-up stay outside it.  Prints to stderr
-    which route ran (a CUDA graph, or step by step and why)."""
+    which route ran (a CUDA graph, with the replays that took each of its
+    conditional branches, or step by step for a multi-device run)."""
     from .utils.timing import RunTiming
 
     # per-step host side effects that cannot run inside one fused run:
@@ -410,10 +411,13 @@ def _run_fused(args, config, sim):
     else:
         final, traj = sim.run_scan(config.n_steps), None
     if sim.last_scan_route == "graph":
+        taken = "".join(f"; {name}: {k} of {config.n_steps} replays"
+                        for name, k in sim.last_branch_counts.items())
         print(f"fused: the step ran as a CUDA graph, captured in "
               f"{sim.last_capture_ms:.1f} ms and replayed "
-              f"{config.n_steps} times", file=sys.stderr)
+              f"{config.n_steps} times{taken}", file=sys.stderr)
     elif sim.state.device.type == "cuda":
+        # a multi-device run: the one route a graph does not take
         print(f"fused: the step ran step by step on the card (no retry, "
               f"per-step counts kept on the device): {sim.fused_gate()}",
               file=sys.stderr)

@@ -18,11 +18,12 @@
 * ``run_scan`` / ``run_scan_trajectory`` — the fused run, the
   counterpart of the JAX package's one ``lax.scan`` program: no per-step
   host crossing, no adaptive retry, per-step overflow counts kept on the
-  device and warned about after the run.  On the card the step runs as a
-  CUDA graph (:class:`StepGraph`: captured once, replayed every step)
-  unless :func:`host_gate` names a host read the step makes every pass
-  (3D Barnes-Hut on the dense collector or the segment-packing route);
-  that step and every CPU run go step by step with the same semantics.
+  device and warned about after the run.  On the card every
+  single-device step runs as a CUDA graph (:class:`StepGraph`: captured
+  once, replayed every step); the step's data-dependent gates (3D
+  Barnes-Hut's segment packing and the dense collector's spill pass)
+  are conditional nodes in it, as they are ``lax.cond`` in the JAX
+  package.  Every CPU run goes step by step with the same semantics.
 
 A multi-device run gives each rank a ``Simulation`` of its slab with the
 sharded step of ``parallel/steps.py`` (``step_fn``), its 4x-caps retry
@@ -53,29 +54,6 @@ from ..utils.metrics import MetricsWriter, tree_stats, tree_stats_3d
 from ..utils.textio import PositionsWriter
 from ..utils.timing import RunTiming, Stopwatch
 from .engines import make_accel_fn, resolved_caps
-
-
-def host_gate(config: SimConfig,
-              n_bodies: Optional[int] = None) -> Optional[str]:
-    """Why a fused run of ``config`` on the card cannot be one CUDA graph
-    of the step, or None when it can: the host read its step makes every
-    pass.  Only 3D Barnes-Hut has one, on two routes (the dense window
-    collector's spill gate, and the runs evaluator's segment-packing
-    gate where it may pack); every 2D engine and mode, the exact
-    per-body Barnes-Hut and all-pairs in 3D are captured.  ``n_bodies``
-    (default ``config.n_bodies``) is the state's body count, which sets
-    the route."""
-    if config.n_dim != 3 or config.engine != "barnes_hut":
-        return None
-    from ..ops.bh3d import host_gate_3d, resolve_route_3d
-
-    n = config.n_bodies if n_bodies is None else n_bodies
-    return host_gate_3d(resolve_route_3d(
-        n, n, eval_mode=config.eval_mode,
-        compensated=config.compensated, eval_k_tile=config.eval_k_tile,
-        group_size=config.group_size,
-        direct_cell_max=config.resolved_direct_cell_max,
-        split_eval=config.split_eval, collect=config.collect3))
 
 
 def _sync(device: torch.device) -> None:
@@ -111,6 +89,10 @@ class Simulation:
         # ("graph" or "eager"), the capture's and the run's wall times
         self.last_scan_overflow = None
         self.last_scan_route = None
+        # {conditional branch of the graph: replays that took it}, and
+        # {"module.counter": launches a replay makes outside the branches}
+        self.last_branch_counts = {}
+        self.last_replay_launches = {}
         self.last_capture_ms = 0.0
         self.last_scan_ms = 0.0
 
@@ -235,10 +217,9 @@ class Simulation:
 
     def fused_gate(self) -> Optional[str]:
         """Why a fused run of this simulation on the card goes step by
-        step, or None when it is one CUDA graph of the step."""
-        if self.mesh is not None:
-            return MESH_GATE
-        return host_gate(self.config, self.state.n_bodies)
+        step (a multi-device run), or None when it is one CUDA graph of
+        the step."""
+        return MESH_GATE if self.mesh is not None else None
 
     def run_scan(self, n_steps: Optional[int] = None) -> SimState:
         """The whole run with no per-step host crossing (the JAX
@@ -249,9 +230,11 @@ class Simulation:
         --fused or raise the caps if it warns.
 
         On the card the step is captured as a CUDA graph and replayed
-        (capture and warm-up outside ``last_scan_ms``) unless
-        :func:`host_gate` names a host read, when it runs step by step;
-        ``last_scan_route`` says which.  A capture that fails raises."""
+        (capture and warm-up outside ``last_scan_ms``), but for a
+        multi-device run, which goes step by step; ``last_scan_route``
+        says which, and ``last_branch_counts`` how many replays took
+        each conditional branch of the graph.  A capture that fails
+        raises."""
         n = n_steps if n_steps is not None else self.config.n_steps
         self.state, _, ovf = self._fused(n, trajectory=False)
         self._report_scan_overflow(ovf)
@@ -294,9 +277,15 @@ class Simulation:
             g.replay(n)
             _sync(device)
             self.last_scan_ms = (time.perf_counter() - t0) * 1e3
+            self.last_branch_counts = g.settle()
+            self.last_replay_launches = {
+                f"{mod}.{name}": k for (mod, name), k in g.launches.items()
+                if k}
             return g.state, g.trajectory, g.overflow
 
         self.last_capture_ms = 0.0
+        self.last_branch_counts = {}
+        self.last_replay_launches = {}
         ovf = torch.zeros((n,), dtype=torch.int32, device=device)
         traj = None
         if trajectory:
@@ -426,17 +415,26 @@ class StepGraph:
     k, which the graph advances, picks the row each replay writes: the
     step's overflow count into ``overflow[k]`` and, with ``trajectory``,
     its positions into ``trajectory[k + 1]`` (row 0 holds the initial
-    positions).
+    positions).  The step's gates are conditional nodes
+    (``ops/_graph.device_if``).
 
-    The warm-up pass that capture needs runs on a side stream on a copy of
-    the state, so the buffers start at ``state`` and ``n`` replays take
-    exactly ``n`` steps.  A step that reads the host (a sync) cannot be
-    captured: the capture raises.  The kernel wrappers' launch counters
-    count a captured launch once per replay, not at capture."""
+    Warm-up before the capture, so that the capture meets no first use:
+    one eager step on a side stream on a copy of the state (the buffers
+    start at ``state``, so ``n`` replays take exactly ``n`` steps; it
+    takes one branch of each gate), then a throwaway relaxed capture of
+    the step that records every branch straight.  A step that reads the
+    host (a sync) cannot be captured: the capture raises.
+
+    Counting: the kernel wrappers' launch counters count a captured
+    launch once per replay: :meth:`replay` adds the launches outside the
+    gates' branches (``launches``) and the fixed tallies; a branch's
+    launches and tallies count on the device, once per replay that takes
+    it, and :meth:`settle` adds them after the replays (one host
+    read)."""
 
     def __init__(self, step_fn, state: SimState, n_steps: int,
                  trajectory: bool = False):
-        from ..ops import _cuda
+        from ..ops import _cuda, _graph
 
         dev = state.device
         self.state = SimState(masses=state.masses, **{
@@ -451,16 +449,27 @@ class StepGraph:
             self.trajectory[0] = state.positions
         self._k = torch.zeros((), dtype=torch.int64, device=dev)
 
+        def copy_of_state():
+            return SimState(masses=state.masses, **{
+                f: getattr(state, f).clone() for f in _CARRIED})
+
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            step_fn(SimState(masses=state.masses, **{
-                f: getattr(state, f).clone() for f in _CARRIED}))
+            step_fn(copy_of_state())
         torch.cuda.current_stream(dev).wait_stream(side)
-
+        torch.cuda.synchronize(dev)
         before = _cuda.launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        try:
+            with _graph.counting(_graph.CaptureCounts(dev, warm=True)):
+                _graph.capture(torch.cuda.CUDAGraph(),
+                               lambda: step_fn(copy_of_state()), dev,
+                               stream=side, capture_error_mode="relaxed")
+        finally:
+            after = _cuda.launch_counts()
+            _graph.add_counts({k: after[k] - before[k] for k in after}, -1)
+
+        def step():
             new = step_fn(self.state)
             for f in _CARRIED:
                 getattr(self.state, f).copy_(getattr(new, f))
@@ -470,15 +479,30 @@ class StepGraph:
                 self.trajectory.index_copy_(0, row + 1,
                                             new.positions[None])
             self._k += 1
+
+        self.counts = _graph.CaptureCounts(dev)
+        before = _cuda.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with _graph.counting(self.counts):
+            _graph.capture(self.graph, step, dev)
         after = _cuda.launch_counts()
-        # kernels launched per replay; the capture itself launched none
-        self.launches = {key: after[key] - before[key] for key in after}
-        _cuda.add_launches(self.launches, -1)
+        recorded = {key: after[key] - before[key] for key in after}
+        _graph.add_counts(recorded, -1)  # the capture launched nothing
+        # launches every replay makes: those outside the branches
+        self.launches = {
+            key: k - self.counts.branch_launches.get(key, 0)
+            for key, k in recorded.items()}
 
     def replay(self, n: int) -> None:
         """Run ``n`` more steps (asynchronous, like a launch)."""
-        from ..ops import _cuda
+        from ..ops import _graph
 
         for _ in range(n):
             self.graph.replay()
-        _cuda.add_launches(self.launches, n)
+        _graph.add_counts(self.launches, n)
+        _graph.add_counts(self.counts.per_replay, n)
+
+    def settle(self) -> dict:
+        """Count what the replays so far did inside the gates' branches
+        (one host read); returns {branch: replays that took it}."""
+        return self.counts.settle()

@@ -23,7 +23,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("allpairs.cu", "runs_eval.cu", "list_eval.cu")
+SOURCES = ("allpairs.cu", "runs_eval.cu", "list_eval.cu", "graph_if.cu",
+           "tree_sums.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -130,6 +131,10 @@ class _Library:
               f, i, i, p, p, p], i),
             ("nbody_runs_split_occupancy",
              [i, i, ctypes.POINTER(ctypes.c_int)], i),
+            ("nbody_graph_if_begin", [p, p, p, i], i),
+            ("nbody_graph_if_end", [p], i),
+            ("nbody_graph_stream_create", [ctypes.POINTER(p)], i),
+            ("nbody_leaf_sums", [p, p, p, p, ctypes.c_longlong, i, i, p], i),
             ("nbody_cuda_error_string", [i], ctypes.c_char_p),
         ):
             fn = next(getattr(d, name) for d in self._dlls
@@ -178,9 +183,9 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 # Every kernel wrapper's launch counter, as (module of nbody_tpu_torch.ops,
 # attribute).  A wrapper adds one where it launches; under CUDA graph
-# capture that launch is recorded once and runs at every replay, so the
-# graph's owner adds the captured launches times the further replays
-# (:func:`add_launches`).
+# capture that launch is recorded once and runs at every replay (or every
+# replay that takes its branch), so the graph's owner adds the captured
+# launches times the replays (``_graph.add_counts``, ``StepGraph``).
 LAUNCH_COUNTERS = (
     ("allpairs", "KERNEL_LAUNCHES"),  # K1
     ("list_eval", "KERNEL_LAUNCHES"),  # K2
@@ -189,6 +194,7 @@ LAUNCH_COUNTERS = (
     ("allpairs", "POTENTIAL_LAUNCHES"),  # K5
     ("list_eval", "GRID_LAUNCHES"),  # K6
     ("list_eval", "DYNAMIC_LAUNCHES"),  # K7
+    ("tree", "LEAF_SUM_LAUNCHES"),  # the tree builds' leaf sums
 )
 
 
@@ -199,15 +205,3 @@ def launch_counts() -> dict:
     return {(mod, name): getattr(
         importlib.import_module(f"{__package__}.{mod}"), name)
         for mod, name in LAUNCH_COUNTERS}
-
-
-def add_launches(per_replay: dict, replays: int) -> None:
-    """Count ``replays`` more runs of launches recorded once in a graph:
-    ``per_replay`` maps (module, counter) to the launches a replay
-    makes."""
-    import importlib
-
-    with counter_lock:
-        for (mod, name), k in per_replay.items():
-            m = importlib.import_module(f"{__package__}.{mod}")
-            setattr(m, name, getattr(m, name) + k * replays)

@@ -339,21 +339,6 @@ def resolve_route_3d(n: int, ns: int, *, eval_mode=None, compensated=False,
                    gs, n_sub, direct_cell_max, split_eval, seg_pack)
 
 
-def host_gate_3d(route: Route3D):
-    """The host read a 3D pass on ``route`` makes every pass, or None:
-    the dense collector's spill gate, or the run-length gate of the
-    runs evaluator when it may pack segments (K3).  A CUDA graph cannot
-    hold a pass that reads the host."""
-    if route.dense:
-        return ("the dense collector's spill gate reads the escaped groups' "
-                "count on the host (ops/collect_dense3.py)")
-    if route.eval_mode == "runs" and not route.split_eval and (
-            route.seg_pack > 1):
-        return ("the runs evaluator's segment-packing gate reads the mean "
-                "run length on the host (ops/bh_grouped._evaluate_runs)")
-    return None
-
-
 def bh3_accelerations_grouped(
     positions: torch.Tensor,  # [N, 3]
     masses: torch.Tensor,  # [N]

@@ -19,9 +19,9 @@ packed into one padded two-section list, evaluated by kernel K6 (grid,
 Kahan-compensated on request) or K7 (dynamic) (``ops/list_eval``).
 
 Shapes are static, as in the JAX package: every cap is fixed before the
-step and overflowing groups raise a flag.  The one host sync of a force
-pass is the segment-packing gate of :func:`_evaluate_runs` when
-``seg_pack > 1`` (kernel K3).
+step and overflowing groups raise a flag.  The segment-packing gate of
+:func:`_evaluate_runs` when ``seg_pack > 1`` (kernel K3 or K2) is a
+device conditional (``ops/_graph.py``), so a CUDA graph holds the pass.
 """
 
 from __future__ import annotations
@@ -411,37 +411,54 @@ def _evaluate_runs(
     ``list_eval_runs``.
 
     With ``seg_pack = P > 1`` the mean merged-run length decides, as the
-    JAX package's runtime ``cond`` does: at or above
+    JAX package's ``lax.cond`` does: at or above
     ``SEG_PACK_MIN_RUN_LANES`` the runs expand at k_tile/P lanes and P
     segments pack into each kernel step (K3); below, the plain tables
-    (K2).  Here the decision is made on the host: one ``.item()`` per
-    force pass.  Returns (acc [G, S, D], overflow [G])."""
+    (K2).  The decision stays on the device (``_graph.device_cond``): one
+    host read outside capture, two conditional nodes in a CUDA graph.
+    Returns (acc [G, S, D], overflow [G])."""
+    from . import _graph
     from .experiments import merge_ranges  # imports this module
 
     approx, a_lanes = _approx_table(coord_lists, lm, g_const, k_tile)
     merged, ovf_m = merge_ranges(ranges, cap=run_cap)
     srct = _source_table(sorted_coords, sorted_gm, k_tile)
 
-    if seg_pack > 1:
-        counts = merged[:, :, 1]
-        n_runs = (counts > 0).sum().clamp(min=1)
-        mean_len = counts.sum().to(torch.float32) / n_runs.to(torch.float32)
-        if not mean_len.item() >= SEG_PACK_MIN_RUN_LANES:
-            seg_pack = 1
-    if seg_pack > 1:
+    def evaluate(pack: int, tiles, n_tiles):
+        lens = torch.stack([a_lanes, n_tiles])
+        return list_eval.list_eval_runs(
+            positions_grouped, approx, srct, tiles, lens,
+            softening=float(softening), k_tile=k_tile, seg_pack=pack)
+
+    if seg_pack == 1:
+        tiles, n_tiles, ovf_t = _expand_runs_tiles(merged, k_tile, t_cap)
+        return evaluate(1, tiles, n_tiles), ovf_m | ovf_t
+
+    # both branches write here (a graph after the gate reads fixed
+    # addresses); each keeps the bits it has alone
+    acc = torch.empty_like(positions_grouped)
+    ovf_t = torch.empty_like(ovf_m)
+
+    def packed():
         # segment-granular table; the body-volume part of the capacity
         # scales by P, the per-run slack does not
         seg_cap = max(t_cap, (t_cap - 2 * run_cap) * seg_pack + 2 * run_cap)
-        tiles, n_segs, ovf_t = _expand_runs_tiles(
+        tiles, n_segs, ovf = _expand_runs_tiles(
             merged, k_tile // seg_pack, seg_cap)
-        n_tiles = (n_segs + seg_pack - 1) // seg_pack
-    else:
-        tiles, n_tiles, ovf_t = _expand_runs_tiles(merged, k_tile, t_cap)
-    lens = torch.stack([a_lanes, n_tiles])
-    acc = list_eval.list_eval_runs(
-        positions_grouped, approx, srct, tiles, lens,
-        softening=float(softening), k_tile=k_tile, seg_pack=seg_pack,
-    )
+        acc.copy_(evaluate(seg_pack, tiles,
+                           (n_segs + seg_pack - 1) // seg_pack))
+        ovf_t.copy_(ovf)
+
+    def plain():
+        tiles, n_tiles, ovf = _expand_runs_tiles(merged, k_tile, t_cap)
+        acc.copy_(evaluate(1, tiles, n_tiles))
+        ovf_t.copy_(ovf)
+
+    counts = merged[:, :, 1]
+    n_runs = (counts > 0).sum().clamp(min=1)
+    mean_len = counts.sum().to(torch.float32) / n_runs.to(torch.float32)
+    _graph.device_cond(mean_len >= SEG_PACK_MIN_RUN_LANES, packed, plain,
+                       names=("packed (K3)", "plain (K2)"))
     return acc, ovf_m | ovf_t
 
 

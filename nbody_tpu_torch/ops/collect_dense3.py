@@ -17,8 +17,10 @@ outside the next level's window marks its group *escaped*, and escaped
 groups are collected again, exactly, by the gather walk (the spill pass);
 escapes beyond ``spill_cap`` raise the ordinary overflow flag, which the
 contract loop answers with its 4x-caps retry.  Whether a pass spills is
-decided on the host (one ``.item()`` per pass), where the JAX package
-uses a device ``lax.cond``.
+a device conditional (``ops/_graph.device_if``, the JAX package's
+``lax.cond``): one host read outside capture, a conditional node in a
+CUDA graph.  The spill pass walks a fixed ``spill_cap`` rows, the
+escaped groups first, as the JAX package does.
 
 The spatial pyramid is the octree itself, permuted: each level of
 ``Octree.raw`` (summed from contiguous Morton segments, no atomics) is
@@ -33,7 +35,9 @@ result; here it would cost a host sync per level).
 
 ``DENSE_PASSES``, ``ESCAPED_GROUPS`` and ``SPILL_PASSES`` count the
 collector's calls, the groups that escaped their windows, and the calls
-that ran the spill pass, as the kernels' wrappers count launches.
+that ran the spill pass, as the kernels' wrappers count launches; under
+a CUDA graph's capture the replays count them on the device
+(``_graph.tally``), read once after the run.
 """
 
 from __future__ import annotations
@@ -44,8 +48,13 @@ from typing import List, Tuple
 import torch
 
 from ..config import MASS_SKIP_THRESHOLD
-from . import _cuda
-from .bh_grouped import _quarter_fail_bits, _sort_compact, _theta_distances
+from . import _graph
+from .bh_grouped import (
+    _INT_MAX,
+    _quarter_fail_bits,
+    _sort_compact,
+    _theta_distances,
+)
 from .tree3d import (
     R3_CNT,
     R3_M,
@@ -228,7 +237,6 @@ def collect_lists_3d_dense(
     entries.  ``spill_cap`` escaped groups at most (default
     max(48, G // 4), the JAX package's budget) are collected again by the
     gather walk; further escapes set their overflow flag."""
-    global DENSE_PASSES, ESCAPED_GROUPS, SPILL_PASSES
     from .bh3d import _collect_lists_3d  # imports this module
 
     x0, x1, y0, y1, z0, z1 = bbox
@@ -335,18 +343,19 @@ def collect_lists_3d_dense(
     spill_cap = min(spill_cap, g)
     esc_rank = torch.cumsum(escape.to(torch.int32), 0) - 1
     overflow = overflow | (escape & (esc_rank >= spill_cap))
-    n_esc = int(escape.sum())  # the host's spill decision
-    with _cuda.counter_lock:
-        DENSE_PASSES += 1
-        ESCAPED_GROUPS += n_esc
-        if spill_cap > 0 and n_esc:
-            SPILL_PASSES += 1
-    if spill_cap > 0 and n_esc:
-        ids = torch.nonzero(escape).reshape(-1)[:spill_cap]
+    n_esc = escape.sum()
+
+    def spill():
+        # the escaped rows, a fixed spill_cap of them as in the JAX
+        # package (no nonzero): sorted row ids, not escaped = INT_MAX
+        key = torch.where(escape, torch.arange(g, device=dev), _INT_MAX)
+        ids = torch.sort(key).values[:spill_cap]
+        valid = ids != _INT_MAX
+        safe = torch.where(valid, ids, 0)
         # compacted to the dense outputs' widths; the gather walk's own
         # overflow flag covers any truncation
         col = _collect_lists_3d(
-            tuple(b[ids] for b in bbox), tree, theta=theta,
+            tuple(b[safe] for b in bbox), tree, theta=theta,
             softening=softening, frontier_caps=frontier_caps,
             list_cap=lx.shape[1], direct_cap=outs[4].shape[1],
             direct_cell_max=direct_cell_max, quarter_bits=quarter_bits)
@@ -354,9 +363,26 @@ def collect_lists_3d_dense(
         if quarter_bits:
             q = col[3]
             srcs += [q["bits"], *q["com"], q["mass"]]
-        for a, s in zip(outs, srcs):
-            a[ids] = torch.nn.functional.pad(s, (0, a.shape[1] - s.shape[1]))
-        overflow[ids] = col[2]
+        # the JAX package scatters the rows that are not valid to a
+        # dropped row; here they write the first valid row's results
+        # again into its own row (the same bits, so no race), in place
+        src_row = torch.where(valid, torch.arange(spill_cap, device=dev), 0)
+        tgt = ids[src_row]
+        for a, s_ in zip(outs, srcs):
+            a.index_copy_(0, tgt, torch.nn.functional.pad(
+                s_, (0, a.shape[1] - s_.shape[1]))[src_row])
+        overflow.index_copy_(0, tgt, col[2][src_row])
+        _graph.tally(("collect_dense3", "SPILL_PASSES"), 1)
+
+    if spill_cap > 0:
+        seen = _graph.device_if(n_esc, spill, "spill")
+    else:
+        seen = None if _graph.capturing(n_esc) else int(n_esc)
+    _graph.tally(("collect_dense3", "DENSE_PASSES"), 1)
+    # outside capture the host count read by the gate; under capture
+    # counted on the device
+    _graph.tally(("collect_dense3", "ESCAPED_GROUPS"),
+                 n_esc if seen is None else seen)
 
     lx, ly, lz, lm, ds, dc = outs[:6]
     res = ((lx, ly, lz, lm), torch.stack([ds, dc], dim=-1), overflow)

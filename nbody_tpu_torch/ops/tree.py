@@ -12,9 +12,10 @@ Where the port must not drift from the reference's bits:
 * Morton codes come from repeated f32 midpoint halving with ``>=`` to the
   high side — no other formula;
 * leaf rows are sums over contiguous segments of the Morton-sorted
-  bodies, in body order (``torch.segment_reduce``), not atomics, so they
-  are deterministic and a singleton cell's position sums are the body's
-  own bits;
+  bodies, in body order (:func:`leaf_sums`: the hand kernel
+  ``csrc/tree_sums.cu`` on the card, ``torch.segment_reduce`` on the
+  CPU), not atomics, so they are deterministic and a singleton cell's
+  position sums are the body's own bits;
 * the pyramid sums the four children with plain adds, never a matmul
   (a TF32 matmul would truncate the singleton sums and let a body pull
   on itself).
@@ -28,6 +29,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import MAX_DEPTH_DEFAULT, ROOT_PAD_FRACTION
+
+LEAF_SUM_LAUNCHES = 0  # leaf_sums_kernel (csrc/tree_sums.cu)
 
 
 class TreeLevel(NamedTuple):
@@ -101,6 +104,51 @@ def leaf_counts(codes: torch.Tensor, n_leaf: int) -> torch.Tensor:
                                torch.ones_like(codes, dtype=torch.int64))
 
 
+def leaf_sums_plain(rows: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """The leaf sums' plain twin: ``torch.segment_reduce``, one serial
+    sum from 0 in row order for each (leaf, column)."""
+    # the lengths sum to N by construction: unsafe=True skips the check
+    # that would read them on the host
+    return torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
+def leaf_sums(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Per-leaf column sums [n_leaf, W] of the Morton-sorted rows [N, W]
+    (W = 8 in 2D, 16 in 3D), leaf i summing the next ``lengths[i]``
+    rows (int64 [n_leaf], summing to N) in row order from 0: an empty
+    leaf is 0, a singleton leaf keeps its row's bits.
+
+    On CUDA: ``leaf_sums_kernel`` (f32 or f64, W dividing 256 and at
+    most 32; the offsets are a device prefix sum, so nothing is read on
+    the host and a CUDA graph can hold it), bit-equal to the twin.  On
+    the CPU: the plain twin."""
+    if not rows.is_cuda:
+        return leaf_sums_plain(rows, lengths)
+    global LEAF_SUM_LAUNCHES
+    from . import _cuda
+
+    dev = rows.device
+    n, w = rows.shape
+    n_leaf = lengths.shape[0]
+    if rows.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"rows are {rows.dtype}; the kernel takes f32/f64")
+    _cuda.require(rows, "rows", rows.dtype, (n, w), dev)
+    _cuda.require(lengths, "lengths", torch.int64, (n_leaf,), dev)
+    ends = torch.cumsum(lengths, 0)
+    out = torch.empty((n_leaf, w), dtype=rows.dtype, device=dev)
+    with torch.cuda.device(dev):
+        code = _cuda.library().nbody_leaf_sums(
+            rows.data_ptr(), lengths.data_ptr(), ends.data_ptr(),
+            out.data_ptr(), n_leaf, w, int(rows.dtype == torch.float64),
+            _cuda.stream_of(out))
+    _cuda.check(code, "leaf_sums")
+    with _cuda.counter_lock:
+        LEAF_SUM_LAUNCHES += 1
+    return out
+
+
 def leaf_raw(positions: torch.Tensor, masses: torch.Tensor,
              codes: torch.Tensor, max_depth: int) -> torch.Tensor:
     """Packed per-leaf rows [4^max_depth, 8] (cols per RAW_*): sums over
@@ -113,11 +161,7 @@ def leaf_raw(positions: torch.Tensor, masses: torch.Tensor,
         [masses, masses * x, masses * y, x, y, torch.ones_like(masses),
          zero, zero], dim=1)  # [N, 8]
     order = torch.argsort(codes, stable=True)
-    lengths = leaf_counts(codes, n_leaf)
-    # the lengths sum to N by construction: unsafe=True skips the check
-    # that would read them on the host
-    return torch.segment_reduce(packed[order], "sum", lengths=lengths,
-                                axis=0, unsafe=True)
+    return leaf_sums(packed[order], leaf_counts(codes, n_leaf))
 
 
 def _finish_level(raw: torch.Tensor, dtype) -> TreeLevel:

@@ -13,7 +13,7 @@ as the quadtree, ``ops/tree.py``):
 * Morton codes come from repeated f32 midpoint halving with ``>=`` to the
   high side, the x bit lowest of each 3-bit group;
 * leaf rows are sums over contiguous segments of the stably Morton-sorted
-  bodies, in body order (``torch.segment_reduce``), not atomics, so a
+  bodies, in body order (``tree.leaf_sums``), not atomics, so a
   singleton cell's position sums are the body's own bits;
 * the pyramid sums the eight children with plain adds, never a matmul
   (the JAX package's HIGHEST-precision reduction matmul would be a TF32
@@ -30,7 +30,7 @@ from typing import Tuple
 import torch
 
 from ..config import ROOT_PAD_FRACTION
-from .tree import leaf_counts
+from .tree import leaf_counts, leaf_sums
 
 # Column layout of the packed per-level rows [8^level, 16].
 R3_M, R3_MX, R3_MY, R3_MZ, R3_SX, R3_SY, R3_SZ, R3_CNT, R3_OCC = range(9)
@@ -113,11 +113,7 @@ def leaf_raw_3d(positions: torch.Tensor, masses: torch.Tensor,
                    (R3_CNT, 1.0)):
         packed[:, col] = v
     order = torch.argsort(codes, stable=True)
-    lengths = leaf_counts(codes, n_leaf)
-    # the lengths sum to N by construction: unsafe=True skips the check
-    # that would read them on the host
-    return torch.segment_reduce(packed[order], "sum", lengths=lengths,
-                                axis=0, unsafe=True)
+    return leaf_sums(packed[order], leaf_counts(codes, n_leaf))
 
 
 def pyramid_from_raw_3d(raw: torch.Tensor, bounds: torch.Tensor,

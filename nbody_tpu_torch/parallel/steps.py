@@ -26,8 +26,9 @@ Every step ends in the semi-implicit Euler update (``physics.integrate``,
 the JAX package's ``_integrate_arrays``) with the GLOBAL (psum'd) count
 of bodies whose caps overflowed in ``state.overflow``, which every rank
 holds, so a retry decision on it is the same on every rank.  No
-collective sits inside a grouped pass, whose host gates (the 3D
-segment-packing and spill gates) may then decide differently per rank.
+collective sits inside a grouped pass, whose data-dependent gates (the
+3D segment-packing and spill gates) may then decide differently per
+rank.
 """
 
 from __future__ import annotations

@@ -39,7 +39,8 @@ JAX_KEYS = {"metric", "value", "unit", "vs_baseline", "backend"}
 PORT_KEYS = {"card", "power_limit", "n", "steps", "repeats",
              "allpairs2d_loop_ms", "allpairs2d_fused_ms", "bh2d_loop_ms",
              "bh2d_fused_ms", "bh2d_overflowed_bodies", "bh3d_loop_ms",
-             "bh3d_fused_ms", "bh3d_large_loop_ms", "bh3d_large_n",
+             "bh3d_fused_ms", "bh3d_large_loop_ms", "bh3d_large_fused_ms",
+             "bh3d_large_n",
              "bh3d_large_route", "bh3d_large_retried_steps"}
 CPU = torch.device("cpu")
 

@@ -899,3 +899,154 @@ def test_capture_with_a_host_read_raises(cuda):
     with pytest.raises(RuntimeError):
         sim.run_scan()
     torch.cuda.synchronize()
+
+
+# -- the gates as conditional nodes, and the leaf sums ---------------------
+
+def test_device_if_runs_its_branch_on_the_replays_that_take_it(cuda):
+    """One IF node around a K1 launch and an allocating op: the branch's
+    writes land only on replays whose predicate is true, its launches and
+    its device tally count only then (settle)."""
+    from nbody_tpu_torch.ops import _cuda, _graph, collect_dense3
+
+    p, m = _cloud(2048, 5, cuda)
+    out = torch.zeros_like(p)
+    pred = torch.zeros((), dtype=torch.bool, device=cuda)
+
+    def branch():
+        out.copy_(allpairs.allpairs_accelerations(p, m, g=G) * 2)
+
+    branch()
+    want = out.clone()
+    counts = _graph.CaptureCounts(cuda)
+    graph = torch.cuda.CUDAGraph()
+    before = _cuda.launch_counts()
+    with _graph.counting(counts), torch.cuda.graph(graph):
+        assert _graph.device_if(pred, branch, "k1") is None
+        _graph.tally(("collect_dense3", "ESCAPED_GROUPS"),
+                     pred.to(torch.int64) * 3)
+    key = ("allpairs", "KERNEL_LAUNCHES")
+    assert _cuda.launch_counts()[key] - before[key] == 1
+    assert counts.branch_launches == {key: 1}
+    for v in (False, True, True, False):
+        pred.fill_(v)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) if v else not out.any()
+    escaped = collect_dense3.ESCAPED_GROUPS
+    k1 = allpairs.KERNEL_LAUNCHES
+    assert counts.settle() == {"k1": 2, "collect_dense3.ESCAPED_GROUPS": 6}
+    assert allpairs.KERNEL_LAUNCHES - k1 == 2
+    assert collect_dense3.ESCAPED_GROUPS - escaped == 6
+
+
+def test_failed_capture_leaves_later_branch_pools_intact(cuda):
+    """A capture that meets a host read raises; the allocator entry torch
+    leaves for its pool is released (``_graph.capture``), so a later
+    graph's branch pool can be torn down (it aborted the process
+    before)."""
+    import gc
+
+    from nbody_tpu_torch.ops import _graph
+    from nbody_tpu_torch.physics import integrate
+
+    _, sim, _ = _sim_pair(cuda, n_bodies=1024, n_steps=2, engine="allpairs")
+
+    def step(state):
+        if state.positions.abs().max().item() < 0:  # a deliberate sync
+            raise AssertionError
+        return integrate(state, torch.zeros_like(state.positions), 1.0)
+
+    sim.step_fn = step
+    with pytest.raises(RuntimeError):
+        sim.run_scan()
+    out = torch.zeros(4, device=cuda)
+    pred = torch.ones((), dtype=torch.bool, device=cuda)
+    counts = _graph.CaptureCounts(cuda)
+    graph = torch.cuda.CUDAGraph()
+    with _graph.counting(counts):
+        _graph.capture(graph, lambda: _graph.device_if(
+            pred, lambda: out.copy_(torch.arange(4, device=cuda) * 2.0)),
+            cuda)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert out.tolist() == [0.0, 2.0, 4.0, 6.0]
+    del counts, graph
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+# route -> (config, forced seg_pack, tiny windows, the branch it must take)
+GATED = {
+    "plain-K2": (dict(n_bodies=4096, group_size=512, direct_cell_max=32),
+                 4, False, "plain (K2)"),
+    "packed-K3": (dict(n_bodies=4096, group_size=512, direct_cell_max=64),
+                  4, False, "packed (K3)"),
+    "dense": (dict(n_bodies=8192, collect3="dense"), None, False, None),
+    "dense-spill": (dict(n_bodies=8192, collect3="dense", group_size=512,
+                         init_mode="blobs"), None, True, "spill"),
+}
+
+
+@pytest.mark.parametrize("route", list(GATED))
+def test_3d_graph_equals_loop_on_gated_routes(cuda, monkeypatch, route):
+    """3D Barnes-Hut through the packing gate and the dense collector's
+    spill gate, fused as one CUDA graph, ends bit-equal to the loop with
+    the retry off, and its branch counts show the branch it took."""
+    from nbody_tpu_torch.ops import bh3d, collect_dense3
+
+    kw, seg_pack, tiny, branch = GATED[route]
+    if seg_pack:
+        orig = bh3d.resolve_route_3d
+        monkeypatch.setattr(bh3d, "resolve_route_3d", lambda *a, **k: orig(
+            *a, **dict(k, seg_pack=seg_pack, eval_k_tile=512)))
+    if tiny:
+        monkeypatch.setattr(collect_dense3, "window_schedule_3d",
+                            lambda md: (1, 2, 4, 6, 6, 6, 6, 6)[:md + 1])
+    _, eager, fused = _sim_pair(cuda, n_dim=3, engine="barnes_hut",
+                                n_steps=3, adaptive_caps=False, **kw)
+    loop, _ = eager.run_contract()
+    final = fused.run_scan()
+    torch.cuda.synchronize()
+    assert fused.last_scan_route == "graph"
+    assert torch.equal(final.positions, loop.positions)
+    assert torch.equal(final.velocities, loop.velocities)
+    taken = fused.last_branch_counts
+    if branch is not None:
+        assert taken[branch] > 0, taken
+    if route == "dense":
+        assert taken["spill"] == 0
+    if tiny:
+        assert taken["collect_dense3.ESCAPED_GROUPS"] > 0
+
+
+@pytest.mark.parametrize("case", ["2d-uniform", "3d-heavy", "one-leaf",
+                                  "f64"])
+def test_leaf_sums_bit_equal_to_twin_and_deterministic(cuda, case):
+    from nbody_tpu_torch.ops import tree
+
+    w, n_leaf, n = (8, 4 ** 7, 40960) if case == "2d-uniform" else (
+        16, 8 ** 6, 200000)
+    rng = np.random.default_rng(7)
+    codes = rng.integers(0, n_leaf, n)
+    if case == "3d-heavy":
+        codes = np.where(rng.random(n) < 0.8, rng.integers(0, 5, n) * 999,
+                         codes)
+    elif case == "one-leaf":
+        codes[:] = 12
+    dtype = torch.float64 if case == "f64" else torch.float32
+    rows = torch.tensor(rng.uniform(-0.1, 0.5, (n, w)), dtype=dtype,
+                        device=cuda)
+    lengths = torch.tensor(np.bincount(codes, minlength=n_leaf),
+                           dtype=torch.int64, device=cuda)
+    before = tree.LEAF_SUM_LAUNCHES
+    got = tree.leaf_sums(rows, lengths)
+    again = tree.leaf_sums(rows, lengths)
+    assert tree.LEAF_SUM_LAUNCHES == before + 2
+    want = tree.leaf_sums_plain(rows, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), tree.leaf_sums_plain(rows.cpu(),
+                                                       lengths.cpu()))

@@ -7,9 +7,10 @@ Against the contract loop: the same steps, so the same bits (positions,
 positions.txt, quadtree dumps).  Against nbody_tpu's ``run_scan``:
 final positions within the JAX package's all-pairs bound (rtol 5e-4,
 atol 1e-11, tests/test_allpairs.py) on the motion from the initial
-state.  Which steps the card captures as a CUDA graph is decided up front
-by ``simulation.host_gate`` and checked here; the graph itself runs only
-on the card (tests/test_torch_cuda.py)."""
+state.  The card captures every single-device step as a CUDA graph, its
+gates as conditional nodes: the graph itself runs only on the card
+(tests/test_torch_cuda.py); that the step reads the host only inside
+its gates is checked in tests/test_torch_graph_gates.py."""
 
 import dataclasses
 
@@ -22,7 +23,7 @@ import nbody_tpu_torch
 from nbody_tpu.models.simulation import Simulation as JaxSimulation
 from nbody_tpu.state import to_numpy as jax_to_numpy
 from nbody_tpu_torch import cli
-from nbody_tpu_torch.models.simulation import Simulation, host_gate
+from nbody_tpu_torch.models.simulation import Simulation
 from nbody_tpu_torch.state import from_numpy
 
 
@@ -133,33 +134,3 @@ def test_fused_3d_run_equals_loop(tmp_path, capsys):
     assert cli.main(common + ["--fused", "--save-tree-dumps"]) == 0
     assert torch.equal(cli.last_simulation.state.positions, loop.positions)
     assert "skipping dumps" in capsys.readouterr().err
-
-
-def _cfg(**kw):
-    return nbody_tpu_torch.SimConfig(**kw)
-
-
-@pytest.mark.parametrize("kw", [
-    dict(n_bodies=40960, engine="barnes_hut"),
-    dict(n_bodies=65536, engine="barnes_hut", eval_mode="dynamic"),
-    dict(n_bodies=40960, engine="barnes_hut", compensated=True),
-    dict(n_bodies=1 << 20, engine="barnes_hut", split_eval=True),
-    dict(n_bodies=40960, engine="barnes_hut", bh_mode="exact"),
-    dict(n_bodies=65536, engine="allpairs", n_dim=3),
-    dict(n_bodies=65536, engine="barnes_hut", n_dim=3),
-    dict(n_bodies=131072, engine="barnes_hut", n_dim=3, eval_mode="grid"),
-    dict(n_bodies=1 << 20, engine="barnes_hut", n_dim=3, collect3="gather"),
-], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_host_gate_captures(kw):
-    assert host_gate(_cfg(**kw)) is None
-
-
-@pytest.mark.parametrize("kw,gate", [
-    (dict(n_bodies=131072), "segment-packing gate"),
-    (dict(n_bodies=229376, collect3="gather"), "segment-packing gate"),
-    (dict(n_bodies=262144), "spill gate"),
-    (dict(n_bodies=1 << 20), "spill gate"),
-    (dict(n_bodies=65536, collect3="dense"), "spill gate"),
-], ids=lambda x: str(x) if isinstance(x, str) else str(x["n_bodies"]))
-def test_host_gate_names_3d_gates(kw, gate):
-    assert gate in host_gate(_cfg(engine="barnes_hut", n_dim=3, **kw))
