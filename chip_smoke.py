@@ -120,8 +120,21 @@ Phases, each printing what it found; the first failure exits non-zero:
    recorded against ``parallel.memory.collective_inventory`` (equal),
    peak memory, overflowed and retried steps, and ms/step labelled as D
    ranks serialised on one card; 7c ``run --devices min(cards, 4)``
-   through the CLI over NCCL, one card a rank, when two or more cards
-   are visible (contract lines once, ``positions.txt`` of every body).
+   and ``run --devices min(cards, 4) --fused`` per mode at 65,536, 10
+   steps, from one seed, through the CLI's entry (``cli.main``), its
+   ranks spawned over NCCL, one card a rank, when two or more cards are
+   visible: contract lines once, ``positions.txt`` of every body, rank
+   0's graph line, the final positions bit-equal where no float is summed across ranks and
+   within the mode's bound elsewhere (the loop's 4x retry off where a
+   fused step overflowed), both ms/step, both runs' overflowed bodies
+   per step, and the loop's ms/step again from the same state once its
+   communicators exist; 7d each mode's fused run on
+   7a's group of one rank at 7b's sizes, ``Simulation.run_scan`` with
+   the sharded step and the mesh as one CUDA graph (the collectives
+   captured; route ``graph``), 10 replays bit for bit (SHA-256, and the
+   per-step overflow counts) against 10 eager steps of the same step,
+   with both ms/step, the capture time, the launches a replay, the
+   branches taken and peak memory.
    ``python3 chip_smoke.py --only-phase-7`` runs phases 0, 1 and 7 alone;
 8. the tooling (``nbody_tpu_torch/bench``, ``nbody_tpu_torch/scripts``):
    8a ``python -m nbody_tpu_torch bench`` as a subprocess, its last line
@@ -897,7 +910,11 @@ def cli_run(argv, tag: str):
 
 
 def digest(t) -> str:
-    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+    return digest_np(t.detach().cpu().numpy())
+
+
+def digest_np(a) -> str:
+    return hashlib.sha256(a.tobytes()).hexdigest()[:16]
 
 
 def parallel_ms(stdout: str) -> float:
@@ -1231,22 +1248,24 @@ def phase6(dev, card: str) -> dict:
 
 # -- phase 7: the multi-device steps (nbody_tpu_torch/parallel) ----------------
 
-# mode -> (dims, engine, N, steps, the JAX package's bound on the positions
-# after those steps, x max|p|, tests/test_parallel.py): all-pairs at the
+# mode -> (dims, engine, N, 7b's steps, the JAX package's bound on the
+# positions after its tests' 3 steps (dp2d: 2), x max|p|,
+# tests/test_parallel.py; 7b takes 2 steps to keep the script's time,
+# 7d and 7c take their own counts): all-pairs at the
 # bench's N from random_state, the exact BH at the reference's 40,960, the
 # grouped and sharded modes at BASELINE config 4's N from a Morton-sorted
 # jittered grid (bounded separations keep the BH-class difference of local
 # groups and window gates assertable, and ranks must hold Morton-contiguous
 # slabs for the window to cover them)
 P7_MODES = {
-    "dp_allpairs": (2, "allpairs", 65536, 3, 5e-6),
-    "ring_allpairs": (2, "allpairs", 65536, 3, 5e-6),
+    "dp_allpairs": (2, "allpairs", 65536, 2, 5e-6),
+    "ring_allpairs": (2, "allpairs", 65536, 2, 5e-6),
     "dp2d_allpairs": (2, "allpairs", 65536, 2, 5e-6),
-    "dp_barnes_hut": (2, "barnes_hut", 40960, 3, 5e-6),
-    "dp_barnes_hut_grouped": (2, "barnes_hut", 262144, 3, 5e-5),
-    "dp_barnes_hut_sharded": (2, "barnes_hut", 262144, 3, 5e-5),
-    "dp_barnes_hut_grouped3": (3, "barnes_hut", 262144, 3, 5e-5),
-    "dp_barnes_hut_sharded3": (3, "barnes_hut", 262144, 3, 5e-5),
+    "dp_barnes_hut": (2, "barnes_hut", 40960, 2, 5e-6),
+    "dp_barnes_hut_grouped": (2, "barnes_hut", 262144, 2, 5e-5),
+    "dp_barnes_hut_sharded": (2, "barnes_hut", 262144, 2, 5e-5),
+    "dp_barnes_hut_grouped3": (3, "barnes_hut", 262144, 2, 5e-5),
+    "dp_barnes_hut_sharded3": (3, "barnes_hut", 262144, 2, 5e-5),
 }
 # BASELINE config 5's weak scaling: 262,144 bodies a rank on 4 ranks
 P7_WEAK = ("dp_barnes_hut_sharded3", 1048576, 4, 2)
@@ -1427,20 +1446,16 @@ def p7_rank(mesh, mode: str, cfg, state, steps: int):
             ms)
 
 
-def p7_one_rank(dev) -> None:
-    """7a: every mode on a process group of ONE rank (NCCL on the card)
-    gives the bits of its single-device step."""
-    import torch
-    import torch.distributed as dist
-
-    from nbody_tpu_torch.models.simulation import Simulation
-    from nbody_tpu_torch.parallel import (
-        make_mesh, make_mesh_2d, make_sharded_step, shard_state)
-
+@contextlib.contextmanager
+def one_rank_group(dev):
+    """A process group of this process alone (NCCL on the card, gloo on
+    the CPU), rendezvousing through a file; yields the backend."""
     import datetime
 
+    import torch.distributed as dist
+
     os.makedirs(OUT_DIR, exist_ok=True)
-    init = os.path.abspath(os.path.join(OUT_DIR, "pg7a"))
+    init = os.path.abspath(os.path.join(OUT_DIR, "pg7"))
     if os.path.exists(init):
         os.remove(init)
     backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -1448,34 +1463,140 @@ def p7_one_rank(dev) -> None:
                             world_size=1, rank=0,
                             timeout=datetime.timedelta(seconds=120))
     try:
-        for mode, (dims, engine, n, _, _) in P7_MODES.items():
-            cfg = p7_config(mode, n)
-            state = p7_state(mode, n, dev)
-            mesh = (make_mesh_2d(1, 1) if mode == "dp2d_allpairs"
-                    else make_mesh(1))
-            if mesh.device != dev:
-                fail(f"7a: the {backend} mesh is on {mesh.device}, not {dev}")
-            step = make_sharded_step(cfg, mesh, mode)
-            s = shard_state(state, mesh)
-            ref = state
-            single = Simulation(cfg, state=state).step_fn
-            for _ in range(2):
-                s = step(s)
-                ref = (windowed_step(cfg, ref) if "sharded" in mode
-                       else single(ref))
-            got, want = digest(s.positions), digest(ref.positions)
-            print(f"  7a {mode} {dims}D N={n}: 2 steps on a {backend} group "
-                  f"of 1 rank, sha256 {got} against the single-device "
-                  f"{'windowed grouped ' if 'sharded' in mode else ''}step's "
-                  f"{want} (overflow {int(s.overflow)} / "
-                  f"{int(ref.overflow)}) -> "
-                  f"{'ok' if got == want else 'FAIL'}", flush=True)
-            if got != want:
-                fail(f"7a: {mode} on one rank is not the single-device step")
+        yield backend
     finally:
         dist.destroy_process_group()
 
 
+def one_rank_mesh(mode: str):
+    from nbody_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    return make_mesh_2d(1, 1) if mode == "dp2d_allpairs" else make_mesh(1)
+
+
+def p7_one_rank(dev, backend: str) -> None:
+    """7a: every mode on a process group of ONE rank (NCCL on the card)
+    gives the bits of its single-device step."""
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.parallel import make_sharded_step, shard_state
+
+    for mode, (dims, engine, n, _, _) in P7_MODES.items():
+        cfg = p7_config(mode, n)
+        state = p7_state(mode, n, dev)
+        mesh = one_rank_mesh(mode)
+        if mesh.device != dev:
+            fail(f"7a: the {backend} mesh is on {mesh.device}, not {dev}")
+        step = make_sharded_step(cfg, mesh, mode)
+        s = shard_state(state, mesh)
+        ref = state
+        single = Simulation(cfg, state=state).step_fn
+        for _ in range(2):
+            s = step(s)
+            ref = (windowed_step(cfg, ref) if "sharded" in mode
+                   else single(ref))
+        got, want = digest(s.positions), digest(ref.positions)
+        print(f"  7a {mode} {dims}D N={n}: 2 steps on a {backend} group "
+              f"of 1 rank, sha256 {got} against the single-device "
+              f"{'windowed grouped ' if 'sharded' in mode else ''}step's "
+              f"{want} (overflow {int(s.overflow)} / "
+              f"{int(ref.overflow)}) -> "
+              f"{'ok' if got == want else 'FAIL'}", flush=True)
+        if got != want:
+            fail(f"7a: {mode} on one rank is not the single-device step")
+
+
+# 7d: the fused run of each mode on the one-rank group, steps a run
+P7D_STEPS = 10
+
+
+def p7_graph(mode: str, dev, card: str) -> dict:
+    """7d: ``mode``'s sharded step on the one-rank group of 7a, as the
+    fused run's CUDA graph (``Simulation.run_scan`` with the step and the
+    mesh: route ``graph``, the collectives captured) and stepped eagerly
+    from the same slab with no retry: final positions and per-step
+    overflow counts equal, both timed (CUDA synchronised wall clock),
+    with the capture time, the launches a replay, the branches taken and
+    the peak memory above the live tensors.  Returns the graph run's
+    counts."""
+    import numpy as np
+    import torch
+
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.ops import allpairs, list_eval
+    from nbody_tpu_torch.parallel import make_sharded_step, shard_state
+
+    dims, _, n, _, _ = P7_MODES[mode]
+    cfg = p7_config(mode, n).replace(n_steps=P7D_STEPS)
+    state = p7_state(mode, n, dev)
+    mesh = one_rank_mesh(mode)
+    step = make_sharded_step(cfg, mesh, mode)
+    tag = f"7d {mode} {dims}D N={n}"
+
+    def peak_above(live) -> float:
+        return (torch.cuda.max_memory_allocated(dev) - live) / 2**30
+
+    sync(dev)
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    twins = []
+    sim = Simulation(cfg, state=shard_state(state, mesh), step_fn=step,
+                     mesh=mesh)
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        for mod, name in P7_TWINS:
+            stack.enter_context(spying(
+                {"allpairs": allpairs, "list_eval": list_eval}[mod], name,
+                twins))
+        stack.enter_context(contextlib.redirect_stderr(io.StringIO()))
+        sim.run_scan()
+    counts = read_counts()
+    peak_g = peak_above(live)
+    route, ovf_g = sim.last_scan_route, sim.last_scan_overflow
+    graph_ms, capture_ms = sim.last_scan_ms / P7D_STEPS, sim.last_capture_ms
+    replay, branches = sim.last_replay_launches, sim.last_branch_counts
+    fin_g = sim.state.positions
+    del sim
+    s = shard_state(state, mesh)
+    sync(dev)
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ovf = []
+    t0 = time.perf_counter()
+    for _ in range(P7D_STEPS):
+        s = step(s)
+        ovf.append(s.overflow)
+    sync(dev)
+    eager_ms = (time.perf_counter() - t0) * 1e3 / P7D_STEPS
+    peak_e = peak_above(live)
+    ovf_e = torch.stack(ovf).cpu().numpy()
+    got, want = digest(fin_g), digest(s.positions)
+    expect = p7_expected(mode, n)
+    print(f"  {tag}: route {route}; {P7D_STEPS} steps, final positions "
+          f"SHA-256 graph {got} / eager {want} -> "
+          f"{'equal' if got == want else 'DIFFER'}; overflow per step "
+          f"{ovf_g.tolist()} / {ovf_e.tolist()}; graph {graph_ms:.3f} "
+          f"ms/step, eager {eager_ms:.3f} ms/step "
+          f"({eager_ms / graph_ms:.2f}x), capture {capture_ms:.1f} ms; "
+          f"a replay launches {replay} outside branches, branches taken "
+          f"{branches}; the run's launches K1 {counts['k1']}, K2 "
+          f"{counts['k2']}, K3 {counts['k3']}, K4 {counts['k4']}, leaf "
+          f"sums {counts['leaf']} (twin calls {len(twins)}); peak device "
+          f"memory above the live tensors: graph {peak_g:.2f} GiB, eager "
+          f"{peak_e:.2f} GiB  [{card}]", flush=True)
+    if route != "graph":
+        fail(f"{tag}: the fused run took route {route!r}, not a graph")
+    if got != want or not np.array_equal(ovf_g, ovf_e):
+        fail(f"{tag}: the graph's run is not its eager steps'")
+    if not bool(torch.isfinite(fin_g).all()):
+        fail(f"{tag}: non-finite positions")
+    if twins:
+        fail(f"{tag}: {len(twins)} calls of the kernels' plain twins")
+    if expect and not sum(counts[k] for k in expect):
+        fail(f"{tag}: none of {expect} launched")
+    counts.update(graph_ms=graph_ms, eager_ms=eager_ms,
+                  capture_ms=capture_ms, peak_gib=peak_g,
+                  eager_peak_gib=peak_e, replay=replay, branches=branches)
+    return counts
 def p7_threads(mode: str, n: int, n_dev: int, steps: int, tol: float, dev,
                card: str) -> dict:
     """7b: ``mode`` on ``n_dev`` thread ranks of this process on the one
@@ -1594,75 +1715,250 @@ def p7_threads(mode: str, n: int, n_dev: int, steps: int, tol: float, dev,
     return counts
 
 
-def p7_cli(dev, card: str) -> None:
-    """7c: ``run --devices D`` through the CLI over NCCL, one card a rank
-    (D = min(cards, 4)), when the machine has two cards or more."""
+# 7c: ``run --devices D`` and ``run --devices D --fused`` per mode, from
+# one seed at N=65,536, 10 steps each, through the CLI's own entry
+# (``cli.main``).  The modes whose step sums no float across ranks must
+# end bit-equal; the others psum floats (the leaf rows, dp2d's partial
+# accelerations), which NCCL may add in another order in a graph: held
+# to P7_MODES' bound, and their bits reported
+P7C_N, P7C_STEPS = 65536, 10
+P7C_EXACT = ("dp_allpairs", "ring_allpairs", "dp_barnes_hut_grouped",
+             "dp_barnes_hut_grouped3")
+P7C_TIMEOUT = 180  # seconds a run of D ranks may take
+P7C_OUT = "NBODY_SMOKE_7C_OUT"  # where rank 0 saves its record
+
+
+def p7c_rank(rank: int, args, mode: str) -> None:
+    """``cli._run_rank`` as a 7c run's ranks run it: the CLI's rank, then
+    the same Simulation's contract loop again, no outputs, from the same
+    initial slab (the CLI's loop times its first step, which creates the
+    NCCL communicators; this second loop times the same 10 steps warm),
+    its steps' overflow counts kept (before any retry); rank 0 saves the gathered final
+    positions, both runs' overflow counts, the route and the world size
+    to ``$NBODY_SMOKE_7C_OUT``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from nbody_tpu_torch import cli
+    from nbody_tpu_torch.parallel.mesh import gather_state, shard_state
+
+    if cli._run_rank is p7c_rank:
+        fail("7c: a rank process found the CLI's rank replaced")
+    cli._run_rank(rank, args, mode)
+    sim = cli.last_simulation
+    final = gather_state(sim.state, sim.mesh).positions.cpu().numpy()
+    warm_ms, loop_ovf, again = 0.0, [], final
+    if not args.fused:
+        sim.config = sim.config.replace(save_positions=False,
+                                        save_tree_dumps=False)
+        sim.state = shard_state(cli._make_state(
+            args, sim.config, sim.state.positions.device), sim.mesh)
+        step = sim.step_fn
+
+        def counted(state):
+            new = step(state)
+            loop_ovf.append(new.overflow)
+            return new
+
+        sim.step_fn = counted
+        with contextlib.redirect_stderr(io.StringIO()):
+            _, timing = sim.run_contract()
+        warm_ms = timing.parallel_us / 1e3 / args.steps
+        again = gather_state(sim.state, sim.mesh).positions.cpu().numpy()
+    if rank == 0:
+        ovf = (sim.last_scan_overflow if args.fused
+               else np.asarray([int(o) for o in loop_ovf]))
+        np.savez(os.environ[P7C_OUT], positions=final,
+                 overflow=np.asarray(ovf), route=str(sim.last_scan_route),
+                 warm_ms=warm_ms, warm_same=np.array_equal(again, final),
+                 world=dist.get_world_size())
+
+
+def p7c_point(argv: list, out: str) -> int:
+    """``run --devices D`` through ``cli.main``, its ranks running
+    :func:`p7c_rank` (``mp.spawn`` sends a function by name, so each rank
+    imports this module and finds it), in a subprocess of its own
+    (:func:`p7c_run`)."""
+    from nbody_tpu_torch import cli
+
+    os.environ[P7C_OUT] = out
+    cli._run_rank = p7c_rank
+    return cli.main(argv)
+
+
+def p7c_run(argv: list, out_dir: str, tag: str) -> tuple:
+    """One 7c run in a subprocess of its own session, killed with every
+    rank it started after ``P7C_TIMEOUT`` s; returns (rank 0's record,
+    its stdout, its stderr, wall seconds)."""
+    import signal
+
+    import numpy as np
+
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "rank0.npz")
+    code = ("import json, sys, chip_smoke as cs; "
+            "sys.exit(cs.p7c_point(*json.loads(sys.argv[1])))")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps([argv, out])],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=P7C_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{tag}: no end within {P7C_TIMEOUT} s (every rank killed)")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(stdout[-2000:], stderr[-4000:])
+        fail(f"{tag}: run --devices {argv[argv.index('--devices') + 1]} "
+             f"exited {proc.returncode}")
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}, stdout, stderr, wall
+
+
+def p7c_check(stdout: str, n: int, out_dir: str, tag: str) -> float:
+    """The contract lines once, ``positions.txt`` once with every body of
+    every step; returns the run's ms/step (its parallel line)."""
+    totals = re.findall(r"GPU total computation took \d+ milliseconds",
+                        stdout)
+    if len(totals) != 1 or stdout.count("GPU parallel") != 1:
+        fail(f"{tag}: the contract lines were not printed once")
+    with open(os.path.join(out_dir, "positions.txt")) as f:
+        rows = sum(1 for _ in f)
+    if rows != (P7C_STEPS + 1) * n:
+        fail(f"{tag}: positions.txt has {rows} rows, not "
+             f"{(P7C_STEPS + 1) * n}")
+    return parallel_ms(stdout) / P7C_STEPS
+
+
+def p7c_mode(mode: str, n_dev: int, card: str) -> tuple:
+    """7c of one mode: ``run --devices n_dev --fused`` and then the loop
+    (with the 4x retry off where a fused step overflowed), from one seed;
+    returns (loop ms/step, the warm loop's, fused ms/step)."""
+    import numpy as np
+
+    dims, _, _, _, tol = P7_MODES[mode]
+    n = P7C_N
+    base = ["run", "--device", "cuda", "--devices", str(n_dev), "--mode",
+            mode, "--dims", str(dims), "--n-bodies", str(n), "--steps",
+            str(P7C_STEPS), "--engine", engine_of(mode), "--save-positions"]
+    tag = f"7c {mode} {dims}D N={n} D={n_dev}"
+    root = os.path.abspath(os.path.join(OUT_DIR, f"7c_{mode}"))
+    shutil.rmtree(root, ignore_errors=True)
+    d_f, d_e = os.path.join(root, "fused"), os.path.join(root, "loop")
+    fused, out_f, err_f, wall_f = p7c_run(
+        base + ["--fused", "--output-dir", d_f], d_f, f"{tag} --fused")
+    ms_f = p7c_check(out_f, n, d_f, f"{tag} --fused")
+    graph_line = [ln for ln in err_f.splitlines() if ln.startswith("fused:")]
+    loop_flags, held = [], "the loop"
+    if fused["overflow"].any():
+        loop_flags, held = ["--no-adaptive-caps"], (
+            "the loop with the 4x retry off")
+    loop, out_e, _, wall_e = p7c_run(
+        base + loop_flags + ["--output-dir", d_e], d_e, tag)
+    ms_e = p7c_check(out_e, n, d_e, tag)
+    warm = float(loop["warm_ms"])
+    world = int(fused["world"])
+    shutil.rmtree(root, ignore_errors=True)
+    got, want = fused["positions"], loop["positions"]
+    same = bool(np.array_equal(got, want))
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    print(f"  {tag}: {world} ranks over NCCL; --fused route "
+          f"{fused['route']}; final positions SHA-256 {digest_np(got)} / "
+          f"{held}'s {digest_np(want)} -> "
+          f"{'bit-equal' if same else f'differ, {err:.3e} x max|p|'}; "
+          f"fused {ms_f:.3f} ms/step, loop {ms_e:.3f} ms/step (its first "
+          f"step creates the communicators), the same loop again from the "
+          f"same state {warm:.3f} ms/step ({warm / ms_f:.2f}x the fused; "
+          f"its final bits the loop's: {bool(loop['warm_same'])}); "
+          f"overflowed bodies per step, fused "
+          f"{fused['overflow'].tolist()} / loop "
+          f"{loop['overflow'].tolist()} (a fused step truncates its lists "
+          f"there); positions.txt {(P7C_STEPS + 1) * n} rows each; wall "
+          f"{wall_f:.1f} / {wall_e:.1f} s  [{card}]", flush=True)
+    for ln in graph_line:
+        print(f"    rank 0: {ln}", flush=True)
+    if str(fused["route"]) != "graph" or not any(
+            f"on each of {world} ranks" in ln for ln in graph_line):
+        fail(f"{tag}: --fused did not print the graph line of {world} ranks "
+             "on rank 0")
+    if not np.isfinite(got).all():
+        fail(f"{tag}: non-finite positions")
+    if mode in P7C_EXACT and not same:
+        fail(f"{tag}: the fused run's final positions are not {held}'s "
+             "bits")
+    if not err <= tol:
+        fail(f"{tag}: fused and loop {err:.3e} x max|p| apart, beyond "
+             f"{tol:g}")
+    return ms_e, warm, ms_f
+
+
+def p7_cli(dev, card: str) -> dict:
+    """7c: ``run --devices D`` beside ``run --devices D --fused`` per
+    mode, one card a rank (D = min(cards, 4)), when the machine has two
+    cards or more; returns {mode: (loop ms/step, the warm loop's, fused
+    ms/step)}."""
     import torch
 
     count = torch.cuda.device_count() if dev.type == "cuda" else 0
     if count < 2:
         print(f"  7c: only {count} card visible: run --devices over NCCL "
               "needs two or more; not run here", flush=True)
-        return
-    n_dev = min(count, 4)
-    for mode, (dims, _, _, _, _) in P7_MODES.items():
-        n = 65536
-        out = os.path.abspath(os.path.join(OUT_DIR, f"7c_{mode}"))
-        shutil.rmtree(out, ignore_errors=True)
-        argv = [sys.executable, "-m", "nbody_tpu_torch", "run", "--device",
-                "cuda", "--devices", str(n_dev), "--mode", mode, "--dims",
-                str(dims), "--n-bodies", str(n), "--steps", "3",
-                "--engine", engine_of(mode),
-                "--save-positions", "--output-dir", out]
-        t0 = time.perf_counter()
-        proc = subprocess.run(argv, capture_output=True, text=True,
-                              timeout=600)
-        wall = time.perf_counter() - t0
-        totals = re.findall(r"GPU total computation took (\d+) ms",
-                            proc.stdout.replace("milliseconds", "ms"))
-        lines = (sum(1 for _ in open(os.path.join(out, "positions.txt")))
-                 if proc.returncode == 0 else 0)
-        print(f"  7c {mode} {dims}D N={n}: run --devices {n_dev} over NCCL "
-              f"exited {proc.returncode} in {wall:.1f} s, contract lines "
-              f"{len(totals)} + {proc.stdout.count('GPU parallel')}, "
-              f"positions.txt {lines} rows ({4 * n} expected)  [{card}]",
-              flush=True)
-        if proc.returncode != 0:
-            print(proc.stdout[-2000:], proc.stderr[-4000:])
-            fail(f"7c: {' '.join(argv)} exited {proc.returncode}")
-        if len(totals) != 1 or proc.stdout.count("GPU parallel") != 1:
-            fail(f"7c {mode}: the contract lines were not printed once")
-        if lines != 4 * n:
-            fail(f"7c {mode}: positions.txt has {lines} rows")
+        return {}
+    torch.cuda.empty_cache()  # the ranks share card 0 with this process
+    times, failed = {}, []
+    for mode in P7_MODES:
+        try:  # every mode runs and reports; the phase fails after
+            times[mode] = p7c_mode(mode, min(count, 4), card)
+        except SystemExit:
+            failed.append(mode)
+    if failed:
+        fail(f"7c: {failed} failed (above)")
+    return times
 
 
 def phase7(dev, card: str) -> dict:
-    """Phase 7; returns {(mode, D): counts} of the thread-rank runs."""
-    print("phase 7a: each sharded mode on a process group of one rank "
-          "(NCCL) against its single-device step, bit for bit (SHA-256)",
-          flush=True)
-    p7_one_rank(dev)
-    print("phase 7b: each sharded mode on D = 2 and 4 thread ranks of one "
-          "process on this card (collectives met in the process, psum in "
-          "rank order; the ranks share one stream, so ms/step is not a "
-          "scaling number) against its single-device step, within the JAX "
-          "package's bound (tests/test_parallel.py)", flush=True)
-    runs, failed = {}, []
-    cases = [(mode, n, n_dev, steps, tol)
-             for mode, (_, _, n, steps, tol) in P7_MODES.items()
-             for n_dev in (2, 4)]
-    mode, n, n_dev, steps = P7_WEAK
-    cases.append((mode, n, n_dev, steps, P7_MODES[mode][4]))
-    for mode, n, n_dev, steps, tol in cases:
-        key = (mode if n == P7_MODES[mode][2] else f"{mode}@{n}", n_dev)
-        try:  # every case runs and reports; the phase fails after
-            runs[key] = p7_threads(mode, n, n_dev, steps, tol, dev, card)
-        except SystemExit:
-            failed.append(key)
-    if failed:
-        fail(f"phase 7b: {failed} failed (above)")
-    print("phase 7c: run --devices D through the CLI over NCCL", flush=True)
-    p7_cli(dev, card)
+    """Phase 7; returns {(mode, D): counts} of the thread-rank runs and,
+    keyed (f"{mode} graph", 1), of 7d's graph runs."""
+    with one_rank_group(dev) as backend:
+        print(f"phase 7a: each sharded mode on a process group of one rank "
+              f"({backend}) against its single-device step, bit for bit "
+              "(SHA-256)", flush=True)
+        p7_one_rank(dev, backend)
+        print("phase 7b: each sharded mode on D = 2 and 4 thread ranks of "
+              "one process on this card (collectives met in the process, "
+              "psum in rank order; the ranks share one stream, so ms/step "
+              "is not a scaling number) against its single-device step, "
+              "within the JAX package's bound (tests/test_parallel.py)",
+              flush=True)
+        runs, failed = {}, []
+        cases = [(mode, n, n_dev, steps, tol)
+                 for mode, (_, _, n, steps, tol) in P7_MODES.items()
+                 for n_dev in (2, 4)]
+        mode, n, n_dev, steps = P7_WEAK
+        cases.append((mode, n, n_dev, steps, P7_MODES[mode][4]))
+        for mode, n, n_dev, steps, tol in cases:
+            key = (mode if n == P7_MODES[mode][2] else f"{mode}@{n}", n_dev)
+            try:  # every case runs and reports; the phase fails after
+                runs[key] = p7_threads(mode, n, n_dev, steps, tol, dev,
+                                       card)
+            except SystemExit:
+                failed.append(key)
+        if failed:
+            fail(f"phase 7b: {failed} failed (above)")
+        print("phase 7c: run --devices D beside run --devices D --fused "
+              "over NCCL, one card a rank", flush=True)
+        p7_cli(dev, card)
+        print(f"phase 7d: each sharded mode's fused run on the {backend} "
+              f"group of one rank (7a's): Simulation.run_scan with the "
+              f"sharded step as one CUDA graph, its collectives captured, "
+              f"{P7D_STEPS} replays against {P7D_STEPS} eager steps of the "
+              "same step, bit for bit", flush=True)
+        for mode in P7_MODES:
+            runs[(f"{mode} graph", 1)] = p7_graph(mode, dev, card)
     return runs
 
 
@@ -2921,9 +3217,11 @@ def main() -> int:
     k4["max_abs_err_2d"] = err["k4_2d"]
 
     def par_launches(counter, modes):
-        """This kernel's launches on phase 7's thread-rank runs."""
+        """This kernel's launches on phase 7's runs: 7b's thread ranks
+        ("<mode> D=2|4") and 7d's graphs on one rank ("<mode> graph
+        D=1", the warm-up step and 10 replays)."""
         return {f"{m} D={d}": c[counter] for (m, d), c in par.items()
-                if m.split("@")[0] in modes}
+                if m.split("@")[0].split()[0] in modes}
 
     ap_modes = ("dp_allpairs", "ring_allpairs", "dp2d_allpairs")
     bh2 = ("dp_barnes_hut_grouped", "dp_barnes_hut_sharded")

@@ -379,9 +379,10 @@ def _run_fused(args, config, sim):
     ``Simulation.run_scan``, the trajectory kept on the device and
     written once, per-step side effects that need a host sync warned
     about and dropped.  Both timing lines report the fused run's time,
-    synchronised; capture and warm-up stay outside it.  Prints to stderr
-    which route ran (a CUDA graph, with the replays that took each of its
-    conditional branches, or step by step for a multi-device run)."""
+    synchronised; capture and warm-up stay outside it.  On the card it
+    prints to stderr that the step ran as a CUDA graph (under
+    ``--devices`` each rank's, its collectives in it; rank 0's line),
+    with the replays that took each of its conditional branches."""
     from .utils.timing import RunTiming
 
     # per-step host side effects that cannot run inside one fused run:
@@ -413,14 +414,12 @@ def _run_fused(args, config, sim):
     if sim.last_scan_route == "graph":
         taken = "".join(f"; {name}: {k} of {config.n_steps} replays"
                         for name, k in sim.last_branch_counts.items())
-        print(f"fused: the step ran as a CUDA graph, captured in "
+        ranks = "" if sim.mesh is None else (
+            f" on each of {sim.mesh.size} ranks (rank 0's counts), its "
+            "collectives in it")
+        print(f"fused: the step ran as a CUDA graph{ranks}, captured in "
               f"{sim.last_capture_ms:.1f} ms and replayed "
               f"{config.n_steps} times{taken}", file=sys.stderr)
-    elif sim.state.device.type == "cuda":
-        # a multi-device run: the one route a graph does not take
-        print(f"fused: the step ran step by step on the card (no retry, "
-              f"per-step counts kept on the device): {sim.fused_gate()}",
-              file=sys.stderr)
     if traj is not None:
         if args.save_positions and sim.is_root:
             from .utils.textio import PositionsWriter

@@ -18,12 +18,12 @@
 * ``run_scan`` / ``run_scan_trajectory`` — the fused run, the
   counterpart of the JAX package's one ``lax.scan`` program: no per-step
   host crossing, no adaptive retry, per-step overflow counts kept on the
-  device and warned about after the run.  On the card every
-  single-device step runs as a CUDA graph (:class:`StepGraph`: captured
-  once, replayed every step); the step's data-dependent gates (3D
-  Barnes-Hut's segment packing and the dense collector's spill pass)
-  are conditional nodes in it, as they are ``lax.cond`` in the JAX
-  package.  Every CPU run goes step by step with the same semantics.
+  device and warned about after the run.  On the card every step runs
+  as a CUDA graph (:class:`StepGraph`: captured once, replayed every
+  step); the step's data-dependent gates (3D Barnes-Hut's segment
+  packing and the dense collector's spill pass) are conditional nodes in
+  it, as they are ``lax.cond`` in the JAX package.  Every CPU run goes
+  step by step with the same semantics.
 
 A multi-device run gives each rank a ``Simulation`` of its slab with the
 sharded step of ``parallel/steps.py`` (``step_fn``), its 4x-caps retry
@@ -31,8 +31,10 @@ builder (``step_fallback_fn``) and its ``mesh``: every rank steps its
 slab, the retry decision reads the global overflow count every rank
 holds, and rank 0 alone writes positions, dumps, metrics and
 checkpoints, from the state gathered over the mesh (a collective every
-rank joins).  Its fused run goes step by step (a CUDA graph across ranks
-is not ported).
+rank joins).  Its fused run is one CUDA graph a rank, its NCCL
+collectives captured in it, as the JAX package's ``run_scan`` is one
+``lax.scan`` of the shard_map step; only thread ranks (a test device:
+``parallel.thread_meshes``) go step by step.
 """
 
 from __future__ import annotations
@@ -61,9 +63,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-# why a fused multi-device run goes step by step
-MESH_GATE = ("a multi-device step runs step by step (a CUDA graph of its "
-             "collectives is not ported)")
+# why a fused run on thread ranks goes step by step
+THREAD_GATE = ("thread ranks run step by step: D threads share one stream "
+               "and meet at a Python barrier, which a CUDA graph cannot "
+               "hold (a test device only)")
 
 
 class Simulation:
@@ -217,9 +220,13 @@ class Simulation:
 
     def fused_gate(self) -> Optional[str]:
         """Why a fused run of this simulation on the card goes step by
-        step (a multi-device run), or None when it is one CUDA graph of
-        the step."""
-        return MESH_GATE if self.mesh is not None else None
+        step (thread ranks), or None when it is one CUDA graph of the
+        step: one device, or a rank of a process-group mesh, whose graph
+        holds the step's NCCL collectives."""
+        if self.mesh is None or all(
+                ax.capturable for ax in self.mesh.axes.values()):
+            return None
+        return THREAD_GATE
 
     def run_scan(self, n_steps: Optional[int] = None) -> SimState:
         """The whole run with no per-step host crossing (the JAX
@@ -230,11 +237,16 @@ class Simulation:
         --fused or raise the caps if it warns.
 
         On the card the step is captured as a CUDA graph and replayed
-        (capture and warm-up outside ``last_scan_ms``), but for a
-        multi-device run, which goes step by step; ``last_scan_route``
-        says which, and ``last_branch_counts`` how many replays took
-        each conditional branch of the graph.  A capture that fails
-        raises."""
+        (capture and warm-up outside ``last_scan_ms``), but on thread
+        ranks, which go step by step; ``last_scan_route`` says which, and
+        ``last_branch_counts`` how many replays took each conditional
+        branch of the graph.  A capture that fails raises, on the rank
+        where it failed: nothing falls back to the step-by-step route.
+
+        Under a mesh each rank replays its own graph, the step's
+        collectives in it; ``last_scan_ms`` ends at the rank's own sync,
+        and as every replay ends in collectives (the overflow count's
+        psum, if no other), rank 0's sync waits for its peers too."""
         n = n_steps if n_steps is not None else self.config.n_steps
         self.state, _, ovf = self._fused(n, trajectory=False)
         self._report_scan_overflow(ovf)

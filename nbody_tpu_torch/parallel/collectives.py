@@ -9,14 +9,21 @@ behind one interface:
 * :class:`ProcessAxis` — one process per rank over ``torch.distributed``
   (NCCL for CUDA tensors, gloo for CPU tensors): ``all_gather`` into a
   list, ``all_reduce`` with SUM / MIN / MAX, ``batch_isend_irecv`` for
-  ``ppermute``.
+  ``ppermute``.  On NCCL its collectives can be captured into a rank's
+  CUDA graph (the fused run's ``StepGraph``) once an eager step has made
+  every communicator they use: NCCL makes one lazily, at a group's first
+  collective (a sub-group's, a send/recv pair's), which a capture
+  cannot hold.  Captured collectives are not tracked by
+  ProcessGroupNCCL's watchdog: a rank that stops replaying leaves its
+  peers waiting until the launcher (``mesh.spawn``) ends them.
 * :class:`ThreadAxis` — D ranks in one process, each a Python thread, on
   one device: a collective meets at a barrier of its
   :class:`ThreadGroup` and combines the ranks' tensors on the device;
   ``psum`` adds in rank order, so its bits are fixed.  The counterpart of
   the JAX package's fake host mesh (its ``tests/conftest.py``): it runs D
   ranks through the real kernels on one card, where they share one
-  stream and run one after another.
+  stream and run one after another.  Its Python barrier cannot be
+  captured into a CUDA graph.
 
 :class:`RecordingAxis` wraps either and logs every collective as
 ``(op, payload bytes)``, the per-rank operand size
@@ -69,6 +76,8 @@ class ThreadAxis:
     on one device (and, on the card, on its one current stream), so a rank
     may read another's tensor once both have met."""
 
+    capturable = False  # its collectives meet at a Python barrier
+
     def __init__(self, group: ThreadGroup, rank: int):
         self.group = group
         self.rank = rank
@@ -105,6 +114,8 @@ class ProcessAxis:
     """This process's rank in a ``torch.distributed`` process group
     (``None``: the default, world group).  Every rank of the group must
     issue the same collectives in the same order."""
+
+    capturable = True  # on NCCL, into a CUDA graph (module docstring)
 
     def __init__(self, group=None):
         import torch.distributed as dist
@@ -176,6 +187,7 @@ class RecordingAxis:
         self.group = inner.group
         self.rank = inner.rank
         self.size = inner.size
+        self.capturable = inner.capturable
 
     def axis_index(self) -> int:
         return self.inner.axis_index()

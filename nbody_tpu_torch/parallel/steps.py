@@ -250,14 +250,16 @@ def _source_window(ax, codes: torch.Tensor, cols, leaf_cnt: torch.Tensor):
     leaf_cum = torch.cat([
         torch.zeros((1,), dtype=torch.int32, device=codes.device),
         torch.cumsum(leaf_cnt, 0, dtype=torch.int32)])
+    # t[i] with a 0-d index tensor reads i on the host (torch's indexing
+    # takes it as an int); torch.take reads it on the device
     c_min, c_max = wc[0], wc[-1]
-    complete_lo = (wc == c_min).sum() == leaf_cnt[c_min.long()]
-    complete_hi = (wc == c_max).sum() == leaf_cnt[c_max.long()]
+    complete_lo = (wc == c_min).sum() == torch.take(leaf_cnt, c_min.long())
+    complete_hi = (wc == c_max).sum() == torch.take(leaf_cnt, c_max.long())
     c_lo = torch.where(complete_lo, c_min, c_min + 1)
     c_hi = torch.where(complete_hi, c_max, c_max - 1)
     c_hi = torch.maximum(c_hi, c_lo - 1)  # may be empty
-    g0 = leaf_cum[c_lo.long()]
-    n_range = leaf_cum[(c_hi + 1).long()] - g0
+    g0 = torch.take(leaf_cum, c_lo.long())
+    n_range = torch.take(leaf_cum, (c_hi + 1).long()) - g0
     ok = ((wc >= c_lo) & (wc <= c_hi)).sum() == n_range
     # degraded mode on a failed count match (ownership drifted more than
     # a slab): an empty window, every close cell aggregates at max depth

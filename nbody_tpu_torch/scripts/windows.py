@@ -62,7 +62,7 @@ def _state(n, init, steps, theta, dims, device):
 
 
 def run(n, init="uniform", gs=2048, theta=0.5, dcm=None, steps=0, dims=3,
-        device="cpu"):
+        device="cuda"):
     device = torch.device(device)
     if dims == 3:
         from ..ops.bh3d import direct_cell_max_default

@@ -17,16 +17,19 @@ Bounds, each with its reason:
 
 The last test runs one step of each configuration that a fused run
 used to send step by step or not (the 14 of the former ``host_gate``)
-at a small N with its route forced, under a guard that makes every
-Python-level host read of a tensor raise, except the one read of a gate
-outside capture (``_graph._host_value``, inside ``device_if``) and the
-kernels' plain twins, which stand in on the CPU for launches that read
-nothing on the card.
+at a small N with its route forced, under a guard that makes every host
+read of a tensor raise (the Python-level ones, and those torch makes in
+C++: a 0-d or boolean tensor index, ``nonzero`` and its kin), except the
+one read of a gate outside capture (``_graph._host_value``, inside
+``device_if``) and the kernels' plain twins, which stand in on the CPU
+for launches that read nothing on the card.  tests/test_torch_parallel_fused.py
+holds the sharded steps to the same guard.
 """
 
 import contextlib
 import functools
 import sys
+import threading
 from pathlib import Path
 
 import jax
@@ -186,40 +189,89 @@ TWINS = ((tap, "allpairs_accelerations_vs"), (tle, "list_eval_runs"),
          (tle, "list_eval_runs_split"), (tle, "list_eval_pallas"),
          (tle, "list_eval_dynamic"))
 READS = ("item", "tolist", "__bool__", "__int__", "__float__", "__index__",
-         "nonzero")
+         "nonzero", "cpu", "numpy")
+# torch functions that read the host inside C++: the count of their
+# output's rows (torch.where of one argument is torch.nonzero)
+SIZED = ("nonzero", "masked_select", "unique", "argwhere")
+
+
+def _reads_in_index(index) -> bool:
+    """Whether indexing with ``index`` reads the host inside torch: a 0-d
+    integer or bool tensor (taken as a Python int or bool) or a boolean
+    mask (its true count sizes the result)."""
+    parts = index if isinstance(index, tuple) else (index,)
+    return any(isinstance(i, torch.Tensor) and (
+        i.dtype == torch.bool or (i.dim() == 0 and not i.is_floating_point()))
+        for i in parts)
 
 
 @contextlib.contextmanager
 def _no_host_reads():
-    """Make the Python-level host reads of a tensor raise, except inside
-    ``_graph._host_value`` and the kernels' wrappers; yields the reads
-    that were allowed, by where."""
-    allowed = [0]
+    """Make the host reads of a tensor raise, except inside
+    ``_graph._host_value`` and the kernels' wrappers: the Python-level
+    reads (``READS``), and those torch makes in C++ (``SIZED``, a
+    ``repeat_interleave`` without ``output_size``, ``torch.where`` of one
+    argument, indexing by a 0-d tensor or a boolean mask).  Counted per
+    thread, so that thread ranks are held each on its own; yields the
+    reads that were allowed, by where."""
+    local = threading.local()
+    lock = threading.Lock()
     seen = {"gate": 0}
+
+    def depth() -> int:
+        return getattr(local, "depth", 0)
+
+    def check(what: str) -> None:
+        if not depth():
+            raise AssertionError(f"host read: {what} in the step")
 
     def allow(fn, tag):
         def run(*a, **kw):
-            allowed[0] += 1
-            seen[tag] = seen.get(tag, 0) + 1
+            local.depth = depth() + 1
+            with lock:
+                seen[tag] = seen.get(tag, 0) + 1
             try:
                 return fn(*a, **kw)
             finally:
-                allowed[0] -= 1
+                local.depth -= 1
         return run
 
     def guard(name, orig):
         def read(self, *a, **kw):
-            if not allowed[0]:
-                raise AssertionError(f"host read: Tensor.{name} in the step")
+            check(f"Tensor.{name}")
             return orig(self, *a, **kw)
         return read
 
-    orig_nonzero = torch.nonzero
+    def sized(name, orig):
+        def read(*a, **kw):
+            check(f"torch.{name}")
+            return orig(*a, **kw)
+        return read
 
-    def nonzero(*a, **kw):
-        if not allowed[0]:
-            raise AssertionError("host read: torch.nonzero in the step")
-        return orig_nonzero(*a, **kw)
+    def repeat(orig):
+        def read(*a, **kw):
+            # tensor repeats (or none: the input is the repeats) size the
+            # result from their sum, unless output_size gives it
+            reps = a[1] if len(a) > 1 else kw.get("repeats")
+            if kw.get("output_size") is None and (
+                    reps is None or isinstance(reps, torch.Tensor)):
+                check("repeat_interleave without output_size")
+            return orig(*a, **kw)
+        return read
+
+    def where(orig):
+        def read(*a, **kw):
+            if len(a) + len(kw) == 1:
+                check("torch.where of one argument")
+            return orig(*a, **kw)
+        return read
+
+    def index(name, orig):
+        def read(self, idx, *a):
+            if _reads_in_index(idx):
+                check(f"Tensor.{name} with a 0-d or boolean tensor index")
+            return orig(self, idx, *a)
+        return read
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(_graph, "_host_value", allow(_graph._host_value, "gate"))
@@ -228,7 +280,18 @@ def _no_host_reads():
         for name in READS:
             mp.setattr(torch.Tensor, name,
                        guard(name, getattr(torch.Tensor, name)))
-        mp.setattr(torch, "nonzero", nonzero)
+        for name in SIZED:
+            mp.setattr(torch, name, sized(name, getattr(torch, name)))
+        for owner in (torch, torch.Tensor):
+            mp.setattr(owner, "repeat_interleave",
+                       repeat(owner.repeat_interleave))
+        for name in ("unique", "masked_select", "argwhere"):
+            mp.setattr(torch.Tensor, name,
+                       guard(name, getattr(torch.Tensor, name)))
+        mp.setattr(torch, "where", where(torch.where))
+        for name in ("__getitem__", "__setitem__"):
+            mp.setattr(torch.Tensor, name,
+                       index(name, getattr(torch.Tensor, name)))
         yield seen
 
 
