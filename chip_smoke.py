@@ -160,12 +160,17 @@ Phases, each printing what it found; the first failure exits non-zero:
    timed alone.
    ``python3 chip_smoke.py --only-phase-8`` runs phases 0, 1 and 8 alone;
 9. the tree builds' leaf sums (``ops/tree.leaf_sums``, csrc/tree_sums.cu)
-   against ``torch.segment_reduce``, bit for bit, on the inputs the tree
-   build hands them at 2D 40,960 uniform, 3D 1,048,576 uniform, 3D
-   262,144 blobs and 3D 1,048,576 after 10 contract-loop steps, and on
-   1,048,576 rows in one leaf; each timed beside the twin and the
-   library call, with its bound; and the evolved 1M step with the leaf
-   sums on segment_reduce and on the kernel, in turns
+   against the twin (``leaf_sums_plain``: the two-level order of
+   ``tree.LEAF_CHUNK``-row chunks), bit for bit, and against themselves,
+   on the inputs the tree build hands them at 2D 40,960 uniform, 3D
+   1,048,576 uniform, 3D 262,144 blobs and 3D 1,048,576 after 10
+   contract-loop steps, on 1,048,576 rows in one leaf, and on leaves of
+   C - 1, C, C + 1 and 2C + 1 rows in f32 and f64; on leaves of at most
+   C rows bit-equal to ``torch.segment_reduce``, on longer ones within
+   the two-level order's f32/f64 rounding bound of an f64 sum (the gap
+   to segment_reduce and both errors printed); each timed beside the
+   twin and the library call, with its bound; and the evolved 1M step
+   with the leaf sums on the twin and on the kernels, in turns
    (``--only-phase-9`` runs phases 0, 1 and 9).
 
 The summary gives each kernel its bound: the larger of the FP32 work
@@ -2301,12 +2306,91 @@ def leaf_bound(rows, lengths) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def leaf_check(tag: str, rows, lengths) -> tuple:
+    """Phase 9's checks of ``tree.leaf_sums`` on one input; returns the
+    largest gap to the twin and to ``torch.segment_reduce`` (the latter 0
+    where every leaf holds at most C rows).  Bit for bit: the kernels
+    against the twin and against themselves, and on leaves of at most C
+    rows against segment_reduce.
+    Longer leaves: the kernels and segment_reduce each against an f64
+    sum, the kernels within their order's rounding bound, (C + chunks) x
+    u x the sum of |rows| (u = 2^-24, f64 2^-53, plus the f64 sum's own
+    for f64 rows)."""
+    import torch
+
+    from nbody_tpu_torch.ops import tree
+
+    c = tree.LEAF_CHUNK
+    got = tree.leaf_sums(rows, lengths)
+    want = tree.leaf_sums_plain(rows, lengths)
+    again = tree.leaf_sums(rows, lengths)
+    lib = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
+                               unsafe=True)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not (torch.equal(got, want) and torch.equal(got, again)):
+        fail(f"9 {tag}: leaf_sums differs from its twin (max "
+             f"{float((got - want).abs().max()):.3e}) or from itself")
+    short = lengths <= c
+    if not torch.equal(got[short], lib[short]):
+        fail(f"9 {tag}: a leaf of at most {c} rows differs from "
+             "torch.segment_reduce")
+    if bool(short.all()):
+        return err, 0.0
+    long_ = ~short
+    exact = torch.segment_reduce(rows.double(), "sum", lengths=lengths,
+                                 axis=0, unsafe=True)[long_]
+    mags = torch.segment_reduce(rows.double().abs(), "sum", lengths=lengths,
+                                axis=0, unsafe=True)[long_]
+    n = lengths[long_].double()[:, None]
+    u = 2.0 ** (-53 if rows.dtype == torch.float64 else -24)
+    own = c + torch.ceil(n / c) + (n if rows.dtype == torch.float64 else 0)
+    bound = 1.01 * own * u * mags
+    k_err = (got[long_].double() - exact).abs()
+    l_err = (lib[long_].double() - exact).abs()
+    gap = (got[long_] - lib[long_]).abs()
+    rel = float((gap / lib[long_].abs().clamp_min(1e-30)).max())
+    print(f"    {int(long_.sum())} leaves past {c:,} rows: largest gap to "
+          f"segment_reduce {float(gap.max()):.3e} (relative {rel:.3e}; "
+          f"within rtol 1e-6: {'yes' if rel <= 1e-6 else 'no'}); against "
+          f"an f64 sum, the kernels' largest error {float(k_err.max()):.3e},"
+          f" segment_reduce's {float(l_err.max()):.3e}, the kernels' "
+          f"bound {float(bound.min()):.3e}-{float(bound.max()):.3e}",
+          flush=True)
+    if not bool((k_err <= bound).all()):
+        fail(f"9 {tag}: a leaf past {c} rows is off its f64 sum by more "
+             "than the two-level order's rounding bound")
+    return err, float(gap.max())
+
+
+def edge_inputs(dev) -> dict:
+    """Synthetic (rows, lengths) with leaves of C - 1, C, C + 1 and 2C + 1
+    rows (C = tree.LEAF_CHUNK) among light and medium ones, 8^6 leaves of
+    16 columns, in f32 and f64."""
+    import numpy as np
+    import torch
+
+    from nbody_tpu_torch.ops import tree
+
+    c = tree.LEAF_CHUNK
+    rng = np.random.default_rng(21)
+    lengths = rng.integers(0, 3, 8 ** 6)
+    at = rng.choice(8 ** 6, 12, replace=False)
+    lengths[at] = [c - 1, c, c + 1, 2 * c + 1, 33, 100, 255, 256, 257, 4000,
+                   c - 1, 2 * c + 1]
+    rows = rng.uniform(-0.1, 0.5, (int(lengths.sum()), 16))
+    lengths = torch.tensor(lengths, dtype=torch.int64, device=dev)
+    return {f"leaves of C-1, C, C+1, 2C+1 rows, {name}": (
+        torch.tensor(rows, dtype=dt, device=dev), lengths)
+        for name, dt in (("f32", torch.float32), ("f64", torch.float64))}
+
+
 def phase9(dev, card: str) -> dict:
-    """9: ``tree.leaf_sums`` (csrc/tree_sums.cu) against
-    ``torch.segment_reduce`` on five inputs, bit for bit, each timed
-    beside its twin and the library call; then the evolved 1M step with
-    the leaf sums on segment_reduce and on the kernel, in turns.  Returns
-    the evolved input's numbers for the summary."""
+    """9: ``tree.leaf_sums`` (csrc/tree_sums.cu) against its twin
+    (``leaf_sums_plain``, the two-level order) on seven inputs, bit for
+    bit (``leaf_check``), each timed beside the twin and the library
+    call; then the evolved 1M step with the leaf sums on the twin and on
+    the kernels, in turns.  Returns the inputs' numbers for the summary."""
     import torch
 
     from nbody_tpu_torch.config import SimConfig
@@ -2316,8 +2400,9 @@ def phase9(dev, card: str) -> dict:
     from nbody_tpu_torch.physics import integrate
     from nbody_tpu_torch.rng import random_state
 
-    print("phase 9: the leaf sums (csrc/tree_sums.cu) against "
-          "torch.segment_reduce, bit for bit", flush=True)
+    c = tree.LEAF_CHUNK
+    print(f"phase 9: the leaf sums (csrc/tree_sums.cu) against the twin "
+          f"(chunks of C = {c:,} rows), bit for bit", flush=True)
     n1m = 1 << 20
     cfg1m = SimConfig(n_bodies=n1m, n_dim=3, engine="barnes_hut", seed=7,
                       n_steps=10)
@@ -2341,30 +2426,32 @@ def phase9(dev, card: str) -> dict:
     lengths[12345] = n1m
     inputs["3D all 1,048,576 rows in one leaf"] = (rows.to(dev),
                                                   lengths.to(dev))
+    inputs.update(edge_inputs(dev))
     out = {}
     for tag, (rows, lengths) in inputs.items():
-        got = tree.leaf_sums(rows, lengths)
-        want = tree.leaf_sums_plain(rows, lengths)
-        again = tree.leaf_sums(rows, lengths)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, want) and torch.equal(got, again)):
-            fail(f"9 {tag}: leaf_sums differs from segment_reduce (max "
-                 f"{float((got - want).abs().max()):.3e}) or from itself")
+        print(f"  {tag}: rows {tuple(rows.shape)} {str(rows.dtype)[6:]}, "
+              f"{lengths.shape[0]:,} leaves, the longest "
+              f"{int(lengths.max()):,} rows; {int((lengths > 32).sum())} "
+              f"past the light warps' 32, {int((lengths > c).sum())} "
+              f"past C", flush=True)
+        err, gap = leaf_check(tag, rows, lengths)
         k_ms = cuda_ms(lambda: tree.leaf_sums(rows, lengths), reps=10)
         p_ms = cuda_ms(lambda: tree.leaf_sums_plain(rows, lengths), reps=3)
         lib_ms = cuda_ms(lambda: torch.segment_reduce(
             rows, "sum", lengths=lengths, axis=0, unsafe=True), reps=3)
         b_ms, b_by = leaf_bound(rows, lengths)
-        print(f"  {tag}: rows {tuple(rows.shape)}, {lengths.shape[0]:,} "
-              f"leaves, the longest {int(lengths.max()):,} rows, "
-              f"{int((lengths > 64).sum())} past the light path's 64; "
-              f"bit-equal to segment_reduce and to itself; kernel "
+        print(f"    bit-equal to the twin and to itself; kernels "
               f"{k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
               f"torch.segment_reduce {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by})  [{card}]", flush=True)
+        _, kern = device_profile(lambda: tree.leaf_sums(rows, lengths),
+                                 reps=10)
+        print("    profiler, device ms a call: " + ", ".join(
+            f"{name[:40]} {t:.4f}" for name, t in sorted(
+                kern.items(), key=lambda kv: -kv[1])), flush=True)
         out[tag] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                        bound_ms=b_ms, bound_by=b_by, max_abs_err=float(
-                            (got - want).abs().max()))
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                        library_gap=gap)
 
     accel = make_accel_fn(cfg1m, return_diagnostics=True)
 
@@ -2381,8 +2468,8 @@ def phase9(dev, card: str) -> dict:
             t.append(cuda_ms(step, reps=3))
     finally:
         tree.leaf_sums = tree3d.leaf_sums = leaf
-    print(f"  3D N=1,048,576 step on the evolved state: leaf sums on "
-          f"segment_reduce {t[0]:.2f} / {t[3]:.2f} ms, on the kernel "
+    print(f"  3D N=1,048,576 step on the evolved state: leaf sums on the "
+          f"twin {t[0]:.2f} / {t[3]:.2f} ms, on the kernels "
           f"{t[1]:.2f} / {t[2]:.2f} ms (CUDA events, 3 steps each, in "
           f"turns)  [{card}]", flush=True)
     return out
@@ -3278,6 +3365,8 @@ def main() -> int:
             padded_entry("k6_compensated", grid, "k6c", "compensated", "k6"),
             padded_entry("k7", dyn, "k7", "dynamic", "k7"),
         ]
+    from nbody_tpu_torch.ops.tree import LEAF_CHUNK
+
     evo = leaf9["3D N=1,048,576 after 10 contract-loop steps"]
     summary["kernels"].append({
         "name": "leaf_sums", "route": "cuda",
@@ -3292,7 +3381,11 @@ def main() -> int:
         "library_ms": evo["library_ms"],
         "n_bodies": 1 << 20, "state": "after 10 contract-loop steps",
         "inputs_ms": {k: v["ms"] for k, v in leaf9.items()},
-        "inputs_library_ms": {k: v["library_ms"] for k, v in leaf9.items()}})
+        "inputs_library_ms": {k: v["library_ms"] for k, v in leaf9.items()},
+        "inputs_bound_ms": {k: v["bound_ms"] for k, v in leaf9.items()},
+        "inputs_library_gap": {
+            k: v["library_gap"] for k, v in leaf9.items()},
+        "order": f"two-level, chunks of {LEAF_CHUNK} rows"})
     print(f"card: {card}")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -134,7 +134,8 @@ class _Library:
             ("nbody_graph_if_begin", [p, p, p, i], i),
             ("nbody_graph_if_end", [p], i),
             ("nbody_graph_stream_create", [ctypes.POINTER(p)], i),
-            ("nbody_leaf_sums", [p, p, p, p, ctypes.c_longlong, i, i, p], i),
+            ("nbody_leaf_sums",
+             [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, i, i, p], i),
             ("nbody_cuda_error_string", [i], ctypes.c_char_p),
         ):
             fn = next(getattr(d, name) for d in self._dlls
@@ -194,7 +195,7 @@ LAUNCH_COUNTERS = (
     ("allpairs", "POTENTIAL_LAUNCHES"),  # K5
     ("list_eval", "GRID_LAUNCHES"),  # K6
     ("list_eval", "DYNAMIC_LAUNCHES"),  # K7
-    ("tree", "LEAF_SUM_LAUNCHES"),  # the tree builds' leaf sums
+    ("tree", "LEAF_SUM_LAUNCHES"),  # the tree builds' leaf sums (a call)
 )
 
 

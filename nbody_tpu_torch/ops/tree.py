@@ -12,10 +12,11 @@ Where the port must not drift from the reference's bits:
 * Morton codes come from repeated f32 midpoint halving with ``>=`` to the
   high side — no other formula;
 * leaf rows are sums over contiguous segments of the Morton-sorted
-  bodies, in body order (:func:`leaf_sums`: the hand kernel
-  ``csrc/tree_sums.cu`` on the card, ``torch.segment_reduce`` on the
-  CPU), not atomics, so they are deterministic and a singleton cell's
-  position sums are the body's own bits;
+  bodies in a fixed order (:func:`leaf_sums`: body order within chunks of
+  ``LEAF_CHUNK`` rows, then the chunks in order; the hand kernels
+  ``csrc/tree_sums.cu`` on the card, two ``torch.segment_reduce`` calls
+  on the CPU), not atomics, so they are deterministic and a singleton
+  cell's position sums are the body's own bits;
 * the pyramid sums the four children with plain adds, never a matmul
   (a TF32 matmul would truncate the singleton sums and let a body pull
   on itself).
@@ -30,7 +31,12 @@ import torch
 
 from ..config import MAX_DEPTH_DEFAULT, ROOT_PAD_FRACTION
 
-LEAF_SUM_LAUNCHES = 0  # leaf_sums_kernel (csrc/tree_sums.cu)
+LEAF_SUM_LAUNCHES = 0  # the leaf-sums kernels (csrc/tree_sums.cu), a call
+# Rows of a chunk in the leaf sums' order (csrc/tree_sums.cu's kChunk): a
+# leaf of at most this many rows is one serial sum in row order (as
+# torch.segment_reduce adds); a longer one sums its chunks' serial sums in
+# chunk order.  A port-only order: the JAX package's segment_sum fixes none.
+LEAF_CHUNK = 16384
 
 
 class TreeLevel(NamedTuple):
@@ -106,24 +112,47 @@ def leaf_counts(codes: torch.Tensor, n_leaf: int) -> torch.Tensor:
 
 def leaf_sums_plain(rows: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
-    """The leaf sums' plain twin: ``torch.segment_reduce``, one serial
-    sum from 0 in row order for each (leaf, column)."""
-    # the lengths sum to N by construction: unsafe=True skips the check
-    # that would read them on the host
-    return torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
-                                unsafe=True)
+    """The leaf sums' plain twin, in their two-level order: a leaf of at
+    most ``LEAF_CHUNK`` rows is one serial sum from 0 in row order; a
+    longer one is cut into chunks of ``LEAF_CHUNK`` rows from its first
+    row, each a serial sum from 0 in row order, and the leaf is their
+    partials summed serially from 0 in chunk order.  Two
+    ``torch.segment_reduce`` calls over fixed shapes: at most
+    ``n_leaf + N // LEAF_CHUNK`` chunks, the unused ones of length 0, so
+    nothing is read on the host."""
+    c = LEAF_CHUNK
+    n, n_leaf = rows.shape[0], lengths.shape[0]
+    if n_leaf == 0:
+        return rows.new_zeros((0,) + tuple(rows.shape[1:]))
+    k_max = n_leaf + n // c
+    per_leaf = (lengths + (c - 1)) // c  # chunks a leaf
+    last = torch.cumsum(per_leaf, 0)  # one past each leaf's last chunk
+    j = torch.arange(k_max, device=rows.device)
+    leaf = torch.searchsorted(last, j, right=True)  # n_leaf: unused chunk
+    own = leaf.clamp(max=n_leaf - 1)
+    local = j - (last - per_leaf)[own]  # the chunk's index in its leaf
+    chunk_rows = torch.where(leaf < n_leaf,
+                             (lengths[own] - local * c).clamp(0, c), 0)
+    # the lengths sum to N and the chunks' rows to the lengths by
+    # construction: unsafe=True skips the checks that read them on the host
+    partials = torch.segment_reduce(rows, "sum", lengths=chunk_rows, axis=0,
+                                    unsafe=True)
+    chunks = torch.cat([per_leaf, k_max - last[-1:]])  # + the unused ones
+    return torch.segment_reduce(partials, "sum", lengths=chunks, axis=0,
+                                unsafe=True)[:n_leaf]
 
 
 def leaf_sums(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Per-leaf column sums [n_leaf, W] of the Morton-sorted rows [N, W]
     (W = 8 in 2D, 16 in 3D), leaf i summing the next ``lengths[i]``
-    rows (int64 [n_leaf], summing to N) in row order from 0: an empty
-    leaf is 0, a singleton leaf keeps its row's bits.
+    rows (int64 [n_leaf], summing to N) in :func:`leaf_sums_plain`'s
+    order: an empty leaf is 0, a singleton leaf keeps its row's bits.
 
-    On CUDA: ``leaf_sums_kernel`` (f32 or f64, W dividing 256 and at
-    most 32; the offsets are a device prefix sum, so nothing is read on
-    the host and a CUDA graph can hold it), bit-equal to the twin.  On
-    the CPU: the plain twin."""
+    On CUDA: the kernels of ``csrc/tree_sums.cu`` (f32 or f64, W dividing
+    256 and at most 32; rows narrower than 16 bytes are padded with zero
+    columns; the offsets are a device prefix sum and every grid follows
+    from the shapes, so nothing is read on the host and a CUDA graph can
+    hold it), bit-equal to the twin.  On the CPU: the plain twin."""
     if not rows.is_cuda:
         return leaf_sums_plain(rows, lengths)
     global LEAF_SUM_LAUNCHES
@@ -134,26 +163,38 @@ def leaf_sums(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     n_leaf = lengths.shape[0]
     if rows.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"rows are {rows.dtype}; the kernel takes f32/f64")
+    if not 1 <= w <= 32 or 256 % w:
+        raise ValueError(f"rows have {w} columns; the kernel takes a "
+                         "divisor of 256 up to 32")
     _cuda.require(rows, "rows", rows.dtype, (n, w), dev)
     _cuda.require(lengths, "lengths", torch.int64, (n_leaf,), dev)
+    width = max(w, 16 // rows.element_size())
+    if width != w:
+        rows = torch.nn.functional.pad(rows, (0, width - w))
+    elif rows.data_ptr() % 16:  # the kernels load 16-byte vectors
+        rows = rows.clone()
     ends = torch.cumsum(lengths, 0)
-    out = torch.empty((n_leaf, w), dtype=rows.dtype, device=dev)
+    # the sums, then the chunk partials of the leaves longer than
+    # LEAF_CHUNK (slots below 2 * (N // LEAF_CHUNK)): one allocation
+    both = torch.empty((n_leaf + max(1, 2 * (n // LEAF_CHUNK)), width),
+                       dtype=rows.dtype, device=dev)
+    base = both.data_ptr()
     with torch.cuda.device(dev):
         code = _cuda.library().nbody_leaf_sums(
-            rows.data_ptr(), lengths.data_ptr(), ends.data_ptr(),
-            out.data_ptr(), n_leaf, w, int(rows.dtype == torch.float64),
-            _cuda.stream_of(out))
+            rows.data_ptr(), ends.data_ptr(), base,
+            base + n_leaf * width * rows.element_size(), n, n_leaf, width,
+            int(rows.dtype == torch.float64), _cuda.stream_of(both))
     _cuda.check(code, "leaf_sums")
     with _cuda.counter_lock:
         LEAF_SUM_LAUNCHES += 1
-    return out
+    return both[:n_leaf] if width == w else both[:n_leaf, :w].contiguous()
 
 
 def leaf_raw(positions: torch.Tensor, masses: torch.Tensor,
              codes: torch.Tensor, max_depth: int) -> torch.Tensor:
     """Packed per-leaf rows [4^max_depth, 8] (cols per RAW_*): sums over
     each leaf's contiguous segment of the stably Morton-sorted bodies,
-    taken in body order."""
+    in :func:`leaf_sums`' order."""
     n_leaf = 4 ** max_depth
     x, y = positions[:, 0], positions[:, 1]
     zero = torch.zeros_like(masses)

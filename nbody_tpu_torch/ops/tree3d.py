@@ -13,7 +13,8 @@ as the quadtree, ``ops/tree.py``):
 * Morton codes come from repeated f32 midpoint halving with ``>=`` to the
   high side, the x bit lowest of each 3-bit group;
 * leaf rows are sums over contiguous segments of the stably Morton-sorted
-  bodies, in body order (``tree.leaf_sums``), not atomics, so a
+  bodies in ``tree.leaf_sums``' fixed order (body order within chunks of
+  ``tree.LEAF_CHUNK`` rows, then the chunks in order), not atomics, so a
   singleton cell's position sums are the body's own bits;
 * the pyramid sums the eight children with plain adds, never a matmul
   (the JAX package's HIGHEST-precision reduction matmul would be a TF32
@@ -102,8 +103,8 @@ def morton_codes_3d(positions: torch.Tensor, bounds: torch.Tensor,
 def leaf_raw_3d(positions: torch.Tensor, masses: torch.Tensor,
                 codes: torch.Tensor, max_depth: int) -> torch.Tensor:
     """Packed per-leaf rows [8^max_depth, 16]: sums over each leaf's
-    contiguous segment of the stably Morton-sorted bodies, taken in body
-    order."""
+    contiguous segment of the stably Morton-sorted bodies, in
+    ``leaf_sums``' order."""
     n_leaf = 8 ** max_depth
     x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
     packed = torch.zeros((masses.shape[0], _W), dtype=masses.dtype,

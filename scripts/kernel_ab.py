@@ -13,8 +13,18 @@ shape (unsoftened; compensated too in 2D) and the all-pairs step at both
 tables of the 2D N=40,960 default force pass and K2 / K3 on those of the
 3D N=131,072 pass (the run-length gate forced each way), with the 2D
 40,960 and 3D 131,072 default steps (mean of 5); K4 on the tables of the
-3D N=1,048,576 default force pass and that step (mean of 2).  Kernels:
-CUDA events, mean of 10 (K4: 5) launches after a warm-up.  Each kernel's
+3D N=1,048,576 default force pass and that step (mean of 2); the tree
+builds' leaf sums (``ops/tree.leaf_sums``) on the five inputs of
+``chip_smoke.py`` phase 9 (2D 40,960 and 3D 1,048,576 uniform, 3D
+262,144 blobs, 3D 1,048,576 after 10 contract-loop steps, 1,048,576 rows
+in one leaf; CUDA events, and the device time of the kernels a call by
+torch.profiler), the step on that evolved state (mean of 3) and the fused
+3D runs of phase 6c (``Simulation.run_scan``, 10 steps, seed 7:
+131,072, 229,376, 262,144 uniform and blobs, 1,048,576; ms/step).  The
+evolved state is taken by the first tree and saved in
+``build/kernel_ab_evolved.pt`` beside this script's checkout, which the
+other trees load, so every tree sums the same rows.  Kernels: CUDA
+events, mean of 10 (K4: 5) launches after a warm-up.  Each kernel's
 inputs and output get a SHA-256 digest of their bytes, so two trees'
 kernels can be held bit for bit.  One JSON line per tree, after the
 card's ``nvidia-smi`` name and power limit.
@@ -22,7 +32,10 @@ card's ``nvidia-smi`` name and power limit.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -152,7 +165,108 @@ def _child() -> None:
 
     out["step1m_ms"] = step_ms(
         SimConfig(n_bodies=n1m, n_dim=3, engine="barnes_hut"), st, reps=2)
+
+    _leaf_sums(out, dev, cuda_ms, step_ms)
     print(json.dumps(out), flush=True)
+
+
+def _device_ms(fn, reps: int) -> float:
+    """The device time of ``fn``'s kernels a call (torch.profiler, after a
+    warm-up): what a CUDA graph replay of it costs, the host's launch
+    work left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
+def _leaf_sums(out: dict, dev, cuda_ms, step_ms) -> None:
+    """The leaf sums on phase 9's five inputs, the evolved 1M step and
+    phase 6c's fused 3D runs, into ``out``."""
+    import torch
+
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.ops import tree, tree3d
+    from nbody_tpu_torch.rng import random_state
+    from nbody_tpu_torch.state import SimState
+
+    def inputs_of(p, m, dims, depth):
+        """The (rows, lengths) a tree build hands the leaf sums."""
+        seen, mod = [], tree if dims == 2 else tree3d
+        orig = mod.leaf_sums
+
+        def spy(rows, lengths):
+            seen.append((rows, lengths))
+            return orig(rows, lengths)
+
+        mod.leaf_sums = spy
+        try:
+            if dims == 2:
+                tree.build_quadtree(p, m, max_depth=depth)
+            else:
+                tree3d.build_octree(p, m, max_depth=depth)
+        finally:
+            mod.leaf_sums = orig
+        return seen[0]
+
+    n1m = 1 << 20
+    cfg1m = SimConfig(n_bodies=n1m, n_dim=3, engine="barnes_hut", seed=7,
+                      n_steps=10)
+    path = os.environ["AB_STATE"]
+    if os.path.exists(path):
+        evolved = SimState(**{k: v.to(dev)
+                              for k, v in torch.load(path).items()})
+    else:
+        sim = Simulation(cfg1m, device=dev)
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            sim.run_contract()
+        evolved = sim.state
+        torch.save({f.name: getattr(evolved, f.name).cpu()
+                    for f in dataclasses.fields(evolved)}, path)
+    inputs = {}
+    for key, cfg in (("2d_40960", SimConfig(n_bodies=40960)),
+                     ("3d_1m", cfg1m),
+                     ("3d_262144_blobs", SimConfig(
+                         n_bodies=262144, n_dim=3, init_mode="blobs"))):
+        st = random_state(cfg, device=dev)
+        inputs[key] = inputs_of(st.positions, st.masses, cfg.n_dim,
+                                cfg.resolved_max_depth)
+    inputs["3d_1m_evolved"] = inputs_of(evolved.positions, evolved.masses,
+                                        3, cfg1m.resolved_max_depth)
+    rows = torch.rand((n1m, 16), generator=torch.Generator().manual_seed(9))
+    lengths = torch.zeros(8 ** 7, dtype=torch.int64)
+    lengths[12345] = n1m
+    inputs["3d_one_leaf"] = (rows.to(dev), lengths.to(dev))
+    for key, (rows, lengths) in inputs.items():
+        out[f"leaf_{key}_ms"] = cuda_ms(
+            lambda: tree.leaf_sums(rows, lengths), reps=10)
+        out[f"leaf_{key}_device_ms"] = _device_ms(
+            lambda: tree.leaf_sums(rows, lengths), reps=10)
+        out[f"leaf_{key}_in"] = _digest(rows, lengths)
+        out[f"leaf_{key}_out"] = _digest(tree.leaf_sums(rows, lengths))
+    out["step1m_evolved_ms"] = step_ms(cfg1m, evolved, reps=3)
+
+    for n, extra in ((131072, {}), (229376, {}), (262144, {}),
+                     (262144, {"init_mode": "blobs"}), (n1m, {})):
+        sim = Simulation(SimConfig(n_bodies=n, n_dim=3, engine="barnes_hut",
+                                   seed=7, n_steps=10, **extra), device=dev)
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            final = sim.run_scan()
+        key = f"fused3d_{n}{'_blobs' if extra else ''}"
+        out[f"{key}_ms"] = sim.last_scan_ms / 10
+        out[f"{key}_route"] = sim.last_scan_route
+        out[f"{key}_out"] = _digest(final.positions)
 
 
 def main(trees) -> int:
@@ -160,9 +274,15 @@ def main(trees) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
+    state = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "build", "kernel_ab_evolved.pt")
+    os.makedirs(os.path.dirname(state), exist_ok=True)
+    if os.path.exists(state):
+        os.remove(state)
     for tree in trees:
         path = os.path.abspath(tree)
-        env = dict(os.environ, AB_TREE=tree, PYTHONPATH=os.pathsep.join(
+        env = dict(os.environ, AB_TREE=tree, AB_STATE=state,
+                   PYTHONPATH=os.pathsep.join(
             [path] + [p for p in os.environ.get("PYTHONPATH", "").split(
                 os.pathsep) if p]))
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),

@@ -1050,3 +1050,72 @@ def test_leaf_sums_bit_equal_to_twin_and_deterministic(cuda, case):
     assert torch.equal(got, again)
     assert torch.equal(got.cpu(), tree.leaf_sums_plain(rows.cpu(),
                                                        lengths.cpu()))
+
+
+@pytest.mark.parametrize("case", ["around-c", "around-c-f64", "around-c-2d",
+                                  "heavy-f64", "narrow"])
+def test_leaf_sums_bit_equal_to_twin_around_the_chunk(cuda, case):
+    """Leaves of C - 1, C, C + 1 and 2C + 1 rows (C = tree.LEAF_CHUNK)
+    among light and medium ones, heavy leaves in f64, and rows narrower
+    than 16 bytes (padded by the wrapper): the kernels give the two-level
+    twin's bits, the same at every launch, and the CPU twin's."""
+    from nbody_tpu_torch.ops import tree
+
+    c = tree.LEAF_CHUNK
+    rng = np.random.default_rng(11)
+    w = {"around-c-2d": 8, "narrow": 2}.get(case, 16)
+    if case == "heavy-f64":
+        n_leaf, n = 8 ** 6, 200000
+        codes = np.where(rng.random(n) < 0.8, rng.integers(0, 5, n) * 999,
+                         rng.integers(0, n_leaf, n))
+        lengths = np.bincount(codes, minlength=n_leaf)
+        assert lengths.max() > c
+    else:
+        lengths = np.concatenate([
+            rng.integers(0, 3, 1000),
+            [c - 1, 0, c, 33, c + 1, 1, 2 * c + 1, 32, 31, 200],
+            rng.integers(0, 40, 1000)])
+    dtype = torch.float64 if "f64" in case else torch.float32
+    rows = torch.tensor(rng.uniform(-0.1, 0.5, (int(lengths.sum()), w)),
+                        dtype=dtype, device=cuda)
+    lengths = torch.tensor(lengths, dtype=torch.int64, device=cuda)
+    before = tree.LEAF_SUM_LAUNCHES
+    got = tree.leaf_sums(rows, lengths)
+    again = tree.leaf_sums(rows, lengths)
+    assert tree.LEAF_SUM_LAUNCHES == before + 2
+    want = tree.leaf_sums_plain(rows, lengths)
+    torch.cuda.synchronize()
+    assert got.shape == (lengths.shape[0], w)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), tree.leaf_sums_plain(rows.cpu(),
+                                                       lengths.cpu()))
+
+
+def test_leaf_sums_graph_replay_equals_eager(cuda):
+    """The wrapper captured in a CUDA graph (``_graph.capture``): a replay
+    on new rows gives the eager call's bits on them."""
+    from nbody_tpu_torch.ops import _graph, tree
+
+    c = tree.LEAF_CHUNK
+    rng = np.random.default_rng(12)
+    lengths = np.concatenate([rng.integers(0, 3, 8 ** 5 - 3),
+                              [3 * c + 5, c + 1, 40]])
+    lengths = torch.tensor(rng.permutation(lengths), dtype=torch.int64,
+                           device=cuda)
+    n = int(lengths.sum())
+    rows = torch.tensor(rng.uniform(-0.1, 0.5, (n, 16)),
+                        dtype=torch.float32, device=cuda)
+    tree.leaf_sums(rows, lengths)  # warm: builds and sizes the grids
+    graph, box = torch.cuda.CUDAGraph(), {}
+    _graph.capture(graph, lambda: box.setdefault(
+        "out", tree.leaf_sums(rows, lengths)), cuda)
+    rows.copy_(torch.tensor(rng.uniform(-0.1, 0.5, (n, 16)),
+                            dtype=torch.float32, device=cuda))
+    before = tree.LEAF_SUM_LAUNCHES
+    graph.replay()
+    assert tree.LEAF_SUM_LAUNCHES == before  # a replay runs no wrapper
+    want = tree.leaf_sums(rows, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(box["out"], want)
+    assert torch.equal(want, tree.leaf_sums_plain(rows, lengths))

@@ -1,9 +1,16 @@
 """The tree builds' leaf sums (nbody_tpu_torch.ops.tree.leaf_sums) on the
-CPU, where the wrapper takes its plain twin (``torch.segment_reduce``);
-the kernel (csrc/tree_sums.cu) is held to the twin on the card
+CPU, where the wrapper takes its plain twin (two ``torch.segment_reduce``
+calls in the two-level order of ``tree.LEAF_CHUNK``-row chunks); the
+kernels (csrc/tree_sums.cu) are held to the twin on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 9).
 
 Bounds, each with its reason:
+
+* against an explicit numpy loop in the two-level order (serial sums from
+  0 of each chunk, then of the chunk partials): bit for bit, the order is
+  the twin's definition;
+* against ``torch.segment_reduce`` on leaves of at most ``LEAF_CHUNK``
+  rows: bit for bit (one chunk a leaf is one serial sum);
 
 * against the JAX package's ``jax.ops.segment_sum`` (the unsorted
   bodies scattered by leaf code, nbody_tpu/ops/tree.py:154 and
@@ -93,3 +100,53 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
     tree = tt3.build_octree(p, torch.ones(2048), max_depth=4)
     assert int(tree.raw[0][0, tt3.R3_CNT]) == 2048
     assert tt.LEAF_SUM_LAUNCHES == before
+
+
+C = tt.LEAF_CHUNK
+
+
+def _two_level(rows, lengths):
+    """The order written out: each chunk of C rows a serial sum from 0
+    (``np.add.accumulate`` adds in sequence), then the partials of a leaf
+    serially from 0 in chunk order."""
+    out = np.zeros((len(lengths), rows.shape[1]), rows.dtype)
+    start = 0
+    for leaf, n in enumerate(lengths):
+        zero = np.zeros((1, rows.shape[1]), rows.dtype)
+        end = start + n
+        parts = [np.add.accumulate(np.concatenate(
+            [zero, rows[c:min(c + C, end)]]))[-1] for c in range(start, end, C)]
+        out[leaf] = np.add.accumulate(np.concatenate([zero] + [
+            p[None] for p in parts]))[-1]
+        start = end
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("w", [8, 16])
+def test_twin_is_the_two_level_order(w, dtype):
+    lengths = np.array([1, C - 1, 0, C, C + 1, 2 * C, 3 * C + 5, 0, 7],
+                       np.int64)
+    rows = np.random.default_rng(w).uniform(
+        -0.1, 0.5, (int(lengths.sum()), w)).astype(dtype)
+    got = tt.leaf_sums_plain(torch.tensor(rows), torch.tensor(lengths))
+    want = _two_level(rows, lengths)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.tensor(rows).dtype
+    # the order is not segment_reduce's past C rows (else nothing changed)
+    serial = torch.segment_reduce(torch.tensor(rows), "sum",
+                                  lengths=torch.tensor(lengths), axis=0)
+    assert not torch.equal(got[lengths > C], serial[lengths > C])
+
+
+@pytest.mark.parametrize("w", [8, 16])
+def test_twin_is_segment_reduce_on_leaves_of_at_most_c_rows(w):
+    rng = np.random.default_rng(3 + w)
+    lengths = np.concatenate([[C, C - 1, 0, 1], rng.integers(0, 300, 400),
+                              [C]]).astype(np.int64)
+    rows = torch.tensor(_rows(int(lengths.sum()), w, seed=w))
+    lengths = torch.tensor(lengths)
+    assert torch.equal(
+        tt.leaf_sums_plain(rows, lengths),
+        torch.segment_reduce(rows, "sum", lengths=lengths, axis=0))
