@@ -1,0 +1,3 @@
+"""Capture of the fused run's CUDA graph, ms a run (mesh cells)."""
+
+from benchmark.readers import capture_ms as read  # noqa: F401
