@@ -8,8 +8,10 @@ with no per-step host crossing (on the card a CUDA graph of the step;
 ``models/simulation.py``).  ``run --devices D`` runs a sharded step
 (``--mode``, ``parallel/steps.py``) in D processes over
 ``torch.distributed``: NCCL with rank r on card r for ``--device cuda``,
-gloo for ``--device cpu``; rank 0 prints and writes the outputs.  The
-printed timing lines are the reference's stdout contract
+gloo for ``--device cpu``; rank 0 prints and writes the outputs.  ``run
+--profile DIR`` writes a ``torch.profiler`` trace of the run, the
+program's spans in it, to DIR (``utils/profiling.py``; each rank its own
+file).  The printed timing lines are the reference's stdout contract
 (project.cu:1097/1102, parsed by plot_first_scale.py:58-59).
 """
 
@@ -249,10 +251,16 @@ def cmd_run(args) -> int:
 
 
 def _run_and_report(args, config, sim) -> None:
-    if args.fused:
-        timing = _run_fused(args, config, sim)
-    else:
-        _, timing = sim.run_contract()
+    import contextlib
+
+    from .utils import profiling
+
+    with (profiling.trace(args.profile) if args.profile
+          else contextlib.nullcontext()):
+        if args.fused:
+            timing = _run_fused(args, config, sim)
+        else:
+            _, timing = sim.run_contract()
     global last_simulation
     last_simulation = sim
     print()
@@ -571,6 +579,11 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     p_run = sub.add_parser("run", help="run one simulation")
     _add_common(p_run)
+    p_run.add_argument(
+        "--profile", metavar="DIR", default=None,
+        help="write a torch.profiler trace of the run (host operators, the "
+             "card's kernels, the program's nbody.* spans) to DIR, for "
+             "TensorBoard or Perfetto")
     p_run.set_defaults(fn=cmd_run)
 
     p_compare = sub.add_parser(

@@ -48,11 +48,13 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
+from ..ops import _graph
 from ..physics import integrate
 from ..rng import random_state
 from ..state import SimState
 from ..utils.checkpoint import save_checkpoint
 from ..utils.metrics import MetricsWriter, tree_stats, tree_stats_3d
+from ..utils.profiling import span
 from ..utils.textio import PositionsWriter
 from ..utils.timing import RunTiming, Stopwatch
 from .engines import make_accel_fn, resolved_caps
@@ -98,6 +100,10 @@ class Simulation:
         self.last_replay_launches = {}
         self.last_capture_ms = 0.0
         self.last_scan_ms = 0.0
+        # the last run's steps retried at 4x caps (the contract loop), and
+        # its steps that ended with caps overflowed
+        self.last_retried_steps = 0
+        self.last_overflowed_steps = 0
 
     @staticmethod
     def _make_step(config: SimConfig):
@@ -111,7 +117,15 @@ class Simulation:
         return step
 
     def run_contract(self) -> Tuple[SimState, RunTiming]:
-        """Reference-shaped run with file side effects and timing."""
+        """Reference-shaped run with file side effects and timing.  Spans
+        (``utils/profiling.py``): ``nbody.run`` around it, and a step
+        ``nbody.step``, ``nbody.sync`` (the synchronise and the overflow
+        count's host read) and, for a retried step, ``nbody.retry`` and
+        its own ``nbody.sync``."""
+        with span("nbody.run", counted=True):
+            return self._contract()
+
+    def _contract(self) -> Tuple[SimState, RunTiming]:
         cfg = self.config
         state = self.state
         device = state.device
@@ -142,7 +156,7 @@ class Simulation:
             _cuda.library()
 
         t_total0 = time.perf_counter()
-        overflow_steps = 0
+        overflow_steps = retried_steps = 0
         dump_tree = self._dumps_enabled()
         for step_idx in range(cfg.n_steps):
             if dump_tree and step_idx in (0, cfg.n_steps - 1):
@@ -150,10 +164,12 @@ class Simulation:
 
             prev = state
             watch.start()
-            state = self.step_fn(state)
-            _sync(device)
-            watch.stop()
-            n_ovf = int(state.overflow)
+            with span("nbody.step"):
+                state = self.step_fn(state)
+            with span("nbody.sync"):
+                _sync(device)
+                watch.stop()
+                n_ovf = _graph.host_read(state.overflow)
 
             retry = self._fallback_step() if (
                 n_ovf and cfg.adaptive_caps) else None
@@ -161,11 +177,14 @@ class Simulation:
                 print(
                     f"step {step_idx}: caps overflowed for {n_ovf} bodies; "
                     "retrying with 4x caps (adaptive)", file=sys.stderr)
+                retried_steps += 1
                 watch.start()
-                state = retry(prev)
-                _sync(device)
-                watch.stop()
-                n_ovf = int(state.overflow)
+                with span("nbody.retry"):
+                    state = retry(prev)
+                with span("nbody.sync"):
+                    _sync(device)
+                    watch.stop()
+                    n_ovf = _graph.host_read(state.overflow)
 
             if n_ovf:
                 overflow_steps += 1
@@ -192,6 +211,8 @@ class Simulation:
 
         timing.total_ms = (time.perf_counter() - t_total0) * 1e3
         timing.parallel_us = watch.accum_us
+        self.last_retried_steps = retried_steps
+        self.last_overflowed_steps = overflow_steps
         if writer is not None:
             writer.flush()
         if metrics is not None:
@@ -248,8 +269,9 @@ class Simulation:
         and as every replay ends in collectives (the overflow count's
         psum, if no other), rank 0's sync waits for its peers too."""
         n = n_steps if n_steps is not None else self.config.n_steps
-        self.state, _, ovf = self._fused(n, trajectory=False)
-        self._report_scan_overflow(ovf)
+        with span("nbody.run", counted=True):
+            self.state, _, ovf = self._fused(n, trajectory=False)
+            self._report_scan_overflow(ovf)
         return self.state
 
     def run_scan_trajectory(self, n_steps: Optional[int] = None):
@@ -260,17 +282,20 @@ class Simulation:
         a mesh ``traj`` holds every rank's bodies (gathered once, at the
         end) and ``final`` the rank's slab."""
         n = n_steps if n_steps is not None else self.config.n_steps
-        final, traj, ovf = self._fused(n, trajectory=True)
-        if self.mesh is not None:
-            ax = self.mesh.axes[self.config.mesh.axis_name]
-            traj = ax.all_gather(traj.transpose(0, 1)).transpose(0, 1)
-        self.state = final
-        self._report_scan_overflow(ovf)
+        with span("nbody.run", counted=True):
+            final, traj, ovf = self._fused(n, trajectory=True)
+            if self.mesh is not None:
+                ax = self.mesh.axes[self.config.mesh.axis_name]
+                traj = ax.all_gather(traj.transpose(0, 1)).transpose(0, 1)
+            self.state = final
+            self._report_scan_overflow(ovf)
         return final, traj
 
     def _fused(self, n: int, trajectory: bool):
         """(final state, trajectory or None, per-step overflow [n] int32
-        on the device) of ``n`` fused steps from ``self.state``."""
+        on the device) of ``n`` fused steps from ``self.state``.  Spans:
+        ``nbody.capture`` (what ``last_capture_ms`` times) and
+        ``nbody.replay`` (the replays and their synchronise; counted)."""
         state = self.state
         device = state.device
         graph = device.type == "cuda" and self.fused_gate() is None
@@ -281,14 +306,16 @@ class Simulation:
             _cuda.library()  # the kernels' build stays outside the clock
         if graph and n > 0:
             _sync(device)
-            t0 = time.perf_counter()
-            g = StepGraph(self.step_fn, state, n, trajectory)
-            _sync(device)
-            self.last_capture_ms = (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            g.replay(n)
-            _sync(device)
-            self.last_scan_ms = (time.perf_counter() - t0) * 1e3
+            with span("nbody.capture"):
+                t0 = time.perf_counter()
+                g = StepGraph(self.step_fn, state, n, trajectory)
+                _sync(device)
+                self.last_capture_ms = (time.perf_counter() - t0) * 1e3
+            with span("nbody.replay", counted=True):
+                t0 = time.perf_counter()
+                g.replay(n)
+                _sync(device)
+                self.last_scan_ms = (time.perf_counter() - t0) * 1e3
             self.last_branch_counts = g.settle()
             self.last_replay_launches = {
                 f"{mod}.{name}": k for (mod, name), k in g.launches.items()
@@ -321,6 +348,8 @@ class Simulation:
         counts = ovf.cpu().numpy()
         self.last_scan_overflow = counts
         bad = np.nonzero(counts)[0]
+        self.last_retried_steps = 0
+        self.last_overflowed_steps = int(bad.size)
         if bad.size == 0:
             return
         for step_idx in bad[:3]:
@@ -435,7 +464,10 @@ class StepGraph:
     start at ``state``, so ``n`` replays take exactly ``n`` steps; it
     takes one branch of each gate), then a throwaway relaxed capture of
     the step that records every branch straight.  A step that reads the
-    host (a sync) cannot be captured: the capture raises.
+    host (a sync) cannot be captured: the capture raises.  Spans:
+    ``nbody.capture.warm`` (the eager step and its synchronise), then each
+    capture's ``nbody.capture.enter`` / ``.trace`` / ``.end``
+    (``ops/_graph.capture``).
 
     Counting: the kernel wrappers' launch counters count a captured
     launch once per replay: :meth:`replay` adds the launches outside the
@@ -466,11 +498,12 @@ class StepGraph:
                 f: getattr(state, f).clone() for f in _CARRIED})
 
         side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            step_fn(copy_of_state())
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        with span("nbody.capture.warm"):
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                step_fn(copy_of_state())
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
         before = _cuda.launch_counts()
         try:
             with _graph.counting(_graph.CaptureCounts(dev, warm=True)):

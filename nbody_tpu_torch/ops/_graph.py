@@ -32,7 +32,9 @@ fixed tallies (:func:`tally` of an int) made inside it;
 :func:`tally` of a tensor adds its value on the device.  The owner reads
 the device counters once after its replays (:meth:`CaptureCounts.settle`).
 A counter is named as in ``_cuda.LAUNCH_COUNTERS``: (module of
-``nbody_tpu_torch.ops``, attribute).
+``nbody_tpu_torch.ops``, attribute), or for a module outside ``ops/``
+its dotted name under ``nbody_tpu_torch`` (``"parallel.collectives"``).
+:data:`HOST_READS` counts the host reads of a step (:func:`host_read`).
 """
 
 from __future__ import annotations
@@ -40,14 +42,20 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import importlib
+import sys
 import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _cuda
 
 Key = Tuple[str, str]
+
+# host reads of a tensor value made by the steps: the gates'
+# (``_host_value``) and the contract loop's overflow count
+HOST_READS = 0
 
 _state = threading.local()
 
@@ -73,7 +81,9 @@ def add_counts(amounts: Dict[Key, int], times: int = 1) -> None:
     lock: thread ranks count together)."""
     with _cuda.counter_lock:
         for (mod, name), k in amounts.items():
-            m = importlib.import_module(f"{__package__}.{mod}")
+            m = importlib.import_module(
+                f"nbody_tpu_torch.{mod}" if "." in mod
+                else f"{__package__}.{mod}")
             setattr(m, name, getattr(m, name) + k * times)
 
 
@@ -179,11 +189,25 @@ def capture(graph: torch.cuda.CUDAGraph, fn: Callable[[], None],
     torch 2.11 leaves behind: with it left, the next teardown of any
     memory pool (a :class:`CaptureCounts`' branch pool) aborts the
     process (``captures_underway.empty()`` INTERNAL ASSERT in
-    ``synchronize_and_free_events``)."""
+    ``synchronize_and_free_events``).
+
+    Spans: ``nbody.capture.enter`` (the context's entry: a synchronise,
+    the allocator's cache emptied, the capture begun),
+    ``nbody.capture.trace`` (``fn()``) and ``nbody.capture.end`` (the
+    capture ended and the graph instantiated)."""
     pool = torch.cuda.graph_pool_handle()
     try:
-        with torch.cuda.graph(graph, pool=pool, **kw):
-            fn()
+        ctx = torch.cuda.graph(graph, pool=pool, **kw)
+        with span("nbody.capture.enter"):
+            ctx.__enter__()
+        try:
+            with span("nbody.capture.trace"):
+                fn()
+        except BaseException:
+            ctx.__exit__(*sys.exc_info())
+            raise
+        with span("nbody.capture.end"):
+            ctx.__exit__(None, None, None)
     except BaseException:
         index = torch.cuda.current_device() if device.index is None else (
             device.index)
@@ -192,9 +216,17 @@ def capture(graph: torch.cuda.CUDAGraph, fn: Callable[[], None],
         raise
 
 
+def host_read(t: torch.Tensor) -> int:
+    """``int(t)``, counted in :data:`HOST_READS`."""
+    global HOST_READS
+    with _cuda.counter_lock:
+        HOST_READS += 1
+    return int(t)
+
+
 def _host_value(pred: torch.Tensor) -> int:
     """The one host read of a gate outside capture."""
-    return int(pred)
+    return host_read(pred)
 
 
 def device_if(pred: torch.Tensor, fn: Callable[[], None],

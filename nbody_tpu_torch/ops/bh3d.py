@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import BH_SOFTENING, MASS_SKIP_THRESHOLD, THETA_DEFAULT
+from ..utils.profiling import span
 from . import bh_grouped
 from .bh_grouped import (
     _pow2_ceil,
@@ -366,22 +367,26 @@ def bh3_accelerations_grouped(
     [N] with ``return_diagnostics``).  ``None`` caps resolve from
     :func:`cap_defaults_3d`, ``max_depth`` from
     :func:`tree3d.default_max_depth3`, ``group_size`` from
-    :func:`default_group_size3`."""
+    :func:`default_group_size3`.  Spans: ``nbody.tree`` (the octree, the
+    spatial pyramid, the source sort), then :func:`grouped_eval_3d`'s
+    ``nbody.collect`` (the groups and the collector) and ``nbody.eval``
+    (the tables, the evaluator, the un-sort)."""
     if positions.shape[1] != 3:
         raise ValueError("bh3_accelerations_grouped takes [N, 3] positions")
     n = positions.shape[0]
     if max_depth is None:
         max_depth = default_max_depth3(n)
-    tree = build_octree(positions, masses, max_depth=max_depth)
-    spyr = None
-    if _resolve_collect(collect, n) == "dense":
-        from .collect_dense3 import build_spatial_pyramid
+    with span("nbody.tree"):
+        tree = build_octree(positions, masses, max_depth=max_depth)
+        spyr = None
+        if _resolve_collect(collect, n) == "dense":
+            from .collect_dense3 import build_spatial_pyramid
 
-        spyr = build_spatial_pyramid(tree)
-    src_order = torch.argsort(tree.codes, stable=True)
-    psort = positions[src_order]
-    sorted_srcs = (psort[:, 0].contiguous(), psort[:, 1].contiguous(),
-                   psort[:, 2].contiguous(), g * masses[src_order])
+            spyr = build_spatial_pyramid(tree)
+        src_order = torch.argsort(tree.codes, stable=True)
+        psort = positions[src_order]
+        sorted_srcs = (psort[:, 0].contiguous(), psort[:, 1].contiguous(),
+                       psort[:, 2].contiguous(), g * masses[src_order])
     return grouped_eval_3d(
         positions, tree, sorted_srcs=sorted_srcs, g=g, theta=theta,
         softening=softening, group_size=group_size,
@@ -472,62 +477,65 @@ def grouped_eval_3d(
     direct_cap = direct_cap or defaults["direct_cap"]
     direct_body_cap = direct_body_cap or defaults["direct_body_cap"]
 
-    # groups of gs Morton-consecutive targets, the last padded with
-    # copies of the last body (a tight bbox; results sliced off)
-    n_pad = ((n + gs - 1) // gs) * gs
-    tsort = torch.cat(
-        [target_sorted, target_sorted[-1:].expand(n_pad - n, 3)], dim=0)
-    pg = tsort.reshape(-1, gs, 3)  # [G, S, 3]
+    with span("nbody.collect"):
+        # groups of gs Morton-consecutive targets, the last padded with
+        # copies of the last body (a tight bbox; results sliced off)
+        n_pad = ((n + gs - 1) // gs) * gs
+        tsort = torch.cat(
+            [target_sorted, target_sorted[-1:].expand(n_pad - n, 3)], dim=0)
+        pg = tsort.reshape(-1, gs, 3)  # [G, S, 3]
 
-    sub = pg.reshape(pg.shape[0], n_sub, gs // n_sub, 3)
-    bbox = tuple(f(sub[..., a], 2) for a in range(3)
-                 for f in (torch.amin, torch.amax))
+        sub = pg.reshape(pg.shape[0], n_sub, gs // n_sub, 3)
+        bbox = tuple(f(sub[..., a], 2) for a in range(3)
+                     for f in (torch.amin, torch.amax))
 
-    walk = dict(
-        theta=theta, softening=softening,
-        frontier_caps=frontier_schedule_3d(frontier_cap, max_depth, ns),
-        list_cap=list_cap, direct_cap=direct_cap,
-        direct_cell_max=direct_cell_max, quarter_bits=split_eval)
-    if route.dense:
-        from .collect_dense3 import collect_lists_3d_dense
+        walk = dict(
+            theta=theta, softening=softening,
+            frontier_caps=frontier_schedule_3d(frontier_cap, max_depth, ns),
+            list_cap=list_cap, direct_cap=direct_cap,
+            direct_cell_max=direct_cell_max, quarter_bits=split_eval)
+        if route.dense:
+            from .collect_dense3 import collect_lists_3d_dense
 
-        collected = collect_lists_3d_dense(bbox, tree, spyr, **walk)
-    else:
-        collected = _collect_lists_3d(bbox, tree, window_cells=window_cells,
-                                      **walk)
-    (lx, ly, lz, lm), ranges, overflow_g = collected[:3]
-    if range_offset is not None:
-        ranges = bh_grouped.window_local(ranges, range_offset)
+            collected = collect_lists_3d_dense(bbox, tree, spyr, **walk)
+        else:
+            collected = _collect_lists_3d(
+                bbox, tree, window_cells=window_cells, **walk)
+        (lx, ly, lz, lm), ranges, overflow_g = collected[:3]
+        if range_offset is not None:
+            ranges = bh_grouped.window_local(ranges, range_offset)
 
-    rc = run_cap or defaults["run_cap"]
-    kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
-              t_cap=direct_body_cap // k_tile + 2 * rc)
-    if eval_mode != "runs":
-        sb_idx, sb_lo, sb_hi, ovf_e = bh_grouped._expand_ranges_superblocks(
-            ranges, direct_cell_max,
-            direct_body_cap // bh_grouped._SB + direct_cap)
-        acc = bh_grouped._evaluate_pallas(
-            pg, (lx, ly, lz), lm, (sb_idx, sb_lo, sb_hi),
-            bh_grouped._superblock_pack(sorted_srcs), g_const=g,
-            softening=softening, compensated=compensated,
-            dynamic=eval_mode == "dynamic", k_tile=k_tile,
-            eval_chunk=EVAL_CHUNK_3D)
-    elif split_eval:
-        acc, ovf_e = bh_grouped._evaluate_runs_split(
-            pg, (lx, ly, lz), lm, ranges, collected[3], sorted_srcs[0:3],
-            sorted_srcs[3], **kw)
-    else:
-        acc, ovf_e = bh_grouped._evaluate_runs(
-            pg, (lx, ly, lz), lm, ranges, sorted_srcs[0:3], sorted_srcs[3],
-            seg_pack=route.seg_pack, **kw)
-    overflow_g = overflow_g | ovf_e
+    with span("nbody.eval"):
+        rc = run_cap or defaults["run_cap"]
+        kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
+                  t_cap=direct_body_cap // k_tile + 2 * rc)
+        if eval_mode != "runs":
+            sb_idx, sb_lo, sb_hi, ovf_e = (
+                bh_grouped._expand_ranges_superblocks(
+                    ranges, direct_cell_max,
+                    direct_body_cap // bh_grouped._SB + direct_cap))
+            acc = bh_grouped._evaluate_pallas(
+                pg, (lx, ly, lz), lm, (sb_idx, sb_lo, sb_hi),
+                bh_grouped._superblock_pack(sorted_srcs), g_const=g,
+                softening=softening, compensated=compensated,
+                dynamic=eval_mode == "dynamic", k_tile=k_tile,
+                eval_chunk=EVAL_CHUNK_3D)
+        elif split_eval:
+            acc, ovf_e = bh_grouped._evaluate_runs_split(
+                pg, (lx, ly, lz), lm, ranges, collected[3],
+                sorted_srcs[0:3], sorted_srcs[3], **kw)
+        else:
+            acc, ovf_e = bh_grouped._evaluate_runs(
+                pg, (lx, ly, lz), lm, ranges, sorted_srcs[0:3],
+                sorted_srcs[3], seg_pack=route.seg_pack, **kw)
+        overflow_g = overflow_g | ovf_e
 
-    # un-sort: ``target_order`` is a permutation, so one scatter restores
-    # body order (unique indices: deterministic)
-    out = torch.empty((n, 3), dtype=acc.dtype, device=acc.device)
-    out[target_order] = acc.reshape(-1, 3)[:n]
-    if return_diagnostics:
-        ovf = torch.empty((n,), dtype=torch.bool, device=acc.device)
-        ovf[target_order] = overflow_g.repeat_interleave(gs)[:n]
-        return out, ovf
-    return out
+        # un-sort: ``target_order`` is a permutation, so one scatter
+        # restores body order (unique indices: deterministic)
+        out = torch.empty((n, 3), dtype=acc.dtype, device=acc.device)
+        out[target_order] = acc.reshape(-1, 3)[:n]
+        if return_diagnostics:
+            ovf = torch.empty((n,), dtype=torch.bool, device=acc.device)
+            ovf[target_order] = overflow_g.repeat_interleave(gs)[:n]
+            return out, ovf
+        return out

@@ -37,6 +37,7 @@ from ..config import (
     MAX_DEPTH_DEFAULT,
     THETA_DEFAULT,
 )
+from ..utils.profiling import span
 from . import list_eval
 from .tree import (
     RAW_CNT,
@@ -696,19 +697,23 @@ def bh_accelerations_grouped(
 ):
     """Grouped Barnes-Hut accelerations [N, 2] (+ per-body overflow [N]
     with ``return_diagnostics``).  ``None`` caps resolve from
-    :func:`cap_defaults`."""
+    :func:`cap_defaults`.  Spans: ``nbody.tree`` (the quadtree, the source
+    sort), then :func:`grouped_eval`'s ``nbody.collect`` (the groups and
+    the walk) and ``nbody.eval`` (the tables, the evaluator, the
+    un-sort)."""
     if positions.shape[1] != 2:
         raise ValueError(
             "the 2D grouped engine takes [N, 2] positions; 3D goes through "
             "ops.bh3d.bh3_accelerations_grouped")
-    tree = build_quadtree(positions, masses, max_depth=max_depth)
-    src_order = torch.argsort(tree.codes, stable=True)
-    psort = positions[src_order]
+    with span("nbody.tree"):
+        tree = build_quadtree(positions, masses, max_depth=max_depth)
+        src_order = torch.argsort(tree.codes, stable=True)
+        psort = positions[src_order]
+        sorted_x = psort[:, 0].contiguous()
+        sorted_y = psort[:, 1].contiguous()
+        sorted_gm = g * masses[src_order]
     return grouped_eval(
-        tree,
-        sorted_x=psort[:, 0].contiguous(),
-        sorted_y=psort[:, 1].contiguous(),
-        sorted_gm=g * masses[src_order],
+        tree, sorted_x=sorted_x, sorted_y=sorted_y, sorted_gm=sorted_gm,
         g=g, theta=theta, softening=softening, group_size=group_size,
         frontier_cap=frontier_cap, list_cap=list_cap, direct_cap=direct_cap,
         direct_cell_max=direct_cell_max, direct_body_cap=direct_body_cap,
@@ -784,71 +789,75 @@ def grouped_eval(
     direct_cap = direct_cap or defaults["direct_cap"]
     direct_body_cap = direct_body_cap or defaults["direct_body_cap"]
 
-    # groups of gs Morton-consecutive targets, the last padded with
-    # copies of the last body (a tight bbox; results sliced off)
-    gs = min(group_size, max(n, 1))
-    n_pad = ((n + gs - 1) // gs) * gs
-    tsort = torch.cat(
-        [target_sorted, target_sorted[-1:].expand(n_pad - n, 2)], dim=0)
-    pg = tsort.reshape(-1, gs, 2)  # [G, S, 2]
+    with span("nbody.collect"):
+        # groups of gs Morton-consecutive targets, the last padded with
+        # copies of the last body (a tight bbox; results sliced off)
+        gs = min(group_size, max(n, 1))
+        n_pad = ((n + gs - 1) // gs) * gs
+        tsort = torch.cat(
+            [target_sorted, target_sorted[-1:].expand(n_pad - n, 2)], dim=0)
+        pg = tsort.reshape(-1, gs, 2)  # [G, S, 2]
 
-    # Q sub-bboxes per group over slices of its run (tight even where the
-    # run straddles a Morton seam)
-    n_sub = max(4, gs // 128)
-    if gs % n_sub:
-        n_sub = 1
-    sub = pg.reshape(pg.shape[0], n_sub, gs // n_sub, 2)
-    bbox = (sub[..., 0].amin(2), sub[..., 0].amax(2),
-            sub[..., 1].amin(2), sub[..., 1].amax(2))
+        # Q sub-bboxes per group over slices of its run (tight even where
+        # the run straddles a Morton seam)
+        n_sub = max(4, gs // 128)
+        if gs % n_sub:
+            n_sub = 1
+        sub = pg.reshape(pg.shape[0], n_sub, gs // n_sub, 2)
+        bbox = (sub[..., 0].amin(2), sub[..., 0].amax(2),
+                sub[..., 1].amin(2), sub[..., 1].amax(2))
 
-    if split_eval is None:
-        # the JAX package's auto gate: on only for the runs evaluator at
-        # dcm >= 128 and >= 768K bodies
-        split_eval = (eval_mode == "runs" and gs % 4 == 0 and gs >= 512
-                      and n_sub % 4 == 0 and direct_cell_max >= 128
-                      and ns >= 768 * 1024)
-    elif split_eval and (gs % 4 or n_sub % 4):
-        raise ValueError(
-            "split_eval=True requires group_size and n_sub divisible by 4 "
-            f"(got {gs}, {n_sub})")
-    split_eval = split_eval and eval_mode == "runs"
+        if split_eval is None:
+            # the JAX package's auto gate: on only for the runs evaluator
+            # at dcm >= 128 and >= 768K bodies
+            split_eval = (eval_mode == "runs" and gs % 4 == 0 and gs >= 512
+                          and n_sub % 4 == 0 and direct_cell_max >= 128
+                          and ns >= 768 * 1024)
+        elif split_eval and (gs % 4 or n_sub % 4):
+            raise ValueError(
+                "split_eval=True requires group_size and n_sub divisible by 4 "
+                f"(got {gs}, {n_sub})")
+        split_eval = split_eval and eval_mode == "runs"
 
-    collected = _collect_lists(
-        bbox, tree, theta=theta, softening=softening,
-        frontier_caps=frontier_schedule(frontier_cap, tree.max_depth, ns),
-        list_cap=list_cap, direct_cap=direct_cap,
-        direct_cell_max=direct_cell_max, quarter_bits=split_eval,
-        window_cells=window_cells,
-    )
-    (lx, ly, lm), ranges, overflow_g = collected[:3]
-    if range_offset is not None:
-        ranges = window_local(ranges, range_offset)
-    rc = run_cap or defaults["run_cap"]
-    kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
-              t_cap=direct_body_cap // k_tile + 2 * rc)
-    if eval_mode != "runs":
-        sb_idx, sb_lo, sb_hi, ovf_e = _expand_ranges_superblocks(
-            ranges, direct_cell_max, direct_body_cap // _SB + direct_cap)
-        acc = _evaluate_pallas(
-            pg, (lx, ly), lm, (sb_idx, sb_lo, sb_hi),
-            _superblock_pack((sorted_x, sorted_y, sorted_gm)), g_const=g,
-            softening=softening, compensated=compensated,
-            dynamic=eval_mode == "dynamic", k_tile=k_tile)
-    elif split_eval:
-        acc, ovf_e = _evaluate_runs_split(
-            pg, (lx, ly), lm, ranges, collected[3], (sorted_x, sorted_y),
-            sorted_gm, **kw)
-    else:
-        acc, ovf_e = _evaluate_runs(
-            pg, (lx, ly), lm, ranges, (sorted_x, sorted_y), sorted_gm, **kw)
-    overflow_g = overflow_g | ovf_e
+        collected = _collect_lists(
+            bbox, tree, theta=theta, softening=softening,
+            frontier_caps=frontier_schedule(frontier_cap, tree.max_depth, ns),
+            list_cap=list_cap, direct_cap=direct_cap,
+            direct_cell_max=direct_cell_max, quarter_bits=split_eval,
+            window_cells=window_cells,
+        )
+        (lx, ly, lm), ranges, overflow_g = collected[:3]
+        if range_offset is not None:
+            ranges = window_local(ranges, range_offset)
 
-    # un-sort: ``target_order`` is a permutation, so one scatter restores
-    # body order (unique indices: deterministic)
-    out = torch.empty((n, 2), dtype=acc.dtype, device=acc.device)
-    out[target_order] = acc.reshape(-1, 2)[:n]
-    if return_diagnostics:
-        ovf = torch.empty((n,), dtype=torch.bool, device=acc.device)
-        ovf[target_order] = overflow_g.repeat_interleave(gs)[:n]
-        return out, ovf
-    return out
+    with span("nbody.eval"):
+        rc = run_cap or defaults["run_cap"]
+        kw = dict(g_const=g, softening=softening, k_tile=k_tile, run_cap=rc,
+                  t_cap=direct_body_cap // k_tile + 2 * rc)
+        if eval_mode != "runs":
+            sb_idx, sb_lo, sb_hi, ovf_e = _expand_ranges_superblocks(
+                ranges, direct_cell_max, direct_body_cap // _SB + direct_cap)
+            acc = _evaluate_pallas(
+                pg, (lx, ly), lm, (sb_idx, sb_lo, sb_hi),
+                _superblock_pack((sorted_x, sorted_y, sorted_gm)), g_const=g,
+                softening=softening, compensated=compensated,
+                dynamic=eval_mode == "dynamic", k_tile=k_tile)
+        elif split_eval:
+            acc, ovf_e = _evaluate_runs_split(
+                pg, (lx, ly), lm, ranges, collected[3], (sorted_x, sorted_y),
+                sorted_gm, **kw)
+        else:
+            acc, ovf_e = _evaluate_runs(
+                pg, (lx, ly), lm, ranges, (sorted_x, sorted_y), sorted_gm,
+                **kw)
+        overflow_g = overflow_g | ovf_e
+
+        # un-sort: ``target_order`` is a permutation, so one scatter
+        # restores body order (unique indices: deterministic)
+        out = torch.empty((n, 2), dtype=acc.dtype, device=acc.device)
+        out[target_order] = acc.reshape(-1, 2)[:n]
+        if return_diagnostics:
+            ovf = torch.empty((n,), dtype=torch.bool, device=acc.device)
+            ovf[target_order] = overflow_g.repeat_interleave(gs)[:n]
+            return out, ovf
+        return out

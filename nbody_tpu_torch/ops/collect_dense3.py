@@ -377,7 +377,8 @@ def collect_lists_3d_dense(
     if spill_cap > 0:
         seen = _graph.device_if(n_esc, spill, "spill")
     else:
-        seen = None if _graph.capturing(n_esc) else int(n_esc)
+        seen = (None if _graph.capturing(n_esc)
+                else _graph._host_value(n_esc))
     _graph.tally(("collect_dense3", "DENSE_PASSES"), 1)
     # outside capture the host count read by the gate; under capture
     # counted on the device

@@ -28,6 +28,12 @@ behind one interface:
 :class:`RecordingAxis` wraps either and logs every collective as
 ``(op, payload bytes)``, the per-rank operand size
 ``parallel.memory.collective_inventory`` models.
+
+Counters: both axes count each collective they run and its operand's
+bytes (the same per-rank size) in this module's ``<OP>_CALLS`` /
+``<OP>_BYTES``, summed over the process's ranks, through
+``ops._graph.tally``: a collective captured in a rank's CUDA graph counts
+once per replay, as a kernel launch does.
 """
 
 from __future__ import annotations
@@ -39,6 +45,21 @@ from typing import Callable, List, Sequence, Tuple
 import torch
 
 Perm = Sequence[Tuple[int, int]]  # (source rank, destination rank) pairs
+
+# collectives run and their operands' bytes, by op (module docstring)
+ALL_GATHER_CALLS = ALL_GATHER_BYTES = 0
+PSUM_CALLS = PSUM_BYTES = 0
+PMIN_CALLS = PMIN_BYTES = 0
+PMAX_CALLS = PMAX_BYTES = 0
+PPERMUTE_CALLS = PPERMUTE_BYTES = 0
+
+
+def _count(op: str, t: torch.Tensor) -> None:
+    from ..ops import _graph
+
+    _graph.tally(("parallel.collectives", f"{op}_CALLS"), 1)
+    _graph.tally(("parallel.collectives", f"{op}_BYTES"),
+                 t.numel() * t.element_size())
 
 
 class ThreadGroup:
@@ -88,23 +109,28 @@ class ThreadAxis:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' tensors concatenated along dim 0, in rank order."""
+        _count("ALL_GATHER", t)
         return torch.cat(self.group.exchange(self.rank, t), dim=0)
 
     def _reduce(self, t: torch.Tensor, op: Callable) -> torch.Tensor:
         return functools.reduce(op, self.group.exchange(self.rank, t))
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
+        _count("PSUM", t)
         return self._reduce(t, torch.add)  # ((t0 + t1) + t2) + ...
 
     def pmin(self, t: torch.Tensor) -> torch.Tensor:
+        _count("PMIN", t)
         return self._reduce(t, torch.minimum)
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        _count("PMAX", t)
         return self._reduce(t, torch.maximum)
 
     def ppermute(self, t: torch.Tensor, perm: Perm) -> torch.Tensor:
         """The tensor of the rank that sends to this one under ``perm``
         (zeros where none does, as ``jax.lax.ppermute``)."""
+        _count("PPERMUTE", t)
         parts = self.group.exchange(self.rank, t)
         src = {d: s for s, d in perm}.get(self.rank)
         return torch.zeros_like(t) if src is None else parts[src].clone()
@@ -134,6 +160,7 @@ class ProcessAxis:
         return self._dist.get_global_rank(self.group, group_rank)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        _count("ALL_GATHER", t)
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
         self._dist.all_gather(parts, t, group=self.group)
@@ -145,15 +172,19 @@ class ProcessAxis:
         return out
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
+        _count("PSUM", t)
         return self._all_reduce(t, self._dist.ReduceOp.SUM)
 
     def pmin(self, t: torch.Tensor) -> torch.Tensor:
+        _count("PMIN", t)
         return self._all_reduce(t, self._dist.ReduceOp.MIN)
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        _count("PMAX", t)
         return self._all_reduce(t, self._dist.ReduceOp.MAX)
 
     def ppermute(self, t: torch.Tensor, perm: Perm) -> torch.Tensor:
+        _count("PPERMUTE", t)
         dist = self._dist
         t = t.contiguous()
         dst = {s: d for s, d in perm}.get(self.rank)

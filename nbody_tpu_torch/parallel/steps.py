@@ -28,7 +28,8 @@ of bodies whose caps overflowed in ``state.overflow``, which every rank
 holds, so a retry decision on it is the same on every rank.  No
 collective sits inside a grouped pass, whose data-dependent gates (the
 3D segment-packing and spill gates) may then decide differently per
-rank.
+rank.  Each step's collectives run inside ``nbody.exchange`` spans
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 from ..config import ROOT_PAD_FRACTION, SimConfig
 from ..physics import integrate
 from ..state import SimState
+from ..utils.profiling import span
 from .mesh import Mesh
 
 
@@ -66,8 +68,9 @@ def _global_bounds(positions: torch.Tensor, ax) -> torch.Tensor:
     pmin / pmax padded as ``tree.root_bounds`` / ``tree3d.root_bounds_3d``
     pad (so one rank gives their bits)."""
     dims = positions.shape[1]
-    lo = [ax.pmin(positions[:, d].min()) for d in range(dims)]
-    hi = [ax.pmax(positions[:, d].max()) for d in range(dims)]
+    with span("nbody.exchange"):
+        lo = [ax.pmin(positions[:, d].min()) for d in range(dims)]
+        hi = [ax.pmax(positions[:, d].max()) for d in range(dims)]
     max_dim = torch.stack([h - l for l, h in zip(lo, hi)]).max()
     pad = torch.where(max_dim == 0.0, torch.full_like(max_dim, 1e-6),
                       ROOT_PAD_FRACTION * max_dim)
@@ -76,7 +79,9 @@ def _global_bounds(positions: torch.Tensor, ax) -> torch.Tensor:
 
 
 def _n_overflow(ax, ovf: torch.Tensor) -> torch.Tensor:
-    return ax.psum(ovf.sum(dtype=torch.int32))
+    n = ovf.sum(dtype=torch.int32)
+    with span("nbody.exchange"):
+        return ax.psum(n)
 
 
 def make_dp_allpairs_step(config: SimConfig, mesh: Mesh) -> Callable:
@@ -85,8 +90,9 @@ def make_dp_allpairs_step(config: SimConfig, mesh: Mesh) -> Callable:
     accel_vs = _make_accel_vs(config)
 
     def step(state: SimState) -> SimState:
-        all_pos = ax.all_gather(state.positions)
-        all_m = ax.all_gather(state.masses)
+        with span("nbody.exchange"):
+            all_pos = ax.all_gather(state.positions)
+            all_m = ax.all_gather(state.masses)
         acc = accel_vs(state.positions, all_pos, all_m)
         return integrate(state, acc, config.dt)
 
@@ -108,8 +114,9 @@ def make_ring_allpairs_step(config: SimConfig, mesh: Mesh) -> Callable:
             part = accel_vs(state.positions, src_p, src_m)
             acc = part if acc is None else acc + part
             if hop != n_dev - 1:
-                src_p = ax.ppermute(src_p, perm)
-                src_m = ax.ppermute(src_m, perm)
+                with span("nbody.exchange"):
+                    src_p = ax.ppermute(src_p, perm)
+                    src_m = ax.ppermute(src_m, perm)
         return integrate(state, acc, config.dt)
 
     return step
@@ -124,8 +131,9 @@ def make_dp2d_allpairs_step(config: SimConfig, mesh: Mesh) -> Callable:
     accel_vs = _make_accel_vs(config)
 
     def step(state: SimState) -> SimState:
-        all_pos = dp_ax.all_gather(state.positions)
-        all_m = dp_ax.all_gather(state.masses)
+        with span("nbody.exchange"):
+            all_pos = dp_ax.all_gather(state.positions)
+            all_m = dp_ax.all_gather(state.masses)
         n = all_pos.shape[0]
         if n % sp:
             # without this the last n % sp bodies would silently drop as
@@ -137,7 +145,9 @@ def make_dp2d_allpairs_step(config: SimConfig, mesh: Mesh) -> Callable:
         k = sp_ax.axis_index()
         part = accel_vs(state.positions, all_pos[k * block:(k + 1) * block],
                         all_m[k * block:(k + 1) * block])
-        return integrate(state, sp_ax.psum(part), config.dt)
+        with span("nbody.exchange"):
+            acc = sp_ax.psum(part)
+        return integrate(state, acc, config.dt)
 
     return step
 
@@ -159,7 +169,9 @@ def make_dp_barnes_hut_step(config: SimConfig, mesh: Mesh) -> Callable:
         codes = morton_codes(p, bounds, md)
         # ONE psum of the packed leaf rows: raw sums, counts included,
         # add across ranks; occupancy bits come after, in the pyramid
-        raw = ax.psum(leaf_raw(p, m, codes, md))
+        raw = leaf_raw(p, m, codes, md)
+        with span("nbody.exchange"):
+            raw = ax.psum(raw)
         tree = pyramid_from_raw(raw, bounds, codes, md)
         acc, ovf = traverse_accelerations(
             p, codes, tree, g=config.g, theta=config.theta,
@@ -196,8 +208,9 @@ def make_dp_barnes_hut_grouped_step(config: SimConfig,
     kw = _grouped_kw(config)
 
     def step(state: SimState) -> SimState:
-        all_pos = ax.all_gather(state.positions)
-        all_m = ax.all_gather(state.masses)
+        with span("nbody.exchange"):
+            all_pos = ax.all_gather(state.positions)
+            all_m = ax.all_gather(state.masses)
         tree = build_quadtree(all_pos, all_m,
                               max_depth=config.resolved_max_depth)
         src_order = torch.argsort(tree.codes, stable=True)
@@ -234,12 +247,14 @@ def _source_window(ax, codes: torch.Tensor, cols, leaf_cnt: torch.Tensor):
     own = torch.stack([c[order] for c in cols], dim=1)  # [nl, D + 1]
     if n_dev > 1:
         perm_from_left = [(i, (i + 1) % n_dev) for i in range(n_dev)]
-        parts = [(ax.ppermute(own, perm_from_left),
-                  ax.ppermute(csort, perm_from_left)), (own, csort)]
-        if n_dev > 2:
-            perm_from_right = [(i, (i - 1) % n_dev) for i in range(n_dev)]
-            parts.append((ax.ppermute(own, perm_from_right),
-                          ax.ppermute(csort, perm_from_right)))
+        with span("nbody.exchange"):
+            parts = [(ax.ppermute(own, perm_from_left),
+                      ax.ppermute(csort, perm_from_left)), (own, csort)]
+            if n_dev > 2:
+                perm_from_right = [(i, (i - 1) % n_dev)
+                                   for i in range(n_dev)]
+                parts.append((ax.ppermute(own, perm_from_right),
+                              ax.ppermute(csort, perm_from_right)))
         win = torch.cat([w for w, _ in parts])
         wc = torch.cat([c for _, c in parts])
         wo = torch.argsort(wc, stable=True)
@@ -310,7 +325,9 @@ def make_dp_barnes_hut_sharded_step(config: SimConfig,
         p, m = state.positions, state.masses
         bounds = _global_bounds(p, ax)
         codes = morton_codes(p, bounds, md)
-        raw = ax.psum(leaf_raw(p, m, codes, md))
+        raw = leaf_raw(p, m, codes, md)
+        with span("nbody.exchange"):
+            raw = ax.psum(raw)
         tree = pyramid_from_raw(raw, bounds, codes, md)
         (wx, wy, wgm), window, base = _source_window(
             ax, codes, (p[:, 0], p[:, 1], config.g * m),
@@ -339,8 +356,9 @@ def make_dp_barnes_hut_grouped3_step(config: SimConfig,
     kw = _grouped_kw(config)
 
     def step(state: SimState) -> SimState:
-        all_pos = ax.all_gather(state.positions)
-        all_m = ax.all_gather(state.masses)
+        with span("nbody.exchange"):
+            all_pos = ax.all_gather(state.positions)
+            all_m = ax.all_gather(state.masses)
         tree = build_octree(all_pos, all_m,
                             max_depth=config.resolved_max_depth)
         spyr = None
@@ -381,7 +399,9 @@ def make_dp_barnes_hut_sharded3_step(config: SimConfig,
         p, m = state.positions, state.masses
         bounds = _global_bounds(p, ax)
         codes = morton_codes_3d(p, bounds, md)
-        raw = ax.psum(leaf_raw_3d(p, m, codes, md))
+        raw = leaf_raw_3d(p, m, codes, md)
+        with span("nbody.exchange"):
+            raw = ax.psum(raw)
         tree = pyramid_from_raw_3d(raw, bounds, codes, md)
         srcs, window, base = _source_window(
             ax, codes, (p[:, 0], p[:, 1], p[:, 2], config.g * m),

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from .state import SimState
+from .utils.profiling import span
 
 
 def _pair_weights(d2: torch.Tensor, gm: torch.Tensor,
@@ -70,19 +71,22 @@ def integrate(
     state: SimState, accelerations: torch.Tensor, dt: float, overflow=None
 ) -> SimState:
     """Semi-implicit Euler (project.cu:819-836); ``overflow`` (count of
-    bodies whose caps overflowed) rides in the returned state."""
-    new_v = state.velocities + accelerations * dt
-    new_p = state.positions + new_v * dt
-    if overflow is None:
-        overflow = torch.zeros((), dtype=torch.int32, device=state.device)
-    return SimState(
-        masses=state.masses,
-        positions=new_p,
-        velocities=new_v,
-        time=state.time + dt,
-        step=state.step + 1,
-        overflow=overflow.to(torch.int32),
-    )
+    bodies whose caps overflowed) rides in the returned state.  Span:
+    ``nbody.integrate``."""
+    with span("nbody.integrate"):
+        new_v = state.velocities + accelerations * dt
+        new_p = state.positions + new_v * dt
+        if overflow is None:
+            overflow = torch.zeros((), dtype=torch.int32,
+                                   device=state.device)
+        return SimState(
+            masses=state.masses,
+            positions=new_p,
+            velocities=new_v,
+            time=state.time + dt,
+            step=state.step + 1,
+            overflow=overflow.to(torch.int32),
+        )
 
 
 def kinetic_energy(state: SimState) -> torch.Tensor:

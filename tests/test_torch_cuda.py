@@ -1119,3 +1119,126 @@ def test_leaf_sums_graph_replay_equals_eager(cuda):
     torch.cuda.synchronize()
     assert torch.equal(box["out"], want)
     assert torch.equal(want, tree.leaf_sums_plain(rows, lengths))
+
+
+# -- the program's spans and counters (utils/profiling.py) -----------------
+
+STAGES = ("nbody.tree", "nbody.collect", "nbody.eval", "nbody.integrate")
+CAPTURE_PARTS = ("nbody.capture.warm", "nbody.capture.enter",
+                 "nbody.capture.trace", "nbody.capture.end")
+
+
+def _profiled(fn):
+    """``fn()`` under torch.profiler (host and card): (its result, the
+    spans it recorded)."""
+    from nbody_tpu_torch.utils import profiling
+
+    profiling.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        # the switch a span reads, and the profiler's own Python flag
+        assert profiling.enabled()
+        assert torch.autograd.profiler._is_profiler_enabled
+        out = fn()
+    recs = profiling.spans()
+    profiling.clear()
+    return out, recs
+
+
+def _ancestors(rec, by_id):
+    names = []
+    while rec.parent is not None:
+        rec = by_id[rec.parent]
+        names.append(rec.name)
+    return names
+
+
+def test_spans_off_call_no_record_function_and_no_event(cuda, monkeypatch):
+    from nbody_tpu_torch.utils import profiling
+
+    calls = []
+    record_function, event = torch.profiler.record_function, torch.cuda.Event
+
+    def spy(name, make):
+        def made(*a, **kw):
+            calls.append(name)
+            return make(*a, **kw)
+        return made
+
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        spy("record_function", record_function))
+    monkeypatch.setattr(torch.cuda, "Event", spy("Event", event))
+    profiling.clear()
+    _, loop, fused = _sim_pair(cuda, n_bodies=8192, n_steps=2,
+                               engine="barnes_hut")
+    loop.run_contract()
+    fused.run_scan()
+    torch.cuda.synchronize()
+    assert fused.last_scan_route == "graph"
+    assert calls == [] and profiling.spans() == []
+
+
+def test_capture_spans_split_the_capture(cuda):
+    """The fused run's capture: the warm step, then two captures (the
+    relaxed throwaway and the real one), each entered, traced and ended;
+    the parts tile ``nbody.capture``, which is what ``last_capture_ms``
+    times.  Stream times exist outside capture only."""
+    import collections
+
+    _, _, fused = _sim_pair(cuda, n_bodies=8192, n_steps=3,
+                            engine="barnes_hut")
+    _, recs = _profiled(fused.run_scan)
+    assert fused.last_scan_route == "graph"
+    names = collections.Counter(r.name for r in recs)
+    assert {k: names[k] for k in ("nbody.run", "nbody.capture",
+                                  "nbody.replay", *CAPTURE_PARTS)} == {
+        "nbody.run": 1, "nbody.capture": 1, "nbody.replay": 1,
+        "nbody.capture.warm": 1, "nbody.capture.enter": 2,
+        "nbody.capture.trace": 2, "nbody.capture.end": 2}
+    # the warm step, the throwaway capture, the capture: a step's stages
+    # three times, none during the replays
+    assert all(names[s] == 3 for s in STAGES)
+    by_id = {r.id: r for r in recs}
+    (capture,) = [r for r in recs if r.name == "nbody.capture"]
+    parts = sum(r.host_ms for r in recs if r.name in CAPTURE_PARTS)
+    assert 0.95 <= parts / capture.host_ms <= 1.02
+    assert capture.host_ms == pytest.approx(fused.last_capture_ms, rel=0.02)
+    assert capture.stream_ms > 0
+    for r in recs:
+        traced = "nbody.capture.trace" in _ancestors(r, by_id)
+        if r.name in STAGES:
+            assert (r.stream_ms is None) == traced, r
+        if r.name in CAPTURE_PARTS[1:]:
+            assert r.stream_ms is None
+    (replay,) = [r for r in recs if r.name == "nbody.replay"]
+    assert replay.stream_ms > 0 and replay.counters is not None
+
+
+def test_loop_spans_tile_the_step_on_the_stream(cuda):
+    """The contract loop's stages carry stream times that fit inside
+    their step's, and the host reads are a gate a pass plus the overflow
+    count's read."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.ops import _graph
+
+    cfg = SimConfig(n_bodies=8192, n_dim=3, n_steps=2, engine="barnes_hut",
+                    collect3="dense", seed=3)
+    sim = Simulation(cfg, device=cuda)
+    reads = _graph.HOST_READS
+    _, recs = _profiled(sim.run_contract)
+    reads = _graph.HOST_READS - reads
+    by_id = {r.id: r for r in recs}
+    steps = [r for r in recs if r.name == "nbody.step"]
+    assert len(steps) == 2
+    for step in steps:
+        inside = [r for r in recs if r.parent == step.id]
+        assert sorted(r.name for r in inside) == sorted(STAGES)
+        assert all(r.stream_ms > 0 for r in inside)
+        assert sum(r.stream_ms for r in inside) <= step.stream_ms * 1.001
+    (run,) = [r for r in recs if r.name == "nbody.run"]
+    assert run.counters["ops._graph.HOST_READS"] == reads
+    assert reads == 2 * cfg.n_steps + sim.last_retried_steps
+    assert all(by_id[r.parent].name in ("nbody.step", "nbody.retry")
+               for r in recs if r.name == "nbody.tree")

@@ -145,3 +145,32 @@ def test_failed_mesh_capture_raises_and_leaves_the_group_usable(nccl1):
     assert sim.last_scan_route == "graph"
     _, want, _ = _eager(good, shard_state(state, mesh), STEPS)
     assert torch.equal(final.positions, want.positions)
+
+
+def test_collectives_counted_once_per_replay(nccl1):
+    """dp_allpairs captured with its NCCL all-gathers: the replays count
+    two a step (positions and masses), the run also the eager warm
+    step's two."""
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.parallel import make_sharded_step, shard_state
+    from nbody_tpu_torch.utils import profiling
+
+    cfg, state, mesh = _setup("dp_allpairs", nccl1)
+    step = make_sharded_step(cfg, mesh, "dp_allpairs")
+    sim = Simulation(cfg, state=shard_state(state, mesh), step_fn=step,
+                     mesh=mesh)
+    profiling.clear()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        sim.run_scan()
+    recs = {r.name: r for r in profiling.spans()}
+    profiling.clear()
+    assert sim.last_scan_route == "graph"
+    n = cfg.n_bodies  # one rank holds every body
+    key = "parallel.collectives.ALL_GATHER"
+    replay, run = recs["nbody.replay"].counters, recs["nbody.run"].counters
+    assert replay[f"{key}_CALLS"] == 2 * STEPS
+    assert replay[f"{key}_BYTES"] == STEPS * (n * 2 * 4 + n * 4)
+    assert run[f"{key}_CALLS"] == 2 * (STEPS + 1)
+    assert run[f"{key}_BYTES"] == (STEPS + 1) * (n * 2 * 4 + n * 4)
