@@ -717,7 +717,8 @@ def device_profile(step, reps: int = 2):
 @contextlib.contextmanager
 def plain_twins():
     """Route the main path's kernel wrappers to their plain twins."""
-    from nbody_tpu_torch.ops import allpairs, list_eval, tree, tree3d
+    from nbody_tpu_torch.ops import (allpairs, collect_dense3, list_eval,
+                                     tree, tree3d)
 
     names = ("list_eval_runs", "list_eval_runs_split", "list_eval_pallas",
              "list_eval_dynamic")
@@ -730,6 +731,8 @@ def plain_twins():
         setattr(list_eval, n, getattr(list_eval, f"{n}_plain"))
     leaf = tree.leaf_sums
     tree.leaf_sums = tree3d.leaf_sums = tree.leaf_sums_plain
+    dense = collect_dense3._dense_lists_kernel
+    collect_dense3._dense_lists_kernel = collect_dense3._dense_lists
     try:
         yield
     finally:
@@ -737,6 +740,7 @@ def plain_twins():
         for n, fn in zip(names, orig[1:]):
             setattr(list_eval, n, fn)
         tree.leaf_sums = tree3d.leaf_sums = leaf
+        collect_dense3._dense_lists_kernel = dense
 
 
 COUNTERS = (("k1", "allpairs", "KERNEL_LAUNCHES"),
@@ -749,6 +753,7 @@ COUNTERS = (("k1", "allpairs", "KERNEL_LAUNCHES"),
             ("dense", "collect_dense3", "DENSE_PASSES"),
             ("escaped", "collect_dense3", "ESCAPED_GROUPS"),
             ("spills", "collect_dense3", "SPILL_PASSES"),
+            ("dense_kernel", "collect_dense3", "DENSE_KERNEL_LAUNCHES"),
             ("leaf", "tree", "LEAF_SUM_LAUNCHES"))
 
 
@@ -2475,6 +2480,137 @@ def phase9(dev, card: str) -> dict:
     return out
 
 
+def dense_walk_args(positions, masses, cfg) -> tuple:
+    """The (args, kwargs) one force pass of this state hands the dense
+    collector's kernel (the wrapper spied)."""
+    from nbody_tpu_torch.models.engines import make_accel_fn
+    from nbody_tpu_torch.ops import collect_dense3
+
+    seen = []
+    with spying(collect_dense3, "_dense_lists_kernel", seen):
+        make_accel_fn(cfg, return_diagnostics=True)(positions, masses)
+    return seen[0]
+
+
+def dense_bound(args, kw, outs) -> tuple:
+    """(bound_ms, bound_by) of one dense walk: the pyramid's levels, the
+    sub-boxes and the origins read once, the outputs (every slot of the
+    lists, padding included, and the flags) written once (bytes); ~15
+    FP32 operations a sub-box for each cell the lists hold (an upper
+    estimate of the theta tests they need: singles take none)."""
+    bbox, spyr, origins, sched = args
+    g, q = bbox[0].shape
+    n_lv = len(sched)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*spyr.grid[:n_lv], *spyr.start[:n_lv], *bbox,
+                           *origins))
+    nbytes += sum(t.numel() * t.element_size() for t in outs) + 2 * g
+    held = int((outs[3] > 0).sum()) + int((outs[5] > 0).sum())
+    t_bytes, t_ops = nbytes / PEAK_BYTES, held * q * 15 / PEAK_FP32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase10(dev, card: str) -> dict:
+    """10: the dense 3D collector's kernel (csrc/collect_dense3.cu)
+    against its twin (``collect_dense3._dense_lists``) on the walks of
+    the evolved 1M state and of 262,144 blobs: every output bit for bit,
+    the kernel's time (CUDA events and the profiler) beside its bound and
+    the twin's; then the evolved 1M step with the walk on the twin and on
+    the kernel, in turns.  Returns the inputs' numbers for the summary."""
+    import torch
+
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.engines import make_accel_fn
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.ops import collect_dense3
+    from nbody_tpu_torch.physics import integrate
+    from nbody_tpu_torch.rng import random_state
+
+    print("phase 10: the dense 3D collector (csrc/collect_dense3.cu) "
+          "against its twin, bit for bit", flush=True)
+    n1m = 1 << 20
+    cfg1m = SimConfig(n_bodies=n1m, n_dim=3, engine="barnes_hut", seed=7,
+                      n_steps=10)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        evolved = Simulation(cfg1m, device=dev)
+        evolved.run_contract()
+    est = evolved.state
+    cfg_b = SimConfig(n_bodies=262144, n_dim=3, engine="barnes_hut",
+                      init_mode="blobs", seed=3)
+    st_b = random_state(cfg_b, device=dev)
+    inputs = {
+        "3D N=1,048,576 after 10 contract-loop steps": dense_walk_args(
+            est.positions, est.masses, cfg1m),
+        "3D N=262,144 blobs": dense_walk_args(st_b.positions, st_b.masses,
+                                              cfg_b),
+    }
+    out = {}
+    for tag, (args, kw) in inputs.items():
+        bbox, spyr, origins, sched = args
+        got = collect_dense3._dense_lists_kernel(*args, **kw)
+        want = collect_dense3._dense_lists(*args, **kw)
+        torch.cuda.synchronize()
+        flat_g = [*got[0], got[1], got[2]]
+        flat_w = [*want[0], want[1], want[2]]
+        for k, (a, b) in enumerate(zip(flat_g, flat_w)):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.shape != b.shape:
+                fail(f"dense collector, {tag}: output {k} has shape "
+                     f"{tuple(a.shape)}, the twin's {tuple(b.shape)}")
+            if not torch.equal(a, b):
+                fail(f"dense collector, {tag}: output {k} differs from the "
+                     f"twin in {int((a != b).sum())} entries")
+        g, q = bbox[0].shape
+        print(f"  {tag}: G={g}, Q={q}, windows {sched}, "
+              f"{sum(w ** 3 for w in sched):,} cells a group, list widths "
+              f"{want[0][0].shape[1]:,} / {want[0][4].shape[1]:,}; approx "
+              f"{int((want[0][3] > 0).sum()):,}, direct "
+              f"{int((want[0][5] > 0).sum()):,} entries; "
+              f"{int(want[2].sum())} escaped, {int(want[1].sum())} "
+              "overflowed; bit-equal to the twin", flush=True)
+        k_ms = cuda_ms(lambda: collect_dense3._dense_lists_kernel(
+            *args, **kw), reps=10)
+        p_ms = cuda_ms(lambda: collect_dense3._dense_lists(*args, **kw),
+                       reps=2)
+        b_ms, b_by = dense_bound(args, kw, flat_w)
+        _, kern = device_profile(lambda: collect_dense3._dense_lists_kernel(
+            *args, **kw), reps=10)
+        dev_ms = sum(t for name, t in kern.items()
+                     if "dense_collect3_kernel" in name)
+        print(f"    kernel {k_ms:.4f} ms (events; device {dev_ms:.4f} ms by "
+              f"the profiler), plain twin {p_ms:.2f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by})  [{card}]", flush=True)
+        print("    profiler, device ms a call: " + ", ".join(
+            f"{name[:40]} {t:.4f}" for name, t in sorted(
+                kern.items(), key=lambda kv: -kv[1])), flush=True)
+        out[tag] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+
+    accel = make_accel_fn(cfg1m, return_diagnostics=True)
+
+    def step():
+        acc, ovf = accel(est.positions, est.masses)
+        return integrate(est, acc, cfg1m.dt, overflow=ovf.sum())
+
+    kernel = collect_dense3._dense_lists_kernel
+    t = []
+    try:
+        for plain in (True, False, False, True):
+            collect_dense3._dense_lists_kernel = (
+                collect_dense3._dense_lists if plain else kernel)
+            t.append(cuda_ms(step, reps=3))
+    finally:
+        collect_dense3._dense_lists_kernel = kernel
+    print(f"  3D N=1,048,576 step on the evolved state: the walk on the twin "
+          f"{t[0]:.2f} / {t[3]:.2f} ms, on the kernel {t[1]:.2f} / "
+          f"{t[2]:.2f} ms (CUDA events, 3 steps each, in turns)  [{card}]",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2533,7 +2669,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
     only = {"--only-phase-6c": phase6c, "--only-phase-7": phase7,
-            "--only-phase-8": phase8, "--only-phase-9": phase9}
+            "--only-phase-8": phase8, "--only-phase-9": phase9,
+            "--only-phase-10": phase10}
     if len(sys.argv) == 2 and sys.argv[1] in only:
         # a short run of one later path alone (phases 0, 1 and it)
         only[sys.argv[1]](dev, card)
@@ -2804,6 +2941,10 @@ def main() -> int:
              "split gate is off there)")
     if c256["dense"] <= 0 or c1m["dense"] <= 0:
         fail("the dense collector was not reached in a 3D run at scale")
+    if any(c["dense_kernel"] != c["dense"] for c in (c256, c1m)):
+        fail("the dense collector's kernel did not run once a dense pass "
+             f"({c256['dense_kernel']} / {c256['dense']} at 262144, "
+             f"{c1m['dense_kernel']} / {c1m['dense']} at {n1m})")
     if c256["k2"] + c256["k3"] <= 0:
         fail("neither K2 nor K3 ran in the 3D barnes_hut run at N=262144")
     if c256["leaf"] <= 0 or c1m["leaf"] <= 0:
@@ -3275,6 +3416,7 @@ def main() -> int:
     par = phase7(dev, card)
     phase8(dev, card)
     leaf9 = phase9(dev, card)
+    dense10 = phase10(dev, card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -3386,6 +3528,21 @@ def main() -> int:
         "inputs_library_gap": {
             k: v["library_gap"] for k, v in leaf9.items()},
         "order": f"two-level, chunks of {LEAF_CHUNK} rows"})
+    evo = dense10["3D N=1,048,576 after 10 contract-loop steps"]
+    summary["kernels"].append({
+        "name": "dense_collect3", "route": "cuda",
+        "source": "nbody_tpu_torch/csrc/collect_dense3.cu",
+        "replaces": "nbody_tpu/ops/collect_dense3.py",
+        "replaces_note": "XLA in the JAX package (no Pallas kernel); "
+                         "PyTorch operators in the port before",
+        "dims": 3, "launches": launches[(3, "barnes_hut", n1m)][
+            "dense_kernel"],
+        "max_abs_err": 0.0, "ms": evo["ms"], "plain_ms": evo["plain_ms"],
+        "bound_ms": evo["bound_ms"], "bound_by": evo["bound_by"],
+        "library_ms": None, "n_bodies": 1 << 20,
+        "state": "after 10 contract-loop steps",
+        "inputs_ms": {k: v["ms"] for k, v in dense10.items()},
+        "inputs_bound_ms": {k: v["bound_ms"] for k, v in dense10.items()}})
     print(f"card: {card}")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ failed theta, so it lies within two parent sizes of the bbox), so each
 group reads one [W, W, W] window per level from a row-major spatial grid
 and classifies every cell in it.  Reachability moves down the pyramid by
 upsampling the parent window's open flags 2x per axis; there is no
-frontier.
+frontier.  On the card the walk and its compaction into the lists are
+one kernel (``csrc/collect_dense3.cu``, a block a group); on the CPU
+its torch twin, ``_dense_lists``, gives the same bits.
 
 Correctness is never windowed away: an opened cell whose children fall
 outside the next level's window marks its group *escaped*, and escaped
@@ -35,13 +37,15 @@ result; here it would cost a host sync per level).
 
 ``DENSE_PASSES``, ``ESCAPED_GROUPS`` and ``SPILL_PASSES`` count the
 collector's calls, the groups that escaped their windows, and the calls
-that ran the spill pass, as the kernels' wrappers count launches; under
+that ran the spill pass, as the kernels' wrappers count launches
+(``DENSE_KERNEL_LAUNCHES``, the walk's kernel: one a pass on the card); under
 a CUDA graph's capture the replays count them on the device
 (``_graph.tally``), read once after the run.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import List, Tuple
 
@@ -71,6 +75,14 @@ from .tree3d import (
 DENSE_PASSES = 0
 ESCAPED_GROUPS = 0
 SPILL_PASSES = 0
+# launches of csrc/collect_dense3.cu's kernel (one a pass on the card)
+DENSE_KERNEL_LAUNCHES = 0
+
+# what the window kernel takes (csrc/collect_dense3.cu): levels, cells
+# across a window, and sub-boxes a group
+KERNEL_MAX_LEVELS = 16
+KERNEL_MAX_WIDTH = 32
+KERNEL_MAX_SUB_BOXES = 256
 
 # Per-level window widths (cells per axis), the JAX package's calibration
 # (scripts/windows.py, uniform and two-blob states at 256K-1M, max depth
@@ -212,40 +224,37 @@ def _window_index(o: torch.Tensor, w: int, d: int) -> torch.Tensor:
             + iz[:, None, None, :]).reshape(o.shape[0], -1)
 
 
-def collect_lists_3d_dense(
-    bbox,  # 6 x [G, Q]: x0, x1, y0, y1, z0, z1
-    tree: Octree,  # the Morton octree: the spill pass walks it
-    spyr: SpatialPyramid,
-    *,
-    theta: float,
-    softening: float,
-    frontier_caps: Tuple[int, ...],  # the spill pass's walk caps
-    list_cap: int,
-    direct_cap: int,
-    direct_cell_max: int,
-    window_schedule: Tuple[int, ...] | None = None,
-    spill_cap: int | None = None,
-    quarter_bits: bool = False,
-):
-    """Drop-in dense replacement for ``bh3d._collect_lists_3d``, with the
-    same return contract: ((lx, ly, lz, lm) [G, L], ranges [G, D, 2],
-    overflow [G]), plus the quarters dict with ``quarter_bits``.
+def check_kernel_schedule(schedule) -> None:
+    """Raise unless the window kernel takes ``schedule``: at most
+    ``KERNEL_MAX_LEVELS`` levels, each window at most
+    ``KERNEL_MAX_WIDTH`` cells wide (its open flags, W^3 bits, live in
+    shared memory).  Every default schedule and the tests' tiny ones
+    pass; the torch twin keeps the same limits, so no schedule runs on
+    the CPU that the card would refuse."""
+    if len(schedule) > KERNEL_MAX_LEVELS:
+        raise ValueError(
+            f"window_schedule has {len(schedule)} levels; the dense "
+            f"collector takes at most {KERNEL_MAX_LEVELS}")
+    wide = [w for w in schedule if w > KERNEL_MAX_WIDTH]
+    if wide:
+        raise ValueError(
+            f"window_schedule {tuple(schedule)}: widths {wide} exceed the "
+            f"dense collector's {KERNEL_MAX_WIDTH} cells a window")
 
-    Every cell is classified as the gather walk classifies it; only the
-    traversal differs (windows and upsampled reached flags instead of
-    gathered frontiers), and with it the order of each group's list
-    entries.  ``spill_cap`` escaped groups at most (default
-    max(48, G // 4), the JAX package's budget) are collected again by the
-    gather walk; further escapes set their overflow flag."""
-    from .bh3d import _collect_lists_3d  # imports this module
 
+def _dense_lists(bbox, spyr: SpatialPyramid, origins, sched, *, theta,
+                 softening, list_cap, direct_cap, direct_cell_max,
+                 quarter_bits):
+    """The window walk and its two stable compactions in PyTorch: the
+    plain twin of ``csrc/collect_dense3.cu`` (CPU tensors).  Returns
+    (outs, overflow [G], escape [G]): outs are the approx list (x, y, z,
+    m) [G, min(F, list_cap)], the direct starts and counts [G, min(F,
+    direct_cap)] and, with ``quarter_bits``, the direct cells' fail bits,
+    com x, y, z and mass; F is the windows' cells over all levels."""
     x0, x1, y0, y1, z0, z1 = bbox
     g = x0.shape[0]
     dev = x0.device
     md = spyr.max_depth
-    sched = check_window_schedule(
-        window_schedule or window_schedule_3d(md), md)
-    origins = _window_origins(bbox, spyr.bounds, sched)
     lows, highs = (x0, y0, z0), (x1, y1, z1)
 
     app = ([], [], [], [], [])  # x, y, z, m, mask
@@ -333,8 +342,113 @@ def collect_lists_3d_dense(
     if quarter_bits:
         payload += [torch.cat(a, 1) for a in dir_q]
     outs, ovf_d = _sort_compact(torch.cat(dir_mask, 1), payload, direct_cap)
-    outs = [lx, ly, lz, lm] + outs
-    overflow = ovf_a | ovf_d
+    return [lx, ly, lz, lm] + outs, ovf_a | ovf_d, escape
+
+
+def _dense_lists_kernel(bbox, spyr: SpatialPyramid, origins, sched, *,
+                        theta, softening, list_cap, direct_cap,
+                        direct_cell_max, quarter_bits):
+    """:func:`_dense_lists` on the card: one launch of
+    ``dense_collect3_kernel`` (``csrc/collect_dense3.cu``), bit-equal to
+    the twin.  Outputs and scratch come from ``torch.empty`` on the
+    current stream and nothing is read on the host, so a CUDA graph can
+    hold it."""
+    global DENSE_KERNEL_LAUNCHES
+    from . import _cuda
+
+    dev = bbox[0].device
+    g, q = bbox[0].shape
+    if q > KERNEL_MAX_SUB_BOXES:
+        raise ValueError(f"{q} sub-boxes a group; the dense collector's "
+                         f"kernel takes at most {KERNEL_MAX_SUB_BOXES}")
+    if quarter_bits and q % 4:
+        raise ValueError(f"quarter bits need Q % 4 == 0 sub-bboxes, got {q}")
+    n_lv = len(sched)
+    for lv in range(n_lv):
+        d = 1 << lv
+        _cuda.require(spyr.grid[lv], f"grid[{lv}]", torch.float32,
+                      (d, d, d, 5), dev)
+        _cuda.require(spyr.start[lv], f"start[{lv}]", torch.int32,
+                      (d, d, d), dev)
+    _cuda.require(spyr.bounds, "bounds", torch.float32, (6,), dev)
+    boxes = torch.stack(bbox)  # [6, G, Q]
+    orig = torch.stack(origins)  # [levels, G, 3]
+    _cuda.require(boxes, "bbox", torch.float32, (6, g, q), dev)
+    _cuda.require(orig, "origins", torch.int32, (n_lv, g, 3), dev)
+    f = sum(w ** 3 for w in sched)
+    wa, wd = min(f, list_cap), min(f, direct_cap)
+
+    def empty(w, dtype=torch.float32):
+        return torch.empty((g, w), dtype=dtype, device=dev)
+
+    lists = [empty(wa) for _ in range(4)]
+    direct = [empty(wd, torch.int32) for _ in range(2)]
+    quarters = ([empty(wd, torch.int32)] + [empty(wd) for _ in range(4)]
+                if quarter_bits else [])
+    overflow = torch.empty((g,), dtype=torch.bool, device=dev)
+    escape = torch.empty((g,), dtype=torch.bool, device=dev)
+    tails = (empty(wa, torch.int32), empty(wd, torch.int32))
+    ptrs = [t.data_ptr() for t in lists + direct]
+    ptrs += [t.data_ptr() for t in quarters] or [None] * 5
+    ptrs += [t.data_ptr() for t in (overflow, escape, *tails)]
+    levels = [t.data_ptr() for t in spyr.grid[:n_lv]] + [
+        t.data_ptr() for t in spyr.start[:n_lv]]
+    with torch.cuda.device(dev):
+        code = _cuda.library().nbody_dense_collect3(
+            (ctypes.c_void_p * len(levels))(*levels),
+            (ctypes.c_int * n_lv)(*sched), n_lv, boxes.data_ptr(),
+            orig.data_ptr(), spyr.bounds.data_ptr(), g, q, theta, softening,
+            MASS_SKIP_THRESHOLD, float(direct_cell_max), wa, wd, list_cap,
+            direct_cap, (ctypes.c_void_p * len(ptrs))(*ptrs),
+            int(quarter_bits), _cuda.stream_of(boxes))
+    _cuda.check(code, "dense_collect3")
+    with _cuda.counter_lock:
+        DENSE_KERNEL_LAUNCHES += 1
+    return lists + direct + quarters, overflow, escape
+
+
+def collect_lists_3d_dense(
+    bbox,  # 6 x [G, Q]: x0, x1, y0, y1, z0, z1
+    tree: Octree,  # the Morton octree: the spill pass walks it
+    spyr: SpatialPyramid,
+    *,
+    theta: float,
+    softening: float,
+    frontier_caps: Tuple[int, ...],  # the spill pass's walk caps
+    list_cap: int,
+    direct_cap: int,
+    direct_cell_max: int,
+    window_schedule: Tuple[int, ...] | None = None,
+    spill_cap: int | None = None,
+    quarter_bits: bool = False,
+):
+    """Drop-in dense replacement for ``bh3d._collect_lists_3d``, with the
+    same return contract: ((lx, ly, lz, lm) [G, L], ranges [G, D, 2],
+    overflow [G]), plus the quarters dict with ``quarter_bits``.
+
+    Every cell is classified as the gather walk classifies it; only the
+    traversal differs (windows and upsampled reached flags instead of
+    gathered frontiers), and with it the order of each group's list
+    entries.  The walk is one kernel for CUDA tensors and its torch twin
+    for CPU tensors, bit for bit the same lists.  ``spill_cap`` escaped
+    groups at most (default max(48, G // 4), the JAX package's budget)
+    are collected again by the gather walk; further escapes set their
+    overflow flag."""
+    from .bh3d import _collect_lists_3d  # imports this module
+
+    g = bbox[0].shape[0]
+    dev = bbox[0].device
+    md = spyr.max_depth
+    sched = check_window_schedule(
+        window_schedule or window_schedule_3d(md), md)
+    check_kernel_schedule(sched)
+    origins = _window_origins(bbox, spyr.bounds, sched)
+    walk = _dense_lists_kernel if bbox[0].is_cuda else _dense_lists
+    outs, overflow, escape = walk(
+        bbox, spyr, origins, sched, theta=theta, softening=softening,
+        list_cap=list_cap, direct_cap=direct_cap,
+        direct_cell_max=direct_cell_max, quarter_bits=quarter_bits)
+    lx = outs[0]
 
     # spill: the gather walk collects the first spill_cap escaped groups
     # again, exactly; the rest overflow

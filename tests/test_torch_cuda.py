@@ -1242,3 +1242,153 @@ def test_loop_spans_tile_the_step_on_the_stream(cuda):
     assert reads == 2 * cfg.n_steps + sim.last_retried_steps
     assert all(by_id[r.parent].name in ("nbody.step", "nbody.retry")
                for r in recs if r.name == "nbody.tree")
+
+
+# -- the dense 3D collector's kernel (csrc/collect_dense3.cu) --------------
+
+TINY_WINDOWS = (1, 2, 4, 6, 6, 6, 6, 6)  # escapes groups: the spill pass
+
+
+def _dense_setup(n, seed, blobs, gs, device):
+    """An octree of n bodies on the card, its spatial pyramid, the group
+    sub-bboxes (Q = max(4, gs / 128), as ops/bh3d cuts them) and the
+    walk's parameters at n's defaults; uniform in [-0.1, 0.1]^3, or two
+    tight Gaussian blobs."""
+    from nbody_tpu_torch.ops import bh3d, collect_dense3, tree3d
+
+    rng = np.random.default_rng(seed)
+    m = (10 ** rng.uniform(-1, np.log10(0.5), n)).astype(np.float32)
+    if blobs:
+        c = rng.uniform(-0.05, 0.05, (2, 3))
+        p = np.clip(np.concatenate([
+            rng.normal(c[0], 0.004, (n // 2, 3)),
+            rng.normal(c[1], 0.004, (n - n // 2, 3))]), -0.1, 0.1)
+    else:
+        p = rng.uniform(-0.1, 0.1, (n, 3))
+    p = torch.tensor(p.astype(np.float32), device=device)
+    m = torch.tensor(m, device=device)
+    md = tree3d.default_max_depth3(n)
+    tree = tree3d.build_octree(p, m, max_depth=md)
+    spyr = collect_dense3.build_spatial_pyramid(tree)
+    ps = p[torch.argsort(tree.codes, stable=True)]
+    q = max(4, gs // 128)
+    sub = ps.reshape(n // gs, q, gs // q, 3)
+    bbox = tuple(f(sub[..., a], 2) for a in range(3)
+                 for f in (torch.amin, torch.amax))
+    caps = bh3d.cap_defaults_3d(n)
+    kw = dict(theta=0.5, softening=1e-15, list_cap=caps["list_cap"],
+              direct_cap=caps["direct_cap"],
+              direct_cell_max=bh3d.direct_cell_max_default(n),
+              frontier_caps=bh3d.frontier_schedule_3d(caps["frontier_cap"],
+                                                      md, n))
+    return tree, spyr, bbox, kw
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# case -> (blobs, quarter_bits, tiny windows, (list_cap, direct_cap))
+DENSE_KERNEL_CASES = {
+    "uniform": (False, False, False, None),
+    "uniform-quarters": (False, True, False, None),
+    "blobs": (True, False, False, None),
+    "blobs-quarters": (True, True, False, None),
+    "tiny-windows": (False, True, True, None),
+    "tiny-windows-blobs": (True, False, True, None),
+    "truncated-rows": (True, True, False, (64, 16)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_KERNEL_CASES))
+def test_dense_kernel_bit_equal_to_twin(cuda, case):
+    """The kernel's lists, padding included, its overflow and escape
+    flags equal the torch twin's bit for bit on the same walk: the
+    default and a tiny window schedule, quarter bits on and off, and caps
+    that cut rows."""
+    from nbody_tpu_torch.ops import collect_dense3 as cd
+
+    blobs, quarters, tiny, caps = DENSE_KERNEL_CASES[case]
+    _, spyr, bbox, kw = _dense_setup(32768, 5, blobs, 2048, cuda)
+    md = spyr.max_depth
+    sched = TINY_WINDOWS[:md + 1] if tiny else cd.window_schedule_3d(md)
+    origins = cd._window_origins(bbox, spyr.bounds, sched)
+    walk = dict(theta=kw["theta"], softening=kw["softening"],
+                list_cap=kw["list_cap"], direct_cap=kw["direct_cap"],
+                direct_cell_max=kw["direct_cell_max"], quarter_bits=quarters)
+    if caps:
+        walk.update(list_cap=caps[0], direct_cap=caps[1])
+    before = cd.DENSE_KERNEL_LAUNCHES
+    got, g_ovf, g_esc = cd._dense_lists_kernel(bbox, spyr, origins, sched,
+                                               **walk)
+    want, w_ovf, w_esc = cd._dense_lists(bbox, spyr, origins, sched, **walk)
+    torch.cuda.synchronize()
+    assert cd.DENSE_KERNEL_LAUNCHES == before + 1
+    assert len(got) == len(want) == (11 if quarters else 6)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert _same_bits(a, b), f"output {k}"
+    assert torch.equal(g_ovf, w_ovf) and torch.equal(g_esc, w_esc)
+    # each case reaches what it names
+    assert bool(w_esc.any()) or not tiny
+    assert bool(w_ovf.any()) == (caps is not None)
+    assert (want[5] > 0).any() and (want[3] > 0).any()
+    if quarters:
+        assert (want[6] > 0).any()
+
+
+@pytest.mark.parametrize("quarters", [False, True])
+def test_dense_collector_spill_on_card_equals_twin_route(cuda, monkeypatch,
+                                                         quarters):
+    """The whole collector with tiny windows (groups escape and the gather
+    walk collects them again) gives the same bits through the kernel as
+    through the twin on the same tensors; one launch a pass."""
+    from nbody_tpu_torch.ops import collect_dense3 as cd
+
+    tree, spyr, bbox, kw = _dense_setup(32768, 6, False, 512, cuda)
+    g = bbox[0].shape[0]
+
+    def run():
+        res = cd.collect_lists_3d_dense(
+            bbox, tree, spyr, window_schedule=TINY_WINDOWS[:spyr.max_depth
+                                                           + 1],
+            spill_cap=g, quarter_bits=quarters, **kw)
+        flat = [*res[0], res[1], res[2]]
+        if quarters:
+            flat += [res[3]["bits"], *res[3]["com"], res[3]["mass"]]
+        return flat
+
+    passes, launches = cd.DENSE_PASSES, cd.DENSE_KERNEL_LAUNCHES
+    spills, escaped = cd.SPILL_PASSES, cd.ESCAPED_GROUPS
+    got = run()
+    torch.cuda.synchronize()
+    assert cd.DENSE_KERNEL_LAUNCHES - launches == cd.DENSE_PASSES - passes
+    assert cd.DENSE_PASSES - passes == 1
+    assert cd.SPILL_PASSES == spills + 1 and cd.ESCAPED_GROUPS > escaped
+    with monkeypatch.context() as mp:
+        mp.setattr(cd, "_dense_lists_kernel", cd._dense_lists)
+        want = run()
+    assert cd.DENSE_KERNEL_LAUNCHES - launches == 1
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert _same_bits(a, b), f"output {k}"
+
+
+def test_dense_pass_launches_the_kernel_never_the_twin(cuda, monkeypatch):
+    """A 3D dense force pass on the card: DENSE_KERNEL_LAUNCHES rises by
+    exactly DENSE_PASSES's rise, and the twin is never called."""
+    from nbody_tpu_torch.ops import bh3d, collect_dense3 as cd
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the dense twin")
+
+    monkeypatch.setattr(cd, "_dense_lists", refuse)
+    p, m = _cloud3(8192, 9, cuda)
+    passes, launches = cd.DENSE_PASSES, cd.DENSE_KERNEL_LAUNCHES
+    _, ovf = bh3d.bh3_accelerations_grouped(p, m, g=G, group_size=512,
+                                            collect="dense",
+                                            return_diagnostics=True)
+    torch.cuda.synchronize()
+    assert cd.DENSE_PASSES - passes == 1
+    assert cd.DENSE_KERNEL_LAUNCHES - launches == cd.DENSE_PASSES - passes
+    assert int(ovf.sum()) == 0

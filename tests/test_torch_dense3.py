@@ -363,3 +363,40 @@ def test_dense_counters_and_1m_defaults():
     for n_ in (262144, n):
         assert tb._resolve_collect(None, n_) == "dense"
     assert td.window_schedule_3d(7) == (1, 2, 4, 8, 16, 28, 24, 32)
+
+
+def _refuse_walk(*a, **kw):
+    raise AssertionError("the walk ran before its schedule was checked")
+
+
+def test_dense_collector_rejects_windows_its_kernel_cannot_take(
+        monkeypatch):
+    """A window wider than the kernel's 32 cells raises before the walk
+    is dispatched, on either device, so the twin runs no schedule that
+    the card would refuse; the widest default schedule passes."""
+    m, p = _cloud(512, 4, False)
+    tree = tt.build_octree(torch.tensor(p), torch.tensor(m), max_depth=6)
+    spyr = td.build_spatial_pyramid(tree)
+    bbox = tuple(torch.tensor(np.full((2, 4), v, np.float32))
+                 for v in (-0.01, 0.01) * 3)
+    kw = dict(theta=0.5, softening=1e-15, frontier_caps=(64,) * 7,
+              list_cap=256, direct_cap=64, direct_cell_max=32)
+    monkeypatch.setattr(td, "_dense_lists", _refuse_walk)
+    monkeypatch.setattr(td, "_dense_lists_kernel", _refuse_walk)
+    wide = (1, 2, 4, 8, 16, 32, 64)
+    assert td.check_window_schedule(wide, 6) == wide
+    with pytest.raises(ValueError, match=r"widths \[64\] exceed"):
+        td.collect_lists_3d_dense(bbox, tree, spyr, window_schedule=wide,
+                                  **kw)
+    with pytest.raises(AssertionError, match="schedule was checked"):
+        td.collect_lists_3d_dense(bbox, tree, spyr, **kw)
+    for md in range(1, 16):
+        td.check_kernel_schedule(td.window_schedule_3d(md))
+
+
+def test_dense_kernel_schedule_depth_limit():
+    td.check_kernel_schedule(td.window_schedule_3d(td.KERNEL_MAX_LEVELS - 1))
+    deep = td.window_schedule_3d(td.KERNEL_MAX_LEVELS)
+    assert td.check_window_schedule(deep, td.KERNEL_MAX_LEVELS) == deep
+    with pytest.raises(ValueError, match="at most 16"):
+        td.check_kernel_schedule(deep)

@@ -295,3 +295,16 @@ def test_retry_ms_reads_zero_without_retries(monkeypatch):
     monkeypatch.setattr(profiling, "spans", lambda: _loop((False, False)))
     assert cells.metric_module("retry_ms.loop").read(_readings(2)) == 0.0
     assert cells.metric_module("tree_ms.loop").read(_readings(2)) == 1.0
+
+
+def test_hand_kernel_names_find_every_source_and_the_dense_collector():
+    """The benchmark's kernel reader finds each built source's kernels by
+    name, the dense 3D collector's among them, with no edit of its own."""
+    from benchmark import trace
+    from nbody_tpu_torch.ops import _cuda
+
+    names = trace.hand_kernel_names()
+    assert "dense_collect3_kernel" in names
+    assert {"allpairs_kernel", "runs_split_kernel", "leaf_sums_kernel",
+            "set_if_kernel"} <= names
+    assert {p.name for p in trace.CSRC.glob("*.cu")} == set(_cuda.SOURCES)
