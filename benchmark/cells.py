@@ -7,6 +7,8 @@ Everything else is found by name, so a new cell, configuration, traffic
 mix or per-layer metric is a new file and an entry, and no edit:
 
 * ``benchmark/traffic/<traffic>.json``: the mix's parameters;
+* ``benchmark/inits/<distribution>.py``: an initial distribution that a
+  configuration names in ``init.distribution`` (``states.make_bodies``);
 * ``benchmark/metrics/<metric name>.py``: the per-layer metric's reader,
   a module with ``read(readings)``, which returns a number (or None
   where it finds nothing to read) and, where the module also has
@@ -19,10 +21,13 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import re
 from pathlib import Path
 from typing import Dict, List
 
 ROOT = Path(__file__).resolve().parents[1]
+# a name that ``BENCHMARK.json`` or a configuration gives a file
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
 @dataclasses.dataclass
@@ -90,6 +95,18 @@ def metric_module(metric: str, root: Path = ROOT):
     """The module ``benchmark/metrics/<metric>.py``."""
     return load_module(root / "benchmark" / "metrics" / f"{metric}.py",
                        f"benchmark_metric_{metric.replace('.', '_')}")
+
+
+def init_module(distribution: str, root: Path = ROOT):
+    """The module ``benchmark/inits/<distribution>.py``; an error that
+    names the distribution where there is none."""
+    path = root / "benchmark" / "inits" / f"{distribution}.py"
+    if not (isinstance(distribution, str) and NAME.match(distribution)
+            and path.is_file()):
+        raise ValueError(f"unknown initial distribution {distribution!r}: "
+                         f"no benchmark/inits/{distribution}.py")
+    return load_module(path, "benchmark_init_"
+                       + distribution.replace(".", "_"))
 
 
 def read_metrics(cell: Cell, readings) -> dict:

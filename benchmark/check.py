@@ -77,8 +77,8 @@ def check(program, seed: int, finals: list, control: bool = False,
     if runs is None:
         runs = picked_runs(seed, len(finals), int(spec["runs"]))
     for r in runs:
-        state = program.state(states.make_bodies(cfg, seed, r,
-                                                 program.device))
+        state = program.state(states.make_bodies(
+            cfg, seed, r, program.device, program.cell.root))
         for k in range(program.steps):
             new, info = program.run(state, 1)
             pos, vel = state.positions, state.velocities

@@ -32,7 +32,7 @@ def readings(cell: cells.Cell, seeds, device: torch.device,
     out = []
     for seed in seeds:
         final, _ = program.run(program.state(states.make_bodies(
-            cell.config, seed, 0, device)), program.steps)
+            cell.config, seed, 0, device, cell.root)), program.steps)
         finals = [(final.positions.clone(), final.velocities.clone())]
         del final
         numbers = check.check(program, seed, finals, control=True,

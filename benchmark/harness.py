@@ -7,7 +7,9 @@ fused run, CUDA graph capture included; ``run_contract``: the per-step
 loop with its 4x-cap retries).  The window repeats runs back to back
 until ``--seconds`` have passed and ends on a run boundary; each run is
 timed by the host clock around the call, ending in a device
-synchronise, and making its state stays outside the clock.  On a mesh
+synchronise, and making its state stays outside the clock.  The
+program's ``SimConfig`` comes from the configuration: its sizes and
+constants, and any other field in its ``program`` object.  On a mesh
 (the configuration's ``devices`` > 1) every rank does the same on its
 own card, rank 0 deciding after each run whether another follows.
 """
@@ -47,6 +49,40 @@ def loop_counts(stderr: str) -> dict:
     return dict(retried=retried, failed=failed, capture_ms=0.0, scan_ms=0.0)
 
 
+# SimConfig fields the harness sets from the configuration's top level
+# and the traffic, which its ``program`` settings may not restate
+SET_ELSEWHERE = ("n_bodies", "n_dim", "engine", "dtype", "n_steps", "theta",
+                 "dt", "g", "softening")
+
+
+def program_settings(config: dict) -> dict:
+    """The configuration's ``program`` object: ``SimConfig`` field names
+    and scalar values, applied over what the harness sets.  A name that
+    ``SimConfig`` lacks (a program without the field the configuration
+    needs), a nested field or a field set elsewhere stops set-up with an
+    error that names it."""
+    from nbody_tpu_torch.config import SimConfig
+
+    settings = config.get("program", {})
+    defaults = SimConfig()
+    fields = {f.name for f in dataclasses.fields(SimConfig)}
+    for name, value in settings.items():
+        if name not in fields:
+            raise ValueError(f"program setting {name!r}: SimConfig has no "
+                             "such field")
+        if dataclasses.is_dataclass(getattr(defaults, name)):
+            raise ValueError(f"program setting {name!r}: a nested field, "
+                             "which a configuration may not set")
+        if name in SET_ELSEWHERE:
+            raise ValueError(f"program setting {name!r}: set by the "
+                             "configuration's top level or the traffic")
+        if not (value is None or isinstance(value, (bool, int, float,
+                                                    str))):
+            raise ValueError(f"program setting {name!r}: {value!r} is not "
+                             "a scalar")
+    return settings
+
+
 class Program:
     """The system under test as one rank of the cell runs it: the
     program's configuration, its state and its ``Simulation``."""
@@ -65,7 +101,8 @@ class Program:
         self.sim_config = SimConfig(
             n_bodies=int(c["n_bodies"]), n_dim=int(c["n_dim"]),
             engine=c["engine"], dtype=c["dtype"], n_steps=self.steps,
-            mesh=MeshConfig(dp=cell.devices), **opts)
+            mesh=MeshConfig(dp=cell.devices), **opts).replace(
+                **program_settings(c))
         scale = cell.traffic.get("cap_scale", {})
         if scale:  # {cap: factor} over the program's resolved caps
             from nbody_tpu_torch.models.engines import resolved_caps
@@ -169,12 +206,13 @@ def run_rank(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     cfg = cell.config
     for w in range(int(cfg.get("warm_runs", 1))):
         program.run(program.state(states.make_bodies(
-            cfg, seed, WARM_BASE + w, device)), program.steps)
+            cfg, seed, WARM_BASE + w, device, cell.root)), program.steps)
     sync(device)
 
     trace_runs = int(cell.traffic.get("trace_runs", 1)) if trace else 0
     # the traced runs' states are made, and the profiler started, first
-    queued = [program.state(states.make_bodies(cfg, seed, j, device))
+    queued = [program.state(states.make_bodies(cfg, seed, j, device,
+                                               cell.root))
               for j in range(trace_runs)]
     sync(device)
     prof = None
@@ -192,7 +230,7 @@ def run_rank(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     while go:
         idx = len(finals)
         state = queued.pop(0) if queued else program.state(
-            states.make_bodies(cfg, seed, idx, device))
+            states.make_bodies(cfg, seed, idx, device, cell.root))
         sync(device)
         t = time.perf_counter()
         with torch.profiler.record_function("benchmark.run"):

@@ -1,5 +1,7 @@
 """The benchmark's files: found by name, valid, and free of JAX."""
 
+import dataclasses
+import hashlib
 import json
 import re
 import shutil
@@ -62,22 +64,43 @@ def test_spec_names_units_and_lengths():
     assert len(json.dumps(s)) < 64 * 1024
 
 
-def test_a_new_cell_needs_no_edit(tmp_path):
-    """A new configuration, traffic mix and per-layer metric are new
-    files and entries; no file that is there changes."""
-    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+# a distribution that a configuration can name: equal masses, the
+# reference's position and velocity ranges
+EQUAL_MASSES = textwrap.dedent("""
+    import torch
+
+
+    def make(config, gen, device):
+        n, d = int(config["n_bodies"]), int(config["n_dim"])
+        u = torch.rand((n, 2 * d), generator=gen, device=device)
+        return (torch.full((n,), 0.25, device=device),
+                ((u[:, :d] - 0.5) * 0.2).contiguous(),
+                ((u[:, d:] - 0.5) * 2e-4).contiguous())
+""")
+
+
+def new_cell_root(root: Path) -> dict:
+    """A checkout at ``root`` with the benchmark's files and a new cell,
+    ``bh2d_small.short``, made of new files and entries alone: its
+    configuration names a new initial distribution and a program
+    setting.  {path: bytes} of the files that were there."""
+    shutil.copytree(ROOT / "benchmark", root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     s = spec()
-    before = {p: p.read_bytes() for p in (tmp_path / "benchmark").rglob("*")
+    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*")
               if p.is_file()}
     cfg = json.loads((ROOT / "benchmark/configs/bh2d_ref.json").read_text())
-    cfg.update(name="bh2d_small", n_bodies=8192)
-    (tmp_path / "benchmark/configs/bh2d_small.json").write_text(
+    cfg.update(name="bh2d_small", n_bodies=8192,
+               program={"max_depth": 8})
+    cfg["init"]["distribution"] = "equal_masses"
+    cfg["reference"]["max_depth"] = 8
+    (root / "benchmark/configs/bh2d_small.json").write_text(
         json.dumps(cfg))
-    (tmp_path / "benchmark/traffic/short.json").write_text(json.dumps(
+    (root / "benchmark/inits/equal_masses.py").write_text(EQUAL_MASSES)
+    (root / "benchmark/traffic/short.json").write_text(json.dumps(
         {"entry": "run_contract", "steps_per_run": 2,
          "metric": "loop_step_ms"}))
-    (tmp_path / "benchmark/metrics/runs_done.short.py").write_text(
+    (root / "benchmark/metrics/runs_done.short.py").write_text(
         "def read(r):\n    return float(r.runs)\n")
     s["configs"].append({"name": "bh2d_small", "source": "x",
                          "file": "benchmark/configs/bh2d_small.json",
@@ -92,10 +115,29 @@ def test_a_new_cell_needs_no_edit(tmp_path):
                            "better": "higher", "source": "program_counter",
                            "layer": "x", "moves": "loop_step_ms",
                            "workloads": ["bh2d_small.short"]})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(s))
+    (root / "BENCHMARK.json").write_text(json.dumps(s))
+    return before
+
+
+def test_a_new_cell_needs_no_edit(tmp_path):
+    """A new configuration, initial distribution, program setting,
+    traffic mix and per-layer metric are new files and entries; no file
+    that is there changes, and a run of the new cell goes through."""
+    before = new_cell_root(tmp_path)
     cell = cells.load_cell("bh2d_small.short", root=tmp_path)
     assert cell.config["n_bodies"] == 8192 and cell.traffic[
         "steps_per_run"] == 2
+    program = harness.Program(cell, torch.device("cpu"))
+    assert program.sim_config == parent_sim_config(cell).replace(
+        max_depth=8)
+    masses, positions, _ = states.make_bodies(cell.config, 2**40 + 3, 0,
+                                              "cpu", root=tmp_path)
+    assert bool((masses == 0.25).all()) and positions.shape == (8192, 2)
+    cell.config["n_bodies"] = 2048
+    part = harness.run_rank(cell, 2**40 + 3, 0.2, False,
+                            torch.device("cpu"), 0.0)
+    out = run.result(cell, [part], traced=False)
+    assert out["correct"] is True and out["attempted"] >= 2
     assert [m.name for m in cell.per_layer] == ["runs_done.short"]
     readings = harness.Readings(config=cell.config, runs=7, steps=14,
                                 retried_steps=0, capture_ms=[])
@@ -104,6 +146,82 @@ def test_a_new_cell_needs_no_edit(tmp_path):
                                                   "unit": "runs"}}
     after = {p: p.read_bytes() for p in before}
     assert after == before
+
+
+def parent_sim_config(cell: cells.Cell):
+    """``Program.sim_config`` as the harness built it before a
+    configuration could name program settings (a frozen copy)."""
+    from nbody_tpu_torch.config import MeshConfig, SimConfig
+    from nbody_tpu_torch.models.engines import resolved_caps
+
+    c = cell.config
+    opts = {k: float(c[k]) for k in ("theta", "dt", "g", "softening")
+            if k in c}
+    sim = SimConfig(
+        n_bodies=int(c["n_bodies"]), n_dim=int(c["n_dim"]),
+        engine=c["engine"], dtype=c["dtype"],
+        n_steps=int(cell.traffic["steps_per_run"]),
+        mesh=MeshConfig(dp=cell.devices), **opts)
+    scale = cell.traffic.get("cap_scale", {})
+    if scale:
+        caps = resolved_caps(sim)
+        sim = sim.replace(**{k: int(f) * caps[k] for k, f in scale.items()})
+    return sim
+
+
+@pytest.mark.parametrize("workload", [w["name"]
+                                      for w in spec()["workloads"]])
+def test_existing_sim_configs_are_the_parents(workload):
+    cell = cells.load_cell(workload)
+    sim = harness.Program(cell, torch.device("cpu")).sim_config
+    assert dataclasses.asdict(sim) == dataclasses.asdict(
+        parent_sim_config(cell))
+
+
+# sha256 of (masses, positions, velocities) of seeds 0-2, runs 0-1, at
+# full size on the CPU, as the harness drew them before a configuration
+# could name its distribution (frozen)
+PARENT_STATES = {
+    "bh2d_ref":
+        "cb351c6cd7b2aea3e2f7ca1fecc9f53dc5a490ad509bfca6e098a9f9abf6feb2",
+    "bh3d_1m":
+        "7258936fa7c58b4e9fd8a53a483b778c42e65be9147df6590c68f550d2efc251",
+    "allpairs_strong":
+        "284ecf67bd3fceae9667063b70b420b0103cc15a5054b5c1ddc222fc4c8dc31d",
+}
+
+
+@pytest.mark.parametrize("config", sorted(PARENT_STATES))
+def test_existing_states_are_the_parents(config):
+    cfg = cells.load_json(ROOT / "benchmark" / "configs" / f"{config}.json")
+    assert states.distribution(cfg) == "uniform"
+    named = dict(cfg, init=dict(cfg["init"], distribution="uniform"))
+    for c in (cfg, named):
+        h = hashlib.sha256()
+        for seed in range(3):
+            for index in range(2):
+                for t in states.make_bodies(c, seed, index, "cpu"):
+                    h.update(t.numpy().tobytes())
+        assert h.hexdigest() == PARENT_STATES[config]
+
+
+@pytest.mark.parametrize("key,value,name", [
+    ("init", {"distribution": "no_such_init"}, "no_such_init"),
+    ("init", {"distribution": "../configs/x"}, "../configs/x"),
+    ("program", {"no_such_field": 1}, "no_such_field"),
+    ("program", {"init": {"lower_m": 0.2}}, "init"),
+    ("program", {"mesh": {"dp": 2}}, "mesh"),
+    ("program", {"theta": 0.4}, "theta"),
+    ("program", {"list_cap": [4096]}, "list_cap"),
+])
+def test_unknown_names_stop_set_up(key, value, name):
+    """A distribution with no file, a program setting that SimConfig
+    lacks, a nested one, one set elsewhere or one not a scalar stops a
+    run at set-up, with the name in the error."""
+    cell = cells.load_cell("bh2d_ref.fused")
+    cell.config = dict(cell.config, n_bodies=256, **{key: value})
+    with pytest.raises(ValueError, match=re.escape(repr(name))):
+        harness.run_rank(cell, 1, 0.1, False, torch.device("cpu"), 0.0)
 
 
 def test_k1_operations_and_bytes():
@@ -207,12 +325,18 @@ def test_forbidden_modules_compare_top_level_names_whole(monkeypatch):
 
 
 def test_import_guard():
-    """A cell's set-up imports, in a fresh interpreter on the CPU, load
-    neither JAX nor the JAX package."""
+    """A cell's set-up imports and every initial distribution, in a fresh
+    interpreter on the CPU, load neither JAX nor the JAX package."""
     code = textwrap.dedent("""
         import sys, torch
         from benchmark import cells, check, control, harness, run, trace
         from benchmark import readers, roofline, states
+        for path in sorted((cells.ROOT / "benchmark" / "inits").glob(
+                "*.py")):
+            cells.init_module(path.stem)
+        states.make_bodies({"n_bodies": 64, "n_dim": 3,
+                            "init": {"distribution": "plummer"}}, 1, 0,
+                           "cpu")
         for w in cells.benchmark_spec()["workloads"]:
             cell = cells.load_cell(w["name"])
             cell.config["devices"] = 1
