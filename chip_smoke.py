@@ -172,6 +172,13 @@ Phases, each printing what it found; the first failure exits non-zero:
    twin and the library call, with its bound; and the evolved 1M step
    with the leaf sums on the twin and on the kernels, in turns
    (``--only-phase-9`` runs phases 0, 1 and 9).
+11. the adaptive engine's refinement (``tree3d.refine_octree``) on a 1M
+   Plummer sphere after 5 steps: card against CPU bit for bit, its sums
+   and the build timed alone beside the sums' bound, and one force pass
+   with its launches counted (the pyramid's leaf sums, one a refined
+   level, one K4) and K4 against its plain twin on that pass's tables,
+   for the group of the widest quarter and seven more
+   (``--only-phase-11`` runs phases 0, 1 and 11).
 
 The summary gives each kernel its bound: the larger of the FP32 work
 over 67 TFLOP/s, the special-function work (rsqrt, and the reciprocal of
@@ -2611,6 +2618,123 @@ def phase10(dev, card: str) -> dict:
     return out
 
 
+def phase11(dev, card: str) -> dict:
+    """11: the adaptive engine's refinement (``tree3d.refine_octree``: the
+    sparse levels below the pyramid, their sums on the leaf-sums kernels)
+    on an evolved 1M Plummer sphere: every output bit for bit against
+    the same build on the CPU (the sums' twin), the build and the
+    refinement's sums timed alone beside their bound (``leaf_bound``: the
+    rows read once a level, the sums written once), and one force pass
+    with its groups that walked the refinement, its leaf-sums and K4
+    launches, and K4 against its plain twin on the pass's own tables
+    (the adaptive caps' shapes) for the widest quarter's group and seven
+    more."""
+    import torch
+
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.engines import make_accel_fn
+    from nbody_tpu_torch.models.simulation import Simulation
+    from nbody_tpu_torch.ops import bh3d, list_eval, tree, tree3d
+
+    print("phase 11: the adaptive engine's refinement on an evolved 1M "
+          "Plummer sphere, card against CPU, bit for bit", flush=True)
+    n1m = 1 << 20
+    cfg = SimConfig(n_bodies=n1m, n_dim=3, engine="barnes_hut_adaptive",
+                    init_mode="plummer", seed=7, n_steps=5, g=1.0,
+                    softening=0.01, dt=1.0 / 64)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        evolved = Simulation(cfg, device=dev)
+        evolved.run_contract()
+    p, m = evolved.state.positions, evolved.state.masses
+    md = cfg.resolved_max_depth
+    dcm = bh3d.direct_cell_max_default(n1m)
+    seen = []
+    with spying(tree3d, "leaf_sums", seen):
+        got = tree3d.build_octree_adaptive(p, m, md, dcm)
+    want = tree3d.build_octree_adaptive(p.cpu(), m.cpu(), md, dcm)
+    torch.cuda.synchronize()
+    (t_g, r_g, o_g), (t_w, r_w, o_w) = got, want
+    pairs = [("order", o_g, o_w)] + [
+        (f"pyramid level {lv}", a, b)
+        for lv, (a, b) in enumerate(zip(t_g.raw, t_w.raw))]
+    if len(r_g.raw) != len(r_w.raw):
+        fail(f"11: {len(r_g.raw)} refined levels on the card, "
+             f"{len(r_w.raw)} on the CPU")
+    for i in range(len(r_g.raw)):
+        pairs += [(f"refined level {md + 1 + i} {what}", a[i], b[i])
+                  for what, a, b in (("rows", r_g.raw, r_w.raw),
+                                     ("starts", r_g.start, r_w.start),
+                                     ("children", r_g.child, r_w.child))]
+    for tag, a, b in pairs:
+        a = a.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            fail(f"11: {tag} differs between the card and the CPU")
+    counts = [r.shape[0] for r in r_g.raw]
+    print(f"  depth {r_g.depth}, {r_g.n_cells:,} refined cells "
+          f"{counts} below the depth-{md} pyramid (the largest leaf "
+          f"{int(t_g.leaf_counts().max()):,} bodies); bit-equal to the "
+          "CPU build", flush=True)
+    sums = seen[1:]  # the pyramid's leaf sums come first
+    sorted_codes = tree3d.morton_codes_3d(
+        p, t_g.bounds, tree3d.MAX_DEPTH3_WIDE, torch.int64)[o_g]
+    rows = tree3d.packed_rows_3d(p, m)[o_g]
+    counts0 = tree3d.leaf_counts(t_g.codes, 8 ** md)
+    cum = torch.cat([counts0.new_zeros(1), torch.cumsum(counts0, 0)])
+    b_ms = sum(leaf_bound(*a)[0] for a, _ in sums)
+    k_ms = sum(cuda_ms(lambda a=a: tree.leaf_sums(*a), reps=10)
+               for a, _ in sums)
+    r_ms = cuda_ms(lambda: tree3d.refine_octree(sorted_codes, rows, cum,
+                                                md, dcm), reps=5)
+    b_all = cuda_ms(lambda: tree3d.build_octree_adaptive(p, m, md, dcm),
+                    reps=5)
+    print(f"  the refinement's sums: {len(sums)} leaf-sums calls "
+          f"{k_ms:.4f} ms, bound {b_ms:.4f} ms (bytes: {n1m:,} rows a "
+          f"level read once); refine_octree {r_ms:.3f} ms; the whole "
+          f"adaptive tree build {b_all:.3f} ms  [{card}]", flush=True)
+    accel = make_accel_fn(cfg, return_diagnostics=True)
+    groups0 = bh3d.REFINE_GROUPS
+    tree.LEAF_SUM_LAUNCHES = list_eval.SPLIT_LAUNCHES = 0
+    split = []
+    with spying(list_eval, "list_eval_runs_split", split):
+        acc, ovf = accel(p, m)
+    torch.cuda.synchronize()
+    launches = dict(leaf=tree.LEAF_SUM_LAUNCHES, k4=list_eval.SPLIT_LAUNCHES)
+    want = dict(leaf=1 + len(r_g.raw), k4=1)
+    entered = bh3d.REFINE_GROUPS - groups0
+    print(f"  a force pass: {entered} of {n1m // 2048} groups walked the "
+          f"refinement, {int(ovf.sum())} bodies overflowed; launches "
+          f"{launches} (want {want})", flush=True)
+    if launches != want or len(split) != 1:
+        fail(f"11: a force pass launched {launches} and called K4's "
+             f"wrapper {len(split)} times; want {want} and one call")
+    # K4 on the pass's tables against its plain twin, on the group of the
+    # widest quarter (its direct ranges) and seven spread over the rest
+    a4, kw4 = split[0]
+    n_g = a4[0].shape[0]
+    lanes = list_eval.split_quarter_lanes(*a4[1:], k_tile=kw4["k_tile"])
+    widest = int(lanes.argmax()) // 4
+    picked = sorted({widest, *range(0, n_g, -(-n_g // 7))})
+    gi = torch.tensor(picked, device=dev)
+    qi = (4 * gi[:, None] + torch.arange(4, device=dev)).reshape(-1)
+    part = (a4[0][gi], a4[1][gi], a4[2][qi], a4[3], a4[4][qi],
+            a4[5][:, qi].contiguous())
+    k4_err = compare(
+        f"K4 on the adaptive pass's tables (targets "
+        f"{tuple(a4[0].shape)}, tiles {tuple(a4[4].shape)}), groups "
+        f"{picked}: the widest quarter {int(lanes.max()):,} lanes "
+        f"(group {widest}), mean {float(lanes.float().mean()):,.0f}",
+        list_eval.list_eval_runs_split(*a4, **kw4)[gi],
+        list_eval.list_eval_runs_split_plain(*part, **kw4))
+    f_ms = cuda_ms(lambda: accel(p, m), reps=3)
+    print(f"  the force pass: {f_ms:.1f} ms [{card}]", flush=True)
+    return dict(ms=k_ms, bound_ms=b_ms, refine_ms=r_ms, build_ms=b_all,
+                cells=r_g.n_cells, depth=r_g.depth, k4_err=k4_err,
+                launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -2670,7 +2794,7 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     only = {"--only-phase-6c": phase6c, "--only-phase-7": phase7,
             "--only-phase-8": phase8, "--only-phase-9": phase9,
-            "--only-phase-10": phase10}
+            "--only-phase-10": phase10, "--only-phase-11": phase11}
     if len(sys.argv) == 2 and sys.argv[1] in only:
         # a short run of one later path alone (phases 0, 1 and it)
         only[sys.argv[1]](dev, card)
@@ -3417,6 +3541,7 @@ def main() -> int:
     phase8(dev, card)
     leaf9 = phase9(dev, card)
     dense10 = phase10(dev, card)
+    phase11(dev, card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

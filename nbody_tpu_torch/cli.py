@@ -32,8 +32,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="N_SIMULATIONS analogue (project.cu:9-11)")
     p.add_argument("--dt", type=float, default=1.0)
     p.add_argument("--g", type=float, default=6.67e-11)
-    p.add_argument("--engine", choices=["naive", "allpairs", "barnes_hut"],
-                   default="barnes_hut")
+    p.add_argument("--engine",
+                   choices=["naive", "allpairs", "barnes_hut",
+                            "barnes_hut_adaptive"],
+                   default="barnes_hut",
+                   help="barnes_hut_adaptive: 3D grouped Barnes-Hut whose "
+                        "octree goes as deep as the state needs (one "
+                        "device, the per-step loop)")
     p.add_argument("--theta", type=float, default=0.5)
     p.add_argument("--max-depth", type=int, default=None,
                    help="tree depth cap; default 9 in 2D (reference "
@@ -91,10 +96,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "N >= 262,144)")
     p.add_argument("--no-adaptive-caps", action="store_true",
                    help="disable the 4x-caps retry of an overflowed step")
-    p.add_argument("--init-mode", choices=["uniform", "blobs"],
+    p.add_argument("--init-mode", choices=["uniform", "blobs", "plummer"],
                    default="uniform",
-                   help="random init distribution: uniform (reference) or "
-                        "blobs (two dense clusters)")
+                   help="random init distribution: uniform (reference), "
+                        "blobs (two dense clusters) or plummer (3D: the "
+                        "Plummer sphere in Henon units, G = M = 1)")
     p.add_argument("--load-init", metavar="DIR", default=None,
                    help="load masses/positions/velocities_init.txt from DIR")
     p.add_argument("--save-init", action="store_true",
@@ -213,9 +219,16 @@ def _make_state(args, config, device=None):
 
 
 def cmd_run(args) -> int:
+    from .models.engines import check_adaptive
+
+    config = _build_config(args)
+    try:
+        check_adaptive(config, fused=args.fused)
+    except ValueError as err:
+        print(f"ERROR: {err}", file=sys.stderr)
+        return 2
     if args.devices > 1:
         return _run_distributed(args)
-    config = _build_config(args)
     state = _make_state(args, config)
 
     if args.save_init:
@@ -234,7 +247,8 @@ def cmd_run(args) -> int:
     os.makedirs(args.output_dir, exist_ok=True)
     sim = Simulation(config, state=state)
 
-    if args.check_overflow and args.engine == "barnes_hut":
+    if args.check_overflow and args.engine in ("barnes_hut",
+                                               "barnes_hut_adaptive"):
         from .models.engines import make_accel_fn
 
         _, ovf = make_accel_fn(config, return_diagnostics=True)(

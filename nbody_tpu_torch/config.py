@@ -69,7 +69,9 @@ class SimConfig:
     dt: float = DT_DEFAULT
     g: float = G_DEFAULT
     n_dim: int = 2
-    engine: str = "allpairs"  # "naive" | "allpairs" | "barnes_hut"
+    # "naive" | "allpairs" | "barnes_hut" | "barnes_hut_adaptive" (3D,
+    # the port's alone: models/engines.py)
+    engine: str = "allpairs"
     theta: float = THETA_DEFAULT
     max_depth: Optional[int] = None
     softening: float = BH_SOFTENING

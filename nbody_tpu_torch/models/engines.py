@@ -3,7 +3,10 @@ in 2D (kernel K2, or K4 with quarter-split evaluation) and 3D (kernels
 K2 and K3, or K4), each with the padded-list evaluators K6 (grid,
 compensated) and K7 (dynamic) on request, and the exact per-body 2D
 Barnes-Hut (``bh_mode="exact"``, eager torch) — counterpart of
-``nbody_tpu.models.engines``.
+``nbody_tpu.models.engines``.  One engine is the port's alone:
+``barnes_hut_adaptive``, 3D grouped Barnes-Hut whose tree goes as deep
+as the state needs (``ops/bh3d.bh3_accelerations_adaptive``), on one
+device, step by step.
 
 Every engine is an acceleration function of one signature:
 
@@ -23,11 +26,37 @@ from ..config import SimConfig
 from ..physics import pair_accelerations_chunked, pair_accelerations_dense
 
 
+# the Barnes-Hut engines (the ones with traversal caps and a tree)
+BH_ENGINES = ("barnes_hut", "barnes_hut_adaptive")
+
+
+def check_adaptive(config: SimConfig, fused: bool = False) -> None:
+    """Raise, naming the missing case, where ``barnes_hut_adaptive``
+    cannot run: it is 3D, on one device, in the per-step loop."""
+    if config.engine != "barnes_hut_adaptive":
+        return
+    if config.n_dim != 3:
+        raise ValueError("engine barnes_hut_adaptive is 3D only: it has no "
+                         "2D (quadtree) form; use --dims 3")
+    if config.mesh.dp > 1:
+        raise ValueError("engine barnes_hut_adaptive runs on one device: "
+                         "it has no sharded mode for --devices > 1")
+    if fused:
+        raise ValueError("engine barnes_hut_adaptive runs the per-step "
+                         "loop only: it has no --fused (CUDA graph) form, "
+                         "as its refinement is sized on the host each "
+                         "step")
+
+
 def resolved_caps(config: SimConfig) -> dict:
-    """The traversal caps the barnes_hut engine will use — explicit
+    """The traversal caps a Barnes-Hut engine will use — explicit
     config values, else the calibrated defaults; the basis of the 4x
     adaptive-caps retry (simulation.py)."""
-    if config.n_dim == 3:
+    if config.engine == "barnes_hut_adaptive":
+        from ..ops.bh3d import cap_defaults_adaptive
+
+        d = cap_defaults_adaptive(config.n_bodies)
+    elif config.n_dim == 3:
         from ..ops.bh3d import cap_defaults_3d
 
         d = cap_defaults_3d(config.n_bodies)
@@ -155,5 +184,29 @@ def make_accel_fn(config: SimConfig,
             )
 
         return grouped
+
+    if engine == "barnes_hut_adaptive":
+        check_adaptive(config)
+        if config.bh_mode == "exact":
+            raise ValueError("bh_mode='exact' is 2D-only; "
+                             "barnes_hut_adaptive is grouped")
+        from ..ops.bh3d import bh3_accelerations_adaptive
+
+        def adaptive3(positions, masses):
+            return bh3_accelerations_adaptive(
+                positions, masses, g=g, theta=config.theta,
+                max_depth=config.resolved_max_depth,
+                softening=config.softening, group_size=config.group_size,
+                frontier_cap=config.frontier_cap, list_cap=config.list_cap,
+                direct_cap=config.direct_cap,
+                direct_cell_max=config.resolved_direct_cell_max,
+                direct_body_cap=config.direct_body_cap,
+                return_diagnostics=return_diagnostics,
+                compensated=config.compensated, eval_mode=config.eval_mode,
+                eval_k_tile=config.eval_k_tile, run_cap=config.run_cap,
+                split_eval=config.split_eval,
+            )
+
+        return adaptive3
 
     raise ValueError(f"unknown engine {engine!r}")

@@ -57,7 +57,8 @@ from ..utils.metrics import MetricsWriter, tree_stats, tree_stats_3d
 from ..utils.profiling import span
 from ..utils.textio import PositionsWriter
 from ..utils.timing import RunTiming, Stopwatch
-from .engines import make_accel_fn, resolved_caps
+from .engines import (BH_ENGINES, check_adaptive, make_accel_fn,
+                      resolved_caps)
 
 
 def _sync(device: torch.device) -> None:
@@ -143,7 +144,7 @@ class Simulation:
                 os.path.join(cfg.output_dir, cfg.metrics_csv), g=cfg.g)
         # tree stats only mean something for the tree engine, and rebuild
         # the tree once per recorded step
-        record_tree = cfg.metrics_tree and cfg.engine == "barnes_hut"
+        record_tree = cfg.metrics_tree and cfg.engine in BH_ENGINES
         if cfg.save_positions or cfg.metrics_csv:
             self._record(self._host_state(state), writer, metrics,
                          record_tree)
@@ -296,6 +297,8 @@ class Simulation:
         on the device) of ``n`` fused steps from ``self.state``.  Spans:
         ``nbody.capture`` (what ``last_capture_ms`` times) and
         ``nbody.replay`` (the replays and their synchronise; counted)."""
+        if not self._custom_step:
+            check_adaptive(self.config, fused=True)
         state = self.state
         device = state.device
         graph = device.type == "cuda" and self.fused_gate() is None

@@ -224,6 +224,15 @@ def host_read(t: torch.Tensor) -> int:
     return int(t)
 
 
+def host_values(t: torch.Tensor) -> list:
+    """``t.tolist()`` of a 1-d integer tensor, one read counted in
+    :data:`HOST_READS`."""
+    global HOST_READS
+    with _cuda.counter_lock:
+        HOST_READS += 1
+    return t.tolist()
+
+
 def _host_value(pred: torch.Tensor) -> int:
     """The one host read of a gate outside capture."""
     return host_read(pred)

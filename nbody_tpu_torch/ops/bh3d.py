@@ -32,7 +32,7 @@ import torch
 
 from ..config import BH_SOFTENING, MASS_SKIP_THRESHOLD, THETA_DEFAULT
 from ..utils.profiling import span
-from . import bh_grouped
+from . import _cuda, _graph, bh_grouped
 from .bh_grouped import (
     _pow2_ceil,
     _quarter_fail_bits,
@@ -40,6 +40,7 @@ from .bh_grouped import (
     _theta_distances,
 )
 from .tree3d import (
+    MAX_DEPTH3_WIDE,
     R3_CNT,
     R3_M,
     R3_MX,
@@ -51,10 +52,16 @@ from .tree3d import (
     R3_SZ,
     Octree,
     build_octree,
+    build_octree_adaptive,
     default_max_depth3,
     level_cell_size_3d,
     morton_codes_3d,
 )
+
+
+# groups whose walk entered the refinement below the pyramid (the
+# adaptive engine), over all passes
+REFINE_GROUPS = 0
 
 
 def frontier_peak_3d(n_bodies: int) -> int:
@@ -135,6 +142,34 @@ def frontier_schedule_3d(peak: int, max_depth: int,
     return tuple(shape)
 
 
+# a sparse level's frontier cap, a share of the peak: on evolved 1M
+# Plummer spheres (peak 32,768) the most opened children entering a
+# sparse level was 12,360 (PERF.md)
+REFINE_FRONTIER_SHARE = 0.5
+
+
+def frontier_schedule_adaptive(peak: int, max_depth: int,
+                               n_bodies: int) -> Tuple[int, ...]:
+    """The adaptive engine's per-level frontier capacities, levels 0 to
+    ``tree3d.MAX_DEPTH3_WIDE``: the pyramid's levels as
+    :func:`frontier_schedule_3d` (the walk there is the same), then
+    ``REFINE_FRONTIER_SHARE`` of ``peak`` a sparse level."""
+    shape = frontier_schedule_3d(peak, max_depth, n_bodies)
+    sparse = max(1, int(peak * REFINE_FRONTIER_SHARE))
+    return shape + (sparse,) * (MAX_DEPTH3_WIDE - max_depth)
+
+
+def sub_boxes_3d(groups: torch.Tensor,
+                 n_sub: int) -> Tuple[torch.Tensor, ...]:
+    """The walk's sub-boxes: each group of ``groups`` [G, S, 3] (its
+    targets in Morton order) split into ``n_sub`` runs of consecutive
+    targets, and each run's bounds, as 6 x [G, n_sub]: x0, x1, y0, y1,
+    z0, z1."""
+    sub = groups.reshape(groups.shape[0], n_sub, -1, 3)
+    return tuple(f(sub[..., a], 2) for a in range(3)
+                 for f in (torch.amin, torch.amax))
+
+
 def _collect_lists_3d(
     bbox: Tuple[torch.Tensor, ...],  # 6 x [G, Q]: x0, x1, y0, y1, z0, z1
     tree: Octree,
@@ -148,6 +183,7 @@ def _collect_lists_3d(
     quarter_bits: bool = False,
     window_cells=None,
     return_demand: bool = False,
+    refine=None,
 ):
     """Per-group interaction lists via the dual cell-vs-bbox octree walk.
 
@@ -165,11 +201,24 @@ def _collect_lists_3d(
     gates direct emission to the sharded window's leaf cells, and
     ``return_demand=True`` appends the calibration dict (frontier demand
     per level, approx and direct maxima; :func:`frontier_schedule_3d`,
-    :func:`cap_defaults_3d`), as in 2D (``bh_grouped._collect_lists``)."""
+    :func:`cap_defaults_3d`), as in 2D (``bh_grouped._collect_lists``).
+
+    ``refine`` (a ``tree3d.Refinement`` of ``tree``; the adaptive
+    engine) carries the walk below the pyramid: a crowded cell opens to
+    its children's range in the next sparse level, a close cell of at
+    most ``direct_cell_max`` bodies is direct at every depth, the pyramid
+    leaves included, and only a cell at ``tree3d.MAX_DEPTH3_WIDE`` is
+    taken as one point whatever its count.  ``frontier_caps`` then has
+    one cap a level to the refinement's depth.  Direct entries carry
+    their first body directly.  Whether any group opens a crowded leaf is
+    read on the host once (the sparse levels are skipped when none does);
+    that many groups go to ``REFINE_GROUPS``."""
+    global REFINE_GROUPS
     x0, x1, y0, y1, z0, z1 = bbox
     g = x0.shape[0]
     dev = x0.device
     max_depth = tree.max_depth
+    last = max_depth if refine is None else refine.depth
     overflow = torch.zeros((g,), dtype=torch.bool, device=dev)
 
     leaf_cum = torch.cat([
@@ -185,10 +234,12 @@ def _collect_lists_3d(
     dir_q = ([], [], [], [], [])  # quarter_bits payload: bits, x, y, z, m
     demand = []  # return_demand: opened children entering each level
 
-    for level in range(max_depth + 1):
+    for level in range(last + 1):
         valid = frontier >= 0
         idx = torch.where(valid, frontier, 0)
-        rows = tree.raw[level][idx.long()]  # [G, F, 16]
+        sparse = level > max_depth
+        rows = (refine.raw[level - max_depth - 1] if sparse
+                else tree.raw[level])[idx.long()]  # [G, F, 16]
         m = rows[..., R3_M]
         cnt = rows[..., R3_CNT]
         safe = torch.where(m > 0, m, torch.ones_like(m))
@@ -203,7 +254,8 @@ def _collect_lists_3d(
         nonempty = valid & (cnt > 0) & (m > MASS_SKIP_THRESHOLD)
         single = nonempty & (cnt == 1.0)
         multi = nonempty & (cnt > 1.0)
-        at_leaf = level == max_depth
+        at_leaf = level == (max_depth if refine is None
+                            else MAX_DEPTH3_WIDE)
         approx = single | (multi & (theta_ok | at_leaf))
         direct = multi & ~theta_ok & (cnt <= direct_cell_max)
         if at_leaf:
@@ -216,9 +268,14 @@ def _collect_lists_3d(
 
         for lst, v in zip(app, com + [torch.where(approx, m, 0.0), approx]):
             lst.append(v)
-        # direct cells ride as their first leaf cell; leaf_cum resolves
-        # them to body ranges once, on the compacted list
-        dir_s.append(idx << (3 * (max_depth - level)))
+        if refine is None:
+            # direct cells ride as their first leaf cell; leaf_cum
+            # resolves them to body ranges once, on the compacted list
+            dir_s.append(idx << (3 * (max_depth - level)))
+        elif sparse:
+            dir_s.append(refine.start[level - max_depth - 1][idx.long()])
+        else:
+            dir_s.append(leaf_cum[(idx << (3 * (max_depth - level))).long()])
         dir_c.append(torch.where(direct, cnt.to(torch.int32), 0))
         dir_mask.append(direct)
         if quarter_bits:
@@ -227,16 +284,28 @@ def _collect_lists_3d(
                                       torch.where(direct, m, 0.0)]):
                 lst.append(v)
 
-        if at_leaf:
+        if level == last:
             break
 
         open_ = multi & ~theta_ok & ~direct
-        children = (idx[:, :, None] * 8 + octant).reshape(g, -1)
-        occ = rows[..., R3_OCC].to(torch.int32)
-        child_bits = ((occ[:, :, None] >> octant) & 1).reshape(g, -1)
+        if level < max_depth:
+            children = (idx[:, :, None] * 8 + octant).reshape(g, -1)
+            occ = rows[..., R3_OCC].to(torch.int32)
+            child_bits = ((occ[:, :, None] >> octant) & 1).reshape(g, -1)
+        else:  # the refinement's child ranges
+            kids = refine.child[level - max_depth][idx.long()]  # [G, F, 2]
+            children = (kids[..., :1] + octant).reshape(g, -1)
+            child_bits = (octant < kids[..., 1:]).reshape(g, -1).to(
+                torch.int32)
         cmask = open_.repeat_interleave(8, dim=1) & (child_bits > 0)
         if return_demand:
             demand.append(cmask.sum(1).max())
+        if refine is not None and level == max_depth:
+            entering = _graph.host_read(cmask.any(1).sum())
+            with _cuda.counter_lock:
+                REFINE_GROUPS += entering
+            if not entering:
+                break
 
         next_cap = min(8 * fcap, frontier_caps[level + 1])
         if next_cap == 8 * fcap:
@@ -258,7 +327,8 @@ def _collect_lists_3d(
                                      direct_cap)
     dleaf, dc = compacted[:2]
     has = dc > 0
-    ds = torch.where(has, leaf_cum[torch.where(has, dleaf, 0).long()], 0)
+    ds = (torch.where(has, dleaf, 0) if refine is not None else
+          torch.where(has, leaf_cum[torch.where(has, dleaf, 0).long()], 0))
     overflow = overflow | ovf_a | ovf_d
     out = ((lx, ly, lz, lm), torch.stack([ds, dc], dim=-1), overflow)
     if quarter_bits:
@@ -400,6 +470,61 @@ def bh3_accelerations_grouped(
     )
 
 
+def cap_defaults_adaptive(n_bodies: int) -> dict:
+    """The adaptive engine's cap defaults: :func:`cap_defaults_3d`'s,
+    with 4x the direct cells and 2x the merged runs a group, and room
+    for every body in one group's direct ranges (a group's direct cells
+    are disjoint, so N always suffices).  On evolved 1M Plummer spheres
+    the most a group took was 27,142 direct cells, 744 merged runs in a
+    quarter and 1,048,573 direct bodies (a group whose sub-boxes span
+    the core), against 8,192, 640 and 655,360 (PERF.md)."""
+    caps = cap_defaults_3d(n_bodies)
+    caps["direct_cap"] *= 4
+    caps["run_cap"] *= 2
+    caps["direct_body_cap"] = max(caps["direct_body_cap"], n_bodies)
+    return caps
+
+
+def bh3_accelerations_adaptive(
+    positions: torch.Tensor,  # [N, 3]
+    masses: torch.Tensor,  # [N]
+    *,
+    g: float,
+    theta: float = THETA_DEFAULT,
+    max_depth: int | None = None,
+    softening: float = BH_SOFTENING,
+    direct_cell_max: int | None = None,
+    **kw,
+):
+    """Grouped 3D Barnes-Hut as deep as the state needs (the
+    ``barnes_hut_adaptive`` engine): exactly the grouped method at depth
+    ``tree3d.MAX_DEPTH3_WIDE`` with the bodies sorted stably by their
+    63-bit codes.  The pyramid keeps ``max_depth`` (default
+    :func:`tree3d.default_max_depth3`) and the sparse refinement hangs
+    below its crowded leaves (``tree3d.build_octree_adaptive``, span
+    ``nbody.refine`` inside ``nbody.tree``); the gather walk crosses into
+    it.  Groups, sub-boxes, theta test, quarter split and evaluators are
+    :func:`bh3_accelerations_grouped`'s, whose keyword options ``kw``
+    takes (``collect`` excepted: the gather walk collects)."""
+    if positions.shape[1] != 3:
+        raise ValueError("bh3_accelerations_adaptive takes [N, 3] positions")
+    n = positions.shape[0]
+    if max_depth is None:
+        max_depth = default_max_depth3(n)
+    if direct_cell_max is None:
+        direct_cell_max = direct_cell_max_default(n)
+    with span("nbody.tree"):
+        tree, refine, order = build_octree_adaptive(
+            positions, masses, max_depth, direct_cell_max)
+        psort = positions[order]
+        sorted_srcs = (psort[:, 0].contiguous(), psort[:, 1].contiguous(),
+                       psort[:, 2].contiguous(), g * masses[order])
+    return grouped_eval_3d(
+        positions, tree, sorted_srcs=sorted_srcs, g=g, theta=theta,
+        softening=softening, direct_cell_max=direct_cell_max,
+        target_sorted=psort, target_order=order, refine=refine, **kw)
+
+
 def grouped_eval_3d(
     target_positions: torch.Tensor,  # [Nt, 3] bodies to accelerate
     tree: Octree,
@@ -429,6 +554,7 @@ def grouped_eval_3d(
     window_cells=None,
     range_offset=None,
     n_sources_hint: int | None = None,
+    refine=None,
 ):
     """Grouped 3D evaluation of targets against a prebuilt octree.
 
@@ -447,7 +573,10 @@ def grouped_eval_3d(
     ``window_cells``, ``range_offset`` and ``n_sources_hint`` is the 2D
     one (``bh_grouped.grouped_eval``): every N-keyed default, cap and gate
     takes n_eff = ``n_sources_hint`` or Ns, and a windowed pass collects
-    through the gather walk."""
+    through the gather walk.  With ``refine`` (the adaptive engine's
+    sparse levels below ``tree``) the gather walk collects, to the
+    refinement's depth, on :func:`frontier_schedule_adaptive` and
+    :func:`cap_defaults_adaptive`."""
     n = target_positions.shape[0]
     ns = n_sources_hint or sorted_srcs[0].shape[0]  # n_eff
     max_depth = tree.max_depth
@@ -462,7 +591,8 @@ def grouped_eval_3d(
         eval_k_tile=eval_k_tile, group_size=group_size,
         direct_cell_max=direct_cell_max, split_eval=split_eval,
         seg_pack=seg_pack,
-        collect=collect if window_cells is None else "gather")
+        collect=("gather" if window_cells is not None or refine is not None
+                 else collect))
     eval_mode, k_tile = route.eval_mode, route.k_tile
     gs, n_sub = route.group_size, route.n_sub
     direct_cell_max, split_eval = route.direct_cell_max, route.split_eval
@@ -471,7 +601,8 @@ def grouped_eval_3d(
             "the dense collector (collect='dense', or 'auto' at N >= "
             "262,144) needs spyr=collect_dense3.build_spatial_pyramid(tree)")
 
-    defaults = cap_defaults_3d(ns)
+    defaults = (cap_defaults_3d if refine is None
+                else cap_defaults_adaptive)(ns)
     frontier_cap = frontier_cap or defaults["frontier_cap"]
     list_cap = list_cap or defaults["list_cap"]
     direct_cap = direct_cap or defaults["direct_cap"]
@@ -485,16 +616,18 @@ def grouped_eval_3d(
             [target_sorted, target_sorted[-1:].expand(n_pad - n, 3)], dim=0)
         pg = tsort.reshape(-1, gs, 3)  # [G, S, 3]
 
-        sub = pg.reshape(pg.shape[0], n_sub, gs // n_sub, 3)
-        bbox = tuple(f(sub[..., a], 2) for a in range(3)
-                     for f in (torch.amin, torch.amax))
+        bbox = sub_boxes_3d(pg, n_sub)
 
         walk = dict(
             theta=theta, softening=softening,
-            frontier_caps=frontier_schedule_3d(frontier_cap, max_depth, ns),
+            frontier_caps=(frontier_schedule_3d if refine is None
+                           else frontier_schedule_adaptive)(
+                               frontier_cap, max_depth, ns),
             list_cap=list_cap, direct_cap=direct_cap,
             direct_cell_max=direct_cell_max, quarter_bits=split_eval)
-        if route.dense:
+        if refine is not None:
+            collected = _collect_lists_3d(bbox, tree, refine=refine, **walk)
+        elif route.dense:
             from .collect_dense3 import collect_lists_3d_dense
 
             collected = collect_lists_3d_dense(bbox, tree, spyr, **walk)

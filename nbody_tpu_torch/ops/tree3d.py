@@ -31,6 +31,8 @@ from typing import Tuple
 import torch
 
 from ..config import ROOT_PAD_FRACTION
+from ..utils.profiling import span
+from . import _cuda, _graph
 from .tree import leaf_counts, leaf_sums
 
 # Column layout of the packed per-level rows [8^level, 16].
@@ -76,11 +78,14 @@ def root_bounds_3d(positions: torch.Tensor) -> torch.Tensor:
 
 
 def morton_codes_3d(positions: torch.Tensor, bounds: torch.Tensor,
-                    max_depth: int) -> torch.Tensor:
+                    max_depth: int, dtype=torch.int32) -> torch.Tensor:
     """Per-body leaf-cell Morton code by recursive midpoint subdivision:
     three bits per level, root first, per level x lowest, then y, then z.
-    The cell of a body at level l is ``code >> 3*(max_depth - l)``."""
-    code = torch.zeros(positions.shape[0], dtype=torch.int32,
+    The cell of a body at level l is ``code >> 3*(max_depth - l)``.
+    ``int32`` holds 10 levels; ``dtype=torch.int64`` holds
+    ``MAX_DEPTH3_WIDE`` (the adaptive engine's codes), whose first
+    levels are the same bits, as the halvings are the same."""
+    code = torch.zeros(positions.shape[0], dtype=dtype,
                        device=positions.device)
     axes = []
     for a in range(3):
@@ -95,7 +100,7 @@ def morton_codes_3d(positions: torch.Tensor, bounds: torch.Tensor,
             b = c >= mid
             entry[1] = torch.where(b, mid, lo)
             entry[2] = torch.where(b, hi, mid)
-            bits.append(b.to(torch.int32))
+            bits.append(b.to(dtype))
         code = (code << 3) | (bits[2] << 2) | (bits[1] << 1) | bits[0]
     return code
 
@@ -105,7 +110,15 @@ def leaf_raw_3d(positions: torch.Tensor, masses: torch.Tensor,
     """Packed per-leaf rows [8^max_depth, 16]: sums over each leaf's
     contiguous segment of the stably Morton-sorted bodies, in
     ``leaf_sums``' order."""
-    n_leaf = 8 ** max_depth
+    order = torch.argsort(codes, stable=True)
+    return leaf_sums(packed_rows_3d(positions, masses)[order],
+                     leaf_counts(codes, 8 ** max_depth))
+
+
+def packed_rows_3d(positions: torch.Tensor,
+                   masses: torch.Tensor) -> torch.Tensor:
+    """Each body's packed row [N, 16]: its mass, mass-weighted and plain
+    position, and a count of 1."""
     x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
     packed = torch.zeros((masses.shape[0], _W), dtype=masses.dtype,
                          device=masses.device)
@@ -113,8 +126,7 @@ def leaf_raw_3d(positions: torch.Tensor, masses: torch.Tensor,
                    (R3_MZ, masses * z), (R3_SX, x), (R3_SY, y), (R3_SZ, z),
                    (R3_CNT, 1.0)):
         packed[:, col] = v
-    order = torch.argsort(codes, stable=True)
-    return leaf_sums(packed[order], leaf_counts(codes, n_leaf))
+    return packed
 
 
 def pyramid_from_raw_3d(raw: torch.Tensor, bounds: torch.Tensor,
@@ -156,3 +168,151 @@ def level_cell_size_3d(bounds: torch.Tensor, level: int) -> torch.Tensor:
     sy = (bounds[3] - bounds[2]) / (1 << level)
     sz = (bounds[5] - bounds[4]) / (1 << level)
     return torch.maximum(torch.maximum(sx, sy), sz)
+
+
+# The adaptive engine's tree (``engine="barnes_hut_adaptive"``): 21
+# levels, the most that a 63-bit Morton code holds.
+MAX_DEPTH3_WIDE = 21
+
+# cells built below the pyramid by :func:`refine_octree`, over all calls
+# (read on the host where the build sizes its levels)
+REFINED_CELLS = 0
+
+
+@dataclasses.dataclass
+class Refinement:
+    """The sparse levels that hang below a pyramid's crowded leaves.
+
+    Level ``base + 1 + i`` holds, in body order, every non-empty cell
+    whose parent has more than ``direct_cell_max`` bodies (at ``base``,
+    the pyramid's leaves; deeper, refined cells): ``raw[i]`` [K_i, 16]
+    packed rows as the pyramid's (``R3_OCC`` 0), ``start[i]`` [K_i]
+    int32 the index of its first body among the bodies sorted by their
+    63-bit code (each cell is one contiguous range of them).
+    ``child[i]`` [C_i, 2] int32 gives each cell of level ``base + i``
+    (i = 0: the 8^base pyramid leaves) its children's (first index in
+    level ``base + i + 1``, count): 0 children for a cell of at most
+    ``direct_cell_max`` bodies."""
+
+    base: int
+    raw: Tuple[torch.Tensor, ...]
+    start: Tuple[torch.Tensor, ...]
+    child: Tuple[torch.Tensor, ...]
+
+    @property
+    def depth(self) -> int:
+        """The deepest level that holds cells (``base`` when none)."""
+        return self.base + len(self.raw)
+
+    @property
+    def n_cells(self) -> int:
+        return sum(r.shape[0] for r in self.raw)
+
+
+def _shared_level(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The deepest level whose cell holds both of the 63-bit codes a and
+    b, elementwise (``MAX_DEPTH3_WIDE`` where they are equal): the
+    levels below the highest 3-bit group in which they differ."""
+    bounds = 8 ** torch.arange(MAX_DEPTH3_WIDE, device=a.device)
+    return MAX_DEPTH3_WIDE - torch.searchsorted(bounds, a ^ b, right=True)
+
+
+def refine_octree(sorted_codes: torch.Tensor, sorted_rows: torch.Tensor,
+                  leaf_cum: torch.Tensor, base: int,
+                  direct_cell_max: int) -> Refinement:
+    """The levels below a depth-``base`` pyramid, to depth
+    ``MAX_DEPTH3_WIDE``, that the walk can open: the children of every
+    cell of more than ``direct_cell_max`` bodies.
+
+    ``sorted_codes`` [N] int64: the bodies' 63-bit codes, sorted;
+    ``sorted_rows`` [N, 16]: their packed rows in that order;
+    ``leaf_cum`` [8^base + 1]: the pyramid leaves' body prefix.  A
+    cell's row is :func:`tree.leaf_sums` over its bodies (gaps between
+    one level's cells are segments of their own, dropped).  One host
+    read sizes every level (``_graph.HOST_READS``); the cells counted
+    go to ``REFINED_CELLS``."""
+    global REFINED_CELLS
+    n = sorted_codes.shape[0]
+    dev = sorted_codes.device
+    top = MAX_DEPTH3_WIDE
+    w = direct_cell_max
+    # prev[i]: the deepest level whose cell body i shares with body i - 1
+    prev = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    prev[1:] = _shared_level(sorted_codes[:-1], sorted_codes[1:])
+    # deepest[i]: the deepest level whose cell of body i holds more than
+    # w bodies, i.e. the most that any w + 1 consecutive bodies holding i
+    # share (a sliding max over the windows' shared levels)
+    window = torch.full((n + w,), -1.0, device=dev)
+    if n > w:
+        window[w:n] = _shared_level(sorted_codes[:n - w],
+                                    sorted_codes[w:]).float()
+    deepest = torch.nn.functional.max_pool1d(
+        window[None, None], w + 1, stride=1)[0, 0].long()
+
+    def starts(level):
+        """Whether body i opens a cell of ``level`` whose parent holds
+        more than w bodies."""
+        return (prev < level) & (deepest >= level - 1)
+
+    # body i opens one such cell at every level in [lo, hi]
+    lo = (prev + 1).clamp(min=base + 1, max=top + 1)
+    hi = (deepest + 1).clamp(max=top)
+    live = (lo <= hi).long()
+    edges = torch.zeros(top + 2, dtype=torch.int64, device=dev)
+    edges.scatter_add_(0, lo, live)
+    edges.scatter_add_(0, hi + 1, -live)
+    counts = _graph.host_values(torch.cumsum(edges, 0)[base + 1:top + 1])
+    while counts and counts[-1] == 0:
+        counts.pop()
+    with _cuda.counter_lock:
+        REFINED_CELLS += sum(counts)
+
+    raws, firsts, ends = [], [], []
+    for i, k in enumerate(counts):
+        s = 3 * (top - base - 1 - i)
+        flat = torch.cumsum(starts(base + 1 + i), 0)
+        first = torch.searchsorted(
+            flat, torch.arange(1, k + 1, device=dev, dtype=flat.dtype))
+        end = torch.searchsorted(sorted_codes,
+                                 ((sorted_codes[first] >> s) + 1) << s)
+        # segments: the gap before each cell, the cell; then the tail gap
+        prev_end = torch.cat([first.new_zeros(1), end[:-1]])
+        lengths = torch.stack([first - prev_end, end - first], 1).reshape(-1)
+        lengths = torch.cat([lengths, (n - end[-1:])])
+        raws.append(leaf_sums(sorted_rows, lengths)[1::2])
+        firsts.append(first)
+        ends.append(end)
+
+    children = []
+    lo, hi = leaf_cum[:-1].long(), leaf_cum[1:].long()
+    for i in range(len(counts)):
+        c0 = torch.searchsorted(firsts[i], lo)
+        c1 = torch.searchsorted(firsts[i], hi)
+        children.append(torch.stack([c0, c1 - c0], 1).to(torch.int32))
+        lo, hi = firsts[i], ends[i]
+    return Refinement(base=base, raw=tuple(raws),
+                      start=tuple(f.to(torch.int32) for f in firsts),
+                      child=tuple(children))
+
+
+def build_octree_adaptive(positions: torch.Tensor, masses: torch.Tensor,
+                          max_depth: int, direct_cell_max: int):
+    """The adaptive engine's tree: the depth-``max_depth`` pyramid of
+    :func:`build_octree`, with the bodies sorted stably by their 63-bit
+    codes (so every cell at every depth is one contiguous run of them,
+    and the leaves sum in that order), and its :func:`refine_octree`
+    below (span ``nbody.refine``).  Returns (octree, refinement, order
+    [N]: the sort)."""
+    bounds = root_bounds_3d(positions)
+    wide = morton_codes_3d(positions, bounds, MAX_DEPTH3_WIDE, torch.int64)
+    order = torch.argsort(wide, stable=True)
+    codes = (wide >> 3 * (MAX_DEPTH3_WIDE - max_depth)).to(torch.int32)
+    rows = packed_rows_3d(positions, masses)[order]
+    counts = leaf_counts(codes, 8 ** max_depth)
+    tree = pyramid_from_raw_3d(leaf_sums(rows, counts), bounds, codes,
+                               max_depth)
+    with span("nbody.refine"):
+        leaf_cum = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        refine = refine_octree(wide[order], rows, leaf_cum, max_depth,
+                               direct_cell_max)
+    return tree, refine, order

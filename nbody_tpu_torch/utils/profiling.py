@@ -24,8 +24,10 @@ on the CPU, and where the stream was capturing a CUDA graph).  A
 device synchronise resolves their events), :func:`clear` drops them.
 
 Counters are plain module integers, always on: the host reads of a step
-(``ops._graph.HOST_READS``) and the collectives' calls and operand bytes
-(``parallel.collectives``).
+(``ops._graph.HOST_READS``), the cells the adaptive engine builds below
+its pyramid and the groups that walk them (``ops.tree3d.REFINED_CELLS``,
+``ops.bh3d.REFINE_GROUPS``), and the collectives' calls and operand
+bytes (``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ import torch
 # reads
 COUNTERS = (
     ("ops._graph", "HOST_READS"),
+    ("ops.tree3d", "REFINED_CELLS"),
+    ("ops.bh3d", "REFINE_GROUPS"),
     *(("parallel.collectives", f"{op}_{what}")
       for op in ("ALL_GATHER", "PSUM", "PMIN", "PMAX", "PPERMUTE")
       for what in ("CALLS", "BYTES")),

@@ -1392,3 +1392,70 @@ def test_dense_pass_launches_the_kernel_never_the_twin(cuda, monkeypatch):
     assert cd.DENSE_PASSES - passes == 1
     assert cd.DENSE_KERNEL_LAUNCHES - launches == cd.DENSE_PASSES - passes
     assert int(ovf.sum()) == 0
+
+
+def _evolved_plummer(cuda, n=131072, steps=3):
+    """A Plummer sphere after ``steps`` steps of the adaptive engine on
+    the card: (config, positions, masses)."""
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.simulation import Simulation
+
+    cfg = SimConfig(n_bodies=n, n_dim=3, engine="barnes_hut_adaptive",
+                    init_mode="plummer", seed=5, n_steps=steps, g=1.0,
+                    softening=0.01, dt=1.0 / 64)
+    sim = Simulation(cfg, device=cuda)
+    sim.run_contract()
+    return cfg, sim.state.positions, sim.state.masses
+
+
+def test_adaptive_refinement_bit_equal_to_cpu(cuda):
+    """The adaptive tree of an evolved Plummer sphere on the card (Morton
+    codes, sort, pyramid and the refinement's rows on the leaf-sums
+    kernels, starts and child ranges) is the CPU build's (the sums'
+    twin) bit for bit, and the same at every build; the refinement sums
+    a level a kernel call."""
+    from nbody_tpu_torch.ops import bh3d, tree, tree3d
+
+    cfg, p, m = _evolved_plummer(cuda)
+    md = cfg.resolved_max_depth
+    dcm = bh3d.direct_cell_max_default(cfg.n_bodies)
+    before = tree.LEAF_SUM_LAUNCHES
+    t_g, r_g, o_g = tree3d.build_octree_adaptive(p, m, md, dcm)
+    assert r_g.n_cells > 0 and r_g.depth > md
+    assert tree.LEAF_SUM_LAUNCHES == before + 1 + len(r_g.raw)
+    again = tree3d.build_octree_adaptive(p, m, md, dcm)
+    t_w, r_w, o_w = tree3d.build_octree_adaptive(p.cpu(), m.cpu(), md, dcm)
+    assert torch.equal(o_g.cpu(), o_w) and torch.equal(again[2], o_g)
+    for a, b, c in zip(t_g.raw, t_w.raw, again[0].raw):
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+    assert len(r_g.raw) == len(r_w.raw) == len(again[1].raw)
+    for got, want, twice in ((r_g.raw, r_w.raw, again[1].raw),
+                             (r_g.start, r_w.start, again[1].start),
+                             (r_g.child, r_w.child, again[1].child)):
+        for a, b, c in zip(got, want, twice):
+            assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+
+
+def test_adaptive_pass_matches_its_reference(cuda):
+    """A force pass of the adaptive engine on the card (quarter split,
+    the evaluator's kernels) against ``adaptive_bh.py`` on two groups:
+    f32 against f64, within 1e-3 of the reference's scale; the pass
+    reads the host twice (the level sizes, the groups that enter)."""
+    from benchmark.check import force_gap
+    from benchmark.reference.adaptive_bh import AdaptiveBH
+    from nbody_tpu_torch.models.engines import make_accel_fn
+    from nbody_tpu_torch.ops import _graph, bh3d
+
+    cfg, p, m = _evolved_plummer(cuda)
+    cfg = cfg.replace(split_eval=True)
+    reads, groups = _graph.HOST_READS, bh3d.REFINE_GROUPS
+    acc = make_accel_fn(cfg)(p, m)
+    torch.cuda.synchronize()
+    assert _graph.HOST_READS == reads + 2
+    assert bh3d.REFINE_GROUPS > groups
+    ref = AdaptiveBH(p, m, g=1.0, theta=cfg.theta, group_size=2048,
+                     sub_boxes=16, direct_cell_max=32, quarter_split=True,
+                     softening=0.01)
+    for grp in (0, ref.n_groups // 2):
+        idx, want = ref.accelerations(grp)
+        assert force_gap(acc[idx].double(), want[torch.float64]) < 1e-3
