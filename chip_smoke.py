@@ -179,6 +179,15 @@ Phases, each printing what it found; the first failure exits non-zero:
    level, one K4) and K4 against its plain twin on that pass's tables,
    for the group of the widest quarter and seven more
    (``--only-phase-11`` runs phases 0, 1 and 11).
+12. the 3D gather walk's kernel (``csrc/collect_gather3.cu``) against its
+   twin at the main path's three shapes (the 1M Plummer pass across the
+   refinement, the bh3d 1M spill pass, the 4x-cap retry pass on the
+   evolved uniform 1M state): every output bit for bit, its time by
+   events and on the device beside its bound and the twin's, its
+   launches in a 1M Plummer run and a bh3d 1M run (one a pass, one a
+   spill pass, one a retry), and both force passes with the walk on the
+   twin and on the kernel, in turns (``--only-phase-12`` runs phases 0,
+   1 and 12).
 
 The summary gives each kernel its bound: the larger of the FP32 work
 over 67 TFLOP/s, the special-function work (rsqrt, and the reciprocal of
@@ -724,8 +733,8 @@ def device_profile(step, reps: int = 2):
 @contextlib.contextmanager
 def plain_twins():
     """Route the main path's kernel wrappers to their plain twins."""
-    from nbody_tpu_torch.ops import (allpairs, collect_dense3, list_eval,
-                                     tree, tree3d)
+    from nbody_tpu_torch.ops import (allpairs, bh3d, collect_dense3,
+                                     list_eval, tree, tree3d)
 
     names = ("list_eval_runs", "list_eval_runs_split", "list_eval_pallas",
              "list_eval_dynamic")
@@ -740,9 +749,12 @@ def plain_twins():
     tree.leaf_sums = tree3d.leaf_sums = tree.leaf_sums_plain
     dense = collect_dense3._dense_lists_kernel
     collect_dense3._dense_lists_kernel = collect_dense3._dense_lists
+    gather = bh3d._gather_lists_kernel
+    bh3d._gather_lists_kernel = bh3d._gather_lists
     try:
         yield
     finally:
+        bh3d._gather_lists_kernel = gather
         allpairs.allpairs_accelerations_vs = orig[0]
         for n, fn in zip(names, orig[1:]):
             setattr(list_eval, n, fn)
@@ -761,6 +773,7 @@ COUNTERS = (("k1", "allpairs", "KERNEL_LAUNCHES"),
             ("escaped", "collect_dense3", "ESCAPED_GROUPS"),
             ("spills", "collect_dense3", "SPILL_PASSES"),
             ("dense_kernel", "collect_dense3", "DENSE_KERNEL_LAUNCHES"),
+            ("gather_kernel", "bh3d", "GATHER_KERNEL_LAUNCHES"),
             ("leaf", "tree", "LEAF_SUM_LAUNCHES"))
 
 
@@ -2735,6 +2748,181 @@ def phase11(dev, card: str) -> dict:
                 launches=launches)
 
 
+def gather_outputs(res) -> list:
+    """A gather walk's outputs, flat: the lists, ranges, overflow and the
+    quarters dict's tensors."""
+    flat = [*res[0], res[1], res[2]]
+    if len(res) > 3:
+        flat += [res[3]["bits"], *res[3]["com"], res[3]["mass"]]
+    return flat
+
+
+def gather_bound(args, outs) -> tuple:
+    """(bound_ms, bound_by) of one gather walk: the 32-byte head of each
+    row the lists hold read once (a floor on the rows the groups visit:
+    opened and rejected cells come on top), the sub-boxes read once and
+    every output slot written once (bytes); ~15 FP32 operations a
+    sub-box for each cell of more than one body the lists hold."""
+    bbox = args[0]
+    g, q = bbox[0].shape
+    lm, ranges = outs[3], outs[4]
+    held = int((lm > 0).sum()) + int((ranges[..., 1] > 0).sum())
+    multi = int((ranges[..., 1] > 1).sum())
+    nbytes = held * 32 + 6 * g * q * 4
+    nbytes += sum(t.numel() * t.element_size() for t in outs)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, multi * q * 15 / PEAK_FP32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gather_walk_args(accel, positions, masses) -> list:
+    """The (args, kwargs) of every gather-walk kernel call one force pass
+    of ``accel`` makes (the wrapper spied)."""
+    from nbody_tpu_torch.ops import bh3d
+
+    seen = []
+    with spying(bh3d, "_gather_lists_kernel", seen):
+        accel(positions, masses)
+    return seen
+
+
+def evolved_run(cfg, dev) -> tuple:
+    """A contract-loop run of ``cfg`` on the card from counters at 0:
+    (its Simulation, the launch counters after it)."""
+    from nbody_tpu_torch.models.simulation import Simulation
+
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        sim = Simulation(cfg, device=dev)
+        sim.run_contract()
+    return sim, read_counts()
+
+
+def phase12(dev, card: str) -> dict:
+    """12: the 3D gather walk's kernel (csrc/collect_gather3.cu) against
+    its twin (``bh3d._gather_lists``) at the three main-path shapes: the
+    1M Plummer pass (every group, across the refinement), the bh3d 1M
+    spill pass (the dense collector's escaped rows) and the 4x-cap retry
+    pass on the evolved uniform 1M state; every output bit for bit, the
+    kernel's time (CUDA events and the profiler) beside its bound and the
+    twin's, the launches of each main-path run, and the force pass with
+    the walk on the twin and on the kernel, in turns."""
+    import torch
+
+    from nbody_tpu_torch.config import SimConfig
+    from nbody_tpu_torch.models.engines import make_accel_fn, resolved_caps
+    from nbody_tpu_torch.ops import bh3d
+
+    print("phase 12: the 3D gather walk (csrc/collect_gather3.cu) against "
+          "its twin, bit for bit", flush=True)
+    n1m = 1 << 20
+    cfg_p = SimConfig(n_bodies=n1m, n_dim=3, engine="barnes_hut_adaptive",
+                      init_mode="plummer", seed=7, n_steps=5, g=1.0,
+                      softening=0.01, dt=1.0 / 64)
+    cfg_u = SimConfig(n_bodies=n1m, n_dim=3, engine="barnes_hut", seed=7,
+                      n_steps=10)
+    runs = {}
+    for tag, cfg in (("1M Plummer, adaptive", cfg_p),
+                     ("1M uniform, barnes_hut", cfg_u)):
+        sim, c = evolved_run(cfg, dev)
+        retried = sim.last_retried_steps
+        want = (cfg.n_steps + retried if cfg is cfg_p
+                else c["spills"] + retried)
+        print(f"  {tag}, {cfg.n_steps} contract-loop steps: gather-walk "
+              f"kernel launches {c['gather_kernel']} (want {want}: "
+              f"{c['spills']} spill passes, {retried} retried steps)",
+              flush=True)
+        if c["gather_kernel"] != want:
+            fail(f"12: {tag}: {c['gather_kernel']} gather-walk launches, "
+                 f"want {want}")
+        runs[tag] = (sim.state, c, retried)
+    st_p = runs["1M Plummer, adaptive"][0]
+    st_u = runs["1M uniform, barnes_hut"][0]
+    caps4 = {k: 4 * v for k, v in resolved_caps(cfg_u).items()}
+    cfg_r = cfg_u.replace(collect3="gather", **caps4)
+    passes = {
+        "1M Plummer pass": (cfg_p, st_p),
+        "bh3d 1M spill pass": (cfg_u, st_u),
+        "4x-cap retry pass, evolved uniform 1M": (cfg_r, st_u),
+    }
+    out = {}
+    for tag, (cfg, st) in passes.items():
+        accel = make_accel_fn(cfg, return_diagnostics=True)
+        seen = gather_walk_args(accel, st.positions, st.masses)
+        if not seen:
+            print(f"  {tag}: no gather walk on this pass (nothing "
+                  "escaped)", flush=True)
+            continue
+        if len(seen) != 1:
+            fail(f"12: {tag}: {len(seen)} gather walks in one pass")
+        args, kw = seen[0]
+        groups = bh3d.REFINE_GROUPS
+        got = gather_outputs(bh3d._gather_lists_kernel(*args, **kw))
+        entered = bh3d.REFINE_GROUPS - groups
+        want = gather_outputs(bh3d._gather_lists(*args, **kw))
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(got, want)):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.shape != b.shape:
+                fail(f"gather walk, {tag}: output {k} has shape "
+                     f"{tuple(a.shape)}, the twin's {tuple(b.shape)}")
+            if not torch.equal(a, b):
+                fail(f"gather walk, {tag}: output {k} differs from the "
+                     f"twin in {int((a != b).sum())} entries")
+        if bh3d.REFINE_GROUPS - groups != 2 * entered:
+            fail(f"12: {tag}: the kernel counted {entered} groups entering "
+                 f"the refinement, the twin "
+                 f"{bh3d.REFINE_GROUPS - groups - entered}")
+        g, q = args[0][0].shape
+        widths = bh3d.gather_widths(kw["frontier_caps"],
+                                    len(kw["frontier_caps"]))
+        print(f"  {tag}: G={g}, Q={q}, frontier widths {widths}, list "
+              f"widths {want[0].shape[1]:,} / {want[4].shape[1]:,}; approx "
+              f"{int((want[3] > 0).sum()):,}, direct "
+              f"{int((want[4][..., 1] > 0).sum()):,} entries; "
+              f"{entered} groups entered the refinement, "
+              f"{int(want[5].sum())} overflowed; bit-equal to the twin",
+              flush=True)
+        k_ms = cuda_ms(lambda: bh3d._gather_lists_kernel(*args, **kw),
+                       reps=10)
+        p_ms = cuda_ms(lambda: bh3d._gather_lists(*args, **kw), reps=2)
+        b_ms, b_by = gather_bound(args, want)
+        _, kern = device_profile(lambda: bh3d._gather_lists_kernel(
+            *args, **kw), reps=10)
+        dev_ms = sum(t for name, t in kern.items()
+                     if "gather_collect3_kernel" in name)
+        print(f"    kernel {k_ms:.4f} ms (events; device {dev_ms:.4f} ms by "
+              f"the profiler), plain twin {p_ms:.2f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by})  [{card}]", flush=True)
+        print("    profiler, device ms a call: " + ", ".join(
+            f"{name[:40]} {t:.4f}" for name, t in sorted(
+                kern.items(), key=lambda kv: -kv[1])), flush=True)
+        out[tag] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+
+    kernel = bh3d._gather_lists_kernel
+    for tag, cfg, st in (("1M Plummer", cfg_p, st_p),
+                         ("bh3d 1M", cfg_u, st_u)):
+        accel = make_accel_fn(cfg, return_diagnostics=True)
+        t = []
+        try:
+            for plain in (True, False, False, True):
+                bh3d._gather_lists_kernel = (
+                    bh3d._gather_lists if plain else kernel)
+                t.append(cuda_ms(lambda: accel(st.positions, st.masses),
+                                 reps=3))
+        finally:
+            bh3d._gather_lists_kernel = kernel
+        print(f"  {tag} force pass on the evolved state: the walk on the "
+              f"twin {t[0]:.2f} / {t[3]:.2f} ms, on the kernel {t[1]:.2f} / "
+              f"{t[2]:.2f} ms (CUDA events, 3 passes each, in turns)  "
+              f"[{card}]", flush=True)
+    out["launches"] = {tag: r[1]["gather_kernel"] for tag, r in runs.items()}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2794,7 +2982,8 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     only = {"--only-phase-6c": phase6c, "--only-phase-7": phase7,
             "--only-phase-8": phase8, "--only-phase-9": phase9,
-            "--only-phase-10": phase10, "--only-phase-11": phase11}
+            "--only-phase-10": phase10, "--only-phase-11": phase11,
+            "--only-phase-12": phase12}
     if len(sys.argv) == 2 and sys.argv[1] in only:
         # a short run of one later path alone (phases 0, 1 and it)
         only[sys.argv[1]](dev, card)
@@ -3542,6 +3731,7 @@ def main() -> int:
     leaf9 = phase9(dev, card)
     dense10 = phase10(dev, card)
     phase11(dev, card)
+    gather12 = phase12(dev, card)
     print(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -3668,6 +3858,22 @@ def main() -> int:
         "state": "after 10 contract-loop steps",
         "inputs_ms": {k: v["ms"] for k, v in dense10.items()},
         "inputs_bound_ms": {k: v["bound_ms"] for k, v in dense10.items()}})
+    evo = gather12["1M Plummer pass"]
+    summary["kernels"].append({
+        "name": "gather_collect3", "route": "cuda",
+        "source": "nbody_tpu_torch/csrc/collect_gather3.cu",
+        "replaces": "nbody_tpu/ops/bh3d.py",
+        "replaces_note": "XLA in the JAX package (no Pallas kernel); "
+                         "PyTorch operators in the port before",
+        "dims": 3, "launches": gather12["launches"],
+        "max_abs_err": 0.0, "ms": evo["ms"], "plain_ms": evo["plain_ms"],
+        "bound_ms": evo["bound_ms"], "bound_by": evo["bound_by"],
+        "library_ms": None, "n_bodies": 1 << 20,
+        "state": "a Plummer sphere after 5 contract-loop steps",
+        "inputs_ms": {k: v["ms"] for k, v in gather12.items()
+                      if k != "launches"},
+        "inputs_bound_ms": {k: v["bound_ms"] for k, v in gather12.items()
+                            if k != "launches"}})
     print(f"card: {card}")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("allpairs.cu", "runs_eval.cu", "list_eval.cu", "graph_if.cu",
-           "tree_sums.cu", "collect_dense3.cu")
+           "tree_sums.cu", "collect_dense3.cu", "collect_gather3.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -138,6 +138,9 @@ class _Library:
              [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, i, i, p], i),
             ("nbody_dense_collect3",
              [p, p, i, p, p, p, i, i, f, f, f, f, i, i, i, i, p, i, p], i),
+            ("nbody_gather_collect3",
+             [p, p, p, i, i, i, p, p, p, p, i, i, f, f, f, f, i, i, i, i, p,
+              i, i, p], i),
             ("nbody_cuda_error_string", [i], ctypes.c_char_p),
         ):
             fn = next(getattr(d, name) for d in self._dlls
@@ -199,6 +202,7 @@ LAUNCH_COUNTERS = (
     ("list_eval", "DYNAMIC_LAUNCHES"),  # K7
     ("tree", "LEAF_SUM_LAUNCHES"),  # the tree builds' leaf sums (a call)
     ("collect_dense3", "DENSE_KERNEL_LAUNCHES"),  # the dense 3D collector
+    ("bh3d", "GATHER_KERNEL_LAUNCHES"),  # the 3D gather walk
 )
 
 

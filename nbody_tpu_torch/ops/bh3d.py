@@ -25,6 +25,7 @@ Every default resolves from N exactly as in the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Tuple
 
@@ -62,6 +63,16 @@ from .tree3d import (
 # groups whose walk entered the refinement below the pyramid (the
 # adaptive engine), over all passes
 REFINE_GROUPS = 0
+# launches of csrc/collect_gather3.cu's kernel (one a gather walk on the
+# card; counted under capture too: ``_graph.tally``)
+GATHER_KERNEL_LAUNCHES = 0
+
+# what the gather walk's kernel takes: levels (the adaptive tree's 22),
+# sub-boxes a group, and rows a level (a tail code keeps 5 bits for the
+# level and 26 for the cell)
+GATHER_MAX_LEVELS = MAX_DEPTH3_WIDE + 1
+GATHER_MAX_SUB_BOXES = 256
+GATHER_MAX_ROWS = 1 << 26
 
 
 def frontier_peak_3d(n_bodies: int) -> int:
@@ -212,7 +223,37 @@ def _collect_lists_3d(
     one cap a level to the refinement's depth.  Direct entries carry
     their first body directly.  Whether any group opens a crowded leaf is
     read on the host once (the sparse levels are skipped when none does);
-    that many groups go to ``REFINE_GROUPS``."""
+    that many groups go to ``REFINE_GROUPS``.
+
+    On the card the walk is one kernel (:func:`_gather_lists_kernel`,
+    ``csrc/collect_gather3.cu``); CPU tensors take its plain twin,
+    :func:`_gather_lists`, which gives the same bits."""
+    walk = _gather_lists_kernel if bbox[0].is_cuda else _gather_lists
+    return walk(bbox, tree, theta=theta, softening=softening,
+                frontier_caps=frontier_caps, list_cap=list_cap,
+                direct_cap=direct_cap, direct_cell_max=direct_cell_max,
+                quarter_bits=quarter_bits, window_cells=window_cells,
+                return_demand=return_demand, refine=refine)
+
+
+def _gather_lists(
+    bbox: Tuple[torch.Tensor, ...],  # 6 x [G, Q]: x0, x1, y0, y1, z0, z1
+    tree: Octree,
+    *,
+    theta: float,
+    softening: float,
+    frontier_caps: Tuple[int, ...],
+    list_cap: int,
+    direct_cap: int,
+    direct_cell_max: int,
+    quarter_bits: bool = False,
+    window_cells=None,
+    return_demand: bool = False,
+    refine=None,
+):
+    """:func:`_collect_lists_3d`'s walk in PyTorch: the plain twin of
+    ``csrc/collect_gather3.cu`` (CPU tensors), with the same arguments
+    and returns."""
     global REFINE_GROUPS
     x0, x1, y0, y1, z0, z1 = bbox
     g = x0.shape[0]
@@ -336,6 +377,186 @@ def _collect_lists_3d(
                      mass=compacted[6]),)
     if return_demand:
         out += (bh_grouped.demand_stats(demand, app[4], dir_mask),)
+    return out
+
+
+def gather_widths(frontier_caps: Tuple[int, ...],
+                  levels: int) -> Tuple[int, ...]:
+    """The gather walk's frontier width at each of its first ``levels``
+    levels: 1 at the root, then the least of 8x the level above and the
+    level's cap (the twin's ``next_cap``)."""
+    widths = [1]
+    for level in range(1, levels):
+        widths.append(min(8 * widths[-1], int(frontier_caps[level])))
+    return tuple(widths)
+
+
+def check_gather_kernel(n_sub: int, levels: int, *, quarter_bits: bool,
+                        windowed: bool, refined: bool,
+                        level_rows=()) -> None:
+    """Raise unless the gather walk's kernel takes the walk: at most
+    ``GATHER_MAX_LEVELS`` levels and ``GATHER_MAX_SUB_BOXES`` sub-boxes a
+    group (a multiple of 4 with ``quarter_bits``), fewer than
+    ``GATHER_MAX_ROWS`` rows a level, and no window on a refined walk
+    (the sharded modes' window is the pyramid's leaf cells)."""
+    if levels > GATHER_MAX_LEVELS:
+        raise ValueError(f"a gather walk of {levels} levels; the kernel "
+                         f"takes at most {GATHER_MAX_LEVELS}")
+    if n_sub > GATHER_MAX_SUB_BOXES:
+        raise ValueError(f"{n_sub} sub-boxes a group; the gather walk's "
+                         f"kernel takes at most {GATHER_MAX_SUB_BOXES}")
+    if quarter_bits and n_sub % 4:
+        raise ValueError(
+            f"quarter bits need Q % 4 == 0 sub-bboxes, got {n_sub}")
+    if windowed and refined:
+        raise ValueError("window_cells gate the pyramid's leaf cells; a "
+                         "walk with a refinement takes no window")
+    big = [k for k in level_rows if k >= GATHER_MAX_ROWS]
+    if big:
+        raise ValueError(f"levels of {big} rows; the gather walk's kernel "
+                         f"takes fewer than {GATHER_MAX_ROWS} a level")
+
+
+def check_gather_rows(rows: torch.Tensor, name: str,
+                      device: torch.device) -> None:
+    """Raise unless a level's packed rows are what the gather walk's
+    kernel reads: float32 [K, 16] on ``device``, each row's 16 floats
+    contiguous, rows a multiple of 4 floats apart (at least 16) from a
+    16-byte start: the kernel reads a row's head 16 bytes at a time.  A
+    refined level's rows may sit in a wider buffer (a stride of 32)."""
+    if rows.device != device:
+        raise ValueError(f"{name} is on {rows.device}, expected {device}")
+    if rows.dtype != torch.float32:
+        raise ValueError(f"{name} is {rows.dtype}, the kernel takes "
+                         "torch.float32")
+    if rows.ndim != 2 or rows.shape[1] != 16:
+        raise ValueError(f"{name} has shape {tuple(rows.shape)}, expected "
+                         "(K, 16)")
+    step = rows.stride(0)
+    if (rows.shape[0] > 1 and (step < 16 or step % 4)) or (
+            rows.stride(1) != 1 or rows.data_ptr() % 16):
+        raise ValueError(f"{name} has strides {rows.stride()} from offset "
+                         f"{rows.data_ptr() % 16}: the kernel reads rows of "
+                         "16 contiguous floats, a multiple of 4 floats "
+                         "apart, from 16 bytes")
+
+
+def _gather_lists_kernel(bbox, tree: Octree, *, theta: float,
+                         softening: float, frontier_caps: Tuple[int, ...],
+                         list_cap: int, direct_cap: int,
+                         direct_cell_max: int, quarter_bits: bool = False,
+                         window_cells=None, return_demand: bool = False,
+                         refine=None):
+    """:func:`_gather_lists` on the card: one launch of
+    ``gather_collect3_kernel`` (``csrc/collect_gather3.cu``), bit-equal
+    to the twin, every level in the launch.  Outputs and scratch come
+    from ``torch.empty`` on the current stream.  With ``refine`` the
+    groups that entered it are read on the host once, as the twin reads
+    them (where none did, the outputs are cut to the twin's widths, which
+    stop at the pyramid); nothing else is read, so a CUDA graph can hold
+    the launch."""
+    global REFINE_GROUPS
+    x0 = bbox[0]
+    dev = x0.device
+    if not x0.is_cuda:
+        raise ValueError("the gather walk's kernel takes CUDA tensors; "
+                         "CPU tensors take bh3d._gather_lists")
+    g, q = x0.shape
+    md = tree.max_depth
+    last = md if refine is None else refine.depth
+    rows = list(tree.raw) + (list(refine.raw) if refine is not None else [])
+    check_gather_kernel(q, last + 1, quarter_bits=quarter_bits,
+                        windowed=window_cells is not None,
+                        refined=refine is not None,
+                        level_rows=[r.shape[0] for r in rows])
+    widths = gather_widths(frontier_caps, last + 1)
+    f = sum(widths)
+    wa, wd = min(f, list_cap), min(f, direct_cap)
+    starts = [None] * (md + 1)
+    kids = [None] * (last + 1)
+    if refine is not None:
+        starts += list(refine.start)
+        kids[md:md + len(refine.child)] = refine.child
+    for lv, r in enumerate(rows):
+        check_gather_rows(r, f"rows[{lv}]", dev)
+        if starts[lv] is not None:
+            _cuda.require(starts[lv], f"start[{lv}]", torch.int32,
+                          (r.shape[0],), dev)
+        if kids[lv] is not None:
+            _cuda.require(kids[lv], f"child[{lv}]", torch.int32,
+                          (r.shape[0], 2), dev)
+    _cuda.require(tree.bounds, "bounds", torch.float32, (6,), dev)
+    leaf_cum = torch.cat([
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+        torch.cumsum(tree.leaf_counts(), 0, dtype=torch.int32),
+    ])
+    boxes = torch.stack(bbox)  # [6, G, Q]
+    _cuda.require(boxes, "bbox", torch.float32, (6, g, q), dev)
+    window = None
+    if window_cells is not None:
+        window = torch.stack([torch.as_tensor(c, device=dev).reshape(())
+                              for c in window_cells]).to(torch.int32)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    lists = [empty(g, wa) for _ in range(4)]
+    ranges = empty(g, wd, 2, dtype=torch.int32)
+    quarters = ([empty(g, wd, dtype=torch.int32)] +
+                [empty(g, wd) for _ in range(4)] if quarter_bits else [])
+    overflow = empty(g, dtype=torch.bool)
+    entered = empty(g, dtype=torch.bool)
+    demand = empty(g, last, dtype=torch.int32) if return_demand else None
+    totals = empty(g, 2, dtype=torch.int32)
+    scratch = [empty(g, 2, max(widths), dtype=torch.int32),
+               empty(g, wa, dtype=torch.int32),
+               empty(g, wd, dtype=torch.int32) if quarter_bits else None]
+    ptrs = [t.data_ptr() for t in lists + [ranges]]
+    ptrs += [t.data_ptr() for t in quarters] or [None] * 5
+    ptrs += [overflow.data_ptr(), entered.data_ptr(),
+             None if demand is None else demand.data_ptr(),
+             totals.data_ptr()]
+    ptrs += [None if t is None else t.data_ptr() for t in scratch]
+    levels = [r.data_ptr() for r in rows] + [
+        None if t is None else t.data_ptr() for t in starts + kids]
+    strides = [r.stride(0) if r.shape[0] > 1 else 16 for r in rows]
+    with torch.cuda.device(dev):
+        code = _cuda.library().nbody_gather_collect3(
+            (ctypes.c_void_p * len(levels))(*levels),
+            (ctypes.c_int * len(strides))(*strides),
+            (ctypes.c_int * len(widths))(*widths), last + 1, md,
+            md if refine is None else MAX_DEPTH3_WIDE, leaf_cum.data_ptr(),
+            boxes.data_ptr(), tree.bounds.data_ptr(),
+            None if window is None else window.data_ptr(), g, q, theta,
+            softening, MASS_SKIP_THRESHOLD, float(direct_cell_max), wa, wd,
+            list_cap, direct_cap, (ctypes.c_void_p * len(ptrs))(*ptrs),
+            int(quarter_bits), int(refine is not None),
+            _cuda.stream_of(boxes))
+    _cuda.check(code, "gather_collect3")
+    _graph.tally(("bh3d", "GATHER_KERNEL_LAUNCHES"), 1)
+
+    n_dem = last
+    if refine is not None and last > md:
+        entering = _graph.host_read(entered.sum())
+        with _cuda.counter_lock:
+            REFINE_GROUPS += entering
+        if not entering:
+            # the twin stops at the pyramid: its widths, and the kernel's
+            # first slots (the refinement's levels held only holes)
+            f = sum(widths[:md + 1])
+            cut_a, cut_d = min(f, list_cap), min(f, direct_cap)
+            lists = [t[:, :cut_a].contiguous() for t in lists]
+            ranges = ranges[:, :cut_d].contiguous()
+            quarters = [t[:, :cut_d].contiguous() for t in quarters]
+            n_dem = md + 1
+    out = (tuple(lists), ranges, overflow)
+    if quarter_bits:
+        out += (dict(bits=quarters[0], com=tuple(quarters[1:4]),
+                     mass=quarters[4]),)
+    if return_demand:
+        out += (dict(frontier=demand[:, :n_dem].amax(0).long(),
+                     approx=totals[:, 0].amax().long(),
+                     direct=totals[:, 1].amax().long()),)
     return out
 
 

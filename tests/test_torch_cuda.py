@@ -1459,3 +1459,206 @@ def test_adaptive_pass_matches_its_reference(cuda):
     for grp in (0, ref.n_groups // 2):
         idx, want = ref.accelerations(grp)
         assert force_gap(acc[idx].double(), want[torch.float64]) < 1e-3
+
+
+# -- the 3D gather walk's kernel (csrc/collect_gather3.cu) -----------------
+
+def _gather_setup(state, cuda):
+    """A gather walk's inputs on the card: (bbox, tree, walk kwargs) at the
+    state's defaults.  "uniform": 65,536 bodies in a cube (the pyramid
+    alone, the 3D caps); "plummer": the evolved Plummer sphere of
+    131,072 with its refinement (the adaptive engine's caps)."""
+    from nbody_tpu_torch.ops import bh3d, tree3d
+
+    if state == "plummer":
+        cfg, p, m = _evolved_plummer(cuda)
+        n, md, soft = cfg.n_bodies, cfg.resolved_max_depth, cfg.softening
+        dcm = bh3d.direct_cell_max_default(n)
+        tree, refine, order = tree3d.build_octree_adaptive(p, m, md, dcm)
+        caps = bh3d.cap_defaults_adaptive(n)
+        sched = bh3d.frontier_schedule_adaptive(caps["frontier_cap"], md, n)
+    else:
+        n, soft = 65536, 1e-15
+        p, m = _cloud3(n, 11, cuda)
+        md = tree3d.default_max_depth3(n)
+        dcm = bh3d.direct_cell_max_default(n)
+        tree, refine = tree3d.build_octree(p, m, max_depth=md), None
+        order = torch.argsort(tree.codes, stable=True)
+        caps = bh3d.cap_defaults_3d(n)
+        sched = bh3d.frontier_schedule_3d(caps["frontier_cap"], md, n)
+    route = bh3d.resolve_route_3d(n, n)
+    bbox = bh3d.sub_boxes_3d(p[order].reshape(-1, route.group_size, 3),
+                             route.n_sub)
+    kw = dict(theta=0.5, softening=soft, frontier_caps=sched,
+              list_cap=caps["list_cap"], direct_cap=caps["direct_cap"],
+              direct_cell_max=dcm, refine=refine)
+    return bbox, tree, kw
+
+
+def _walk_outputs(res):
+    """Every output of a gather walk, flat: lists, ranges, overflow, the
+    quarters dict's tensors and the demand dict's."""
+    flat = [*res[0], res[1], res[2]]
+    for extra in res[3:]:
+        flat += ([extra["bits"], *extra["com"], extra["mass"]]
+                 if "bits" in extra else
+                 [extra["frontier"], extra["approx"], extra["direct"]])
+    return flat
+
+
+# case -> (state, quarter_bits, window, return_demand, cut caps, groups
+# moved far off so that none enters the refinement)
+GATHER_KERNEL_CASES = {
+    "uniform": ("uniform", False, False, False, False, False),
+    "uniform-quarters": ("uniform", True, False, False, False, False),
+    "uniform-window": ("uniform", True, True, False, False, False),
+    "uniform-demand": ("uniform", False, False, True, False, False),
+    "plummer-refine": ("plummer", True, False, False, False, False),
+    "plummer-refine-demand": ("plummer", False, False, True, False, False),
+    "plummer-cut-caps": ("plummer", True, False, True, True, False),
+    "plummer-none-enter": ("plummer", True, False, True, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_KERNEL_CASES))
+def test_gather_kernel_bit_equal_to_twin(cuda, case):
+    """The kernel's lists, every slot past the counts included, its
+    ranges, overflow flags, quarter payload and demand equal the torch
+    twin's bit for bit on the same walk, widths included: the pyramid
+    alone and with a refinement, quarter bits on and off, a window,
+    caps cut so that a frontier, the approx and the direct list each
+    overflow, and a walk that no group carries into the refinement; one
+    launch a walk, and the same groups counted as entering."""
+    from nbody_tpu_torch.ops import _graph, bh3d
+
+    state, quarters, window, demand, cut, far = GATHER_KERNEL_CASES[case]
+    bbox, tree, kw = _gather_setup(state, cuda)
+    kw.update(quarter_bits=quarters, return_demand=demand)
+    if window:
+        leaves = 8 ** tree.max_depth
+        kw["window_cells"] = (
+            torch.tensor(leaves // 5, dtype=torch.int32, device=cuda),
+            torch.tensor(3 * leaves // 5, dtype=torch.int32, device=cuda))
+    if cut:
+        md = tree.max_depth
+        kw.update(frontier_caps=bh3d.frontier_schedule_adaptive(
+            512, md, 131072), list_cap=700, direct_cap=300)
+    if far:  # every group's sub-boxes far off: the root is accepted
+        bbox = tuple(b + 100.0 for b in bbox)
+    before, groups = bh3d.GATHER_KERNEL_LAUNCHES, bh3d.REFINE_GROUPS
+    reads = _graph.HOST_READS
+    got = _walk_outputs(bh3d._gather_lists_kernel(bbox, tree, **kw))
+    entered = bh3d.REFINE_GROUPS - groups
+    kernel_reads = _graph.HOST_READS - reads
+    want = _walk_outputs(bh3d._gather_lists(bbox, tree, **kw))
+    torch.cuda.synchronize()
+    assert bh3d.GATHER_KERNEL_LAUNCHES == before + 1
+    assert bh3d.REFINE_GROUPS - groups == 2 * entered
+    assert _graph.HOST_READS - reads == 2 * kernel_reads
+    assert kernel_reads == (1 if state == "plummer" else 0)
+    assert len(got) == len(want)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert _same_bits(a, b), f"output {k}"
+    # each case reaches what it names
+    (lx, ly, lz, lm), ranges, overflow = want[:4], want[4], want[5]
+    assert (lm > 0).any() and (ranges[..., 1] > 0).any() or far
+    # a window opens its outer close cells down to the leaves, whose
+    # aggregates may overflow the approx list
+    assert bool(overflow.any()) == cut or window
+    assert (entered == 0) == (state == "uniform" or far)
+    if far:
+        widths = bh3d.gather_widths(kw["frontier_caps"], tree.max_depth + 1)
+        assert lx.shape[1] == min(sum(widths), kw["list_cap"])
+    if quarters and not far:
+        assert (want[6] > 0).any()
+    if cut:
+        stats = want[-3:]
+        widths = bh3d.gather_widths(kw["frontier_caps"],
+                                    len(stats[0]) + 1)
+        assert any(int(d) > w for d, w in zip(stats[0], widths[1:]))
+        assert int(stats[1]) > kw["list_cap"]
+        assert int(stats[2]) > kw["direct_cap"]
+    if window:
+        kw.pop("window_cells")
+        free = bh3d._gather_lists(bbox, tree, **kw)[1]
+        assert int((free[..., 1] > 0).sum()) > int((ranges[..., 1] > 0).sum())
+
+
+def test_gather_walk_on_card_never_calls_the_twin(cuda, monkeypatch):
+    """3D force passes that collect by the gather walk (below the dense
+    collector's N, and the adaptive engine's every group) launch the
+    kernel once a pass and never reach the twin."""
+    from nbody_tpu_torch.models.engines import make_accel_fn
+    from nbody_tpu_torch.ops import bh3d
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the gather walk's twin")
+
+    cfg, pp, mp = _evolved_plummer(cuda, n=32768, steps=1)
+    monkeypatch.setattr(bh3d, "_gather_lists", refuse)
+    p, m = _cloud3(8192, 9, cuda)
+    before = bh3d.GATHER_KERNEL_LAUNCHES
+    _, ovf = bh3d.bh3_accelerations_grouped(p, m, g=G, group_size=512,
+                                            collect="gather",
+                                            return_diagnostics=True)
+    make_accel_fn(cfg)(pp, mp)
+    torch.cuda.synchronize()
+    assert bh3d.GATHER_KERNEL_LAUNCHES == before + 2
+    assert int(ovf.sum()) == 0
+
+
+@pytest.mark.parametrize("quarters", [False, True])
+def test_gather_kernel_in_the_dense_spill_pass(cuda, monkeypatch, quarters):
+    """The dense collector with tiny windows: its spill pass collects the
+    escaped rows through the gather walk's kernel (one launch a spill
+    pass), and the whole collector's outputs equal the same pass with
+    the walk on the twin."""
+    from nbody_tpu_torch.ops import bh3d, collect_dense3 as cd
+
+    tree, spyr, bbox, kw = _dense_setup(32768, 6, True, 512, cuda)
+
+    def run():
+        res = cd.collect_lists_3d_dense(
+            bbox, tree, spyr,
+            window_schedule=TINY_WINDOWS[:spyr.max_depth + 1],
+            spill_cap=16, quarter_bits=quarters, **kw)
+        return _walk_outputs(res)
+
+    spills, launches = cd.SPILL_PASSES, bh3d.GATHER_KERNEL_LAUNCHES
+    got = run()
+    torch.cuda.synchronize()
+    assert cd.SPILL_PASSES == spills + 1
+    assert bh3d.GATHER_KERNEL_LAUNCHES == launches + 1
+    with monkeypatch.context() as mp:
+        mp.setattr(bh3d, "_gather_lists_kernel", bh3d._gather_lists)
+        want = run()
+    assert bh3d.GATHER_KERNEL_LAUNCHES == launches + 1
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert _same_bits(a, b), f"output {k}"
+
+
+def test_gather_kernel_counts_once_a_replay(cuda):
+    """The walk captured in a CUDA graph (no host read without a
+    refinement): each replay gives the eager bits, and the launch
+    counter, a tally, rises by one a replay once the graph's owner adds
+    its per-replay counts."""
+    from nbody_tpu_torch.ops import _graph, bh3d
+
+    bbox, tree, kw = _gather_setup("uniform", cuda)
+    kw.update(quarter_bits=True)
+    want = _walk_outputs(bh3d._collect_lists_3d(bbox, tree, **kw))
+    counts = _graph.CaptureCounts(cuda)
+    graph, box = torch.cuda.CUDAGraph(), {}
+    before = bh3d.GATHER_KERNEL_LAUNCHES
+    with _graph.counting(counts):
+        _graph.capture(graph, lambda: box.setdefault(
+            "out", bh3d._collect_lists_3d(bbox, tree, **kw)), cuda)
+    assert bh3d.GATHER_KERNEL_LAUNCHES == before
+    assert counts.per_replay == {("bh3d", "GATHER_KERNEL_LAUNCHES"): 1}
+    for _ in range(2):
+        graph.replay()
+    _graph.add_counts(counts.per_replay, 2)
+    torch.cuda.synchronize()
+    assert bh3d.GATHER_KERNEL_LAUNCHES == before + 2
+    for k, (a, b) in enumerate(zip(_walk_outputs(box["out"]), want)):
+        assert _same_bits(a, b), f"output {k}"
