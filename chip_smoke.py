@@ -762,34 +762,35 @@ def plain_twins():
         collect_dense3._dense_lists_kernel = dense
 
 
-COUNTERS = (("k1", "allpairs", "KERNEL_LAUNCHES"),
-            ("k2", "list_eval", "KERNEL_LAUNCHES"),
-            ("k3", "list_eval", "PACKED_LAUNCHES"),
-            ("k4", "list_eval", "SPLIT_LAUNCHES"),
-            ("k5", "allpairs", "POTENTIAL_LAUNCHES"),
-            ("k6", "list_eval", "GRID_LAUNCHES"),
-            ("k7", "list_eval", "DYNAMIC_LAUNCHES"),
-            ("dense", "collect_dense3", "DENSE_PASSES"),
-            ("escaped", "collect_dense3", "ESCAPED_GROUPS"),
-            ("spills", "collect_dense3", "SPILL_PASSES"),
-            ("dense_kernel", "collect_dense3", "DENSE_KERNEL_LAUNCHES"),
-            ("gather_kernel", "bh3d", "GATHER_KERNEL_LAUNCHES"),
-            ("leaf", "tree", "LEAF_SUM_LAUNCHES"))
+# the short labels this script prints the program's counters under
+LABELS = {"k1": "ops.allpairs.KERNEL_LAUNCHES",
+          "k2": "ops.list_eval.KERNEL_LAUNCHES",
+          "k3": "ops.list_eval.PACKED_LAUNCHES",
+          "k4": "ops.list_eval.SPLIT_LAUNCHES",
+          "k5": "ops.allpairs.POTENTIAL_LAUNCHES",
+          "k6": "ops.list_eval.GRID_LAUNCHES",
+          "k7": "ops.list_eval.DYNAMIC_LAUNCHES",
+          "dense": "ops.collect_dense3.DENSE_PASSES",
+          "escaped": "ops.collect_dense3.ESCAPED_GROUPS",
+          "spills": "ops.collect_dense3.SPILL_PASSES",
+          "dense_kernel": "ops.collect_dense3.DENSE_KERNEL_LAUNCHES",
+          "gather_kernel": "ops.bh3d.GATHER_KERNEL_LAUNCHES",
+          "leaf": "ops.tree.LEAF_SUM_LAUNCHES"}
 
 
 def reset_counts():
-    import importlib
+    from nbody_tpu_torch.utils import profiling
 
-    for _, mod, name in COUNTERS:
-        setattr(importlib.import_module(f"nbody_tpu_torch.ops.{mod}"), name,
-                0)
+    profiling.reset_counters()
 
 
 def read_counts() -> dict:
-    import importlib
+    """The program's counters (``utils/profiling.COUNTERS``), under their
+    short labels."""
+    from nbody_tpu_torch.utils import profiling
 
-    return {key: getattr(importlib.import_module(
-        f"nbody_tpu_torch.ops.{mod}"), name) for key, mod, name in COUNTERS}
+    values = profiling.counter_values()
+    return {label: values[name] for label, name in LABELS.items()}
 
 
 def main_path_run(engine: str, n: int, dims: int, steps: int,
@@ -1117,7 +1118,7 @@ def phase6c(dev, card: str) -> dict:
               "packed (K3)": taken.get("packed (K3)", 0) > 0,
               "no spill": "spill" in taken and taken["spill"] == 0,
               "spill": taken.get("spill", 0) > 0 and c["escaped"] > 0,
-              "K4": per.get("list_eval.SPLIT_LAUNCHES", 0) > 0}[want]
+              "K4": per.get(LABELS["k4"], 0) > 0}[want]
         if not ok:
             fail(f"{tag} --fused: the graph's replays did not show "
                  f"'{want}' (branches {taken}, a replay's launches {per})")
@@ -2648,6 +2649,7 @@ def phase11(dev, card: str) -> dict:
     from nbody_tpu_torch.models.engines import make_accel_fn
     from nbody_tpu_torch.models.simulation import Simulation
     from nbody_tpu_torch.ops import bh3d, list_eval, tree, tree3d
+    from nbody_tpu_torch.utils import profiling
 
     print("phase 11: the adaptive engine's refinement on an evolved 1M "
           "Plummer sphere, card against CPU, bit for bit", flush=True)
@@ -2708,15 +2710,15 @@ def phase11(dev, card: str) -> dict:
           f"level read once); refine_octree {r_ms:.3f} ms; the whole "
           f"adaptive tree build {b_all:.3f} ms  [{card}]", flush=True)
     accel = make_accel_fn(cfg, return_diagnostics=True)
-    groups0 = bh3d.REFINE_GROUPS
-    tree.LEAF_SUM_LAUNCHES = list_eval.SPLIT_LAUNCHES = 0
+    reset_counts()
     split = []
     with spying(list_eval, "list_eval_runs_split", split):
         acc, ovf = accel(p, m)
     torch.cuda.synchronize()
-    launches = dict(leaf=tree.LEAF_SUM_LAUNCHES, k4=list_eval.SPLIT_LAUNCHES)
+    c = read_counts()
+    launches = dict(leaf=c["leaf"], k4=c["k4"])
     want = dict(leaf=1 + len(r_g.raw), k4=1)
-    entered = bh3d.REFINE_GROUPS - groups0
+    entered = profiling.counter("ops.bh3d.REFINE_GROUPS")
     print(f"  a force pass: {entered} of {n1m // 2048} groups walked the "
           f"refinement, {int(ovf.sum())} bodies overflowed; launches "
           f"{launches} (want {want})", flush=True)
@@ -2813,6 +2815,7 @@ def phase12(dev, card: str) -> dict:
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.engines import make_accel_fn, resolved_caps
     from nbody_tpu_torch.ops import bh3d
+    from nbody_tpu_torch.utils import profiling
 
     print("phase 12: the 3D gather walk (csrc/collect_gather3.cu) against "
           "its twin, bit for bit", flush=True)
@@ -2857,9 +2860,9 @@ def phase12(dev, card: str) -> dict:
         if len(seen) != 1:
             fail(f"12: {tag}: {len(seen)} gather walks in one pass")
         args, kw = seen[0]
-        groups = bh3d.REFINE_GROUPS
+        groups = profiling.counter("ops.bh3d.REFINE_GROUPS")
         got = gather_outputs(bh3d._gather_lists_kernel(*args, **kw))
-        entered = bh3d.REFINE_GROUPS - groups
+        entered = profiling.counter("ops.bh3d.REFINE_GROUPS") - groups
         want = gather_outputs(bh3d._gather_lists(*args, **kw))
         torch.cuda.synchronize()
         for k, (a, b) in enumerate(zip(got, want)):
@@ -2871,10 +2874,10 @@ def phase12(dev, card: str) -> dict:
             if not torch.equal(a, b):
                 fail(f"gather walk, {tag}: output {k} differs from the "
                      f"twin in {int((a != b).sum())} entries")
-        if bh3d.REFINE_GROUPS - groups != 2 * entered:
+        twin = profiling.counter("ops.bh3d.REFINE_GROUPS") - groups - entered
+        if twin != entered:
             fail(f"12: {tag}: the kernel counted {entered} groups entering "
-                 f"the refinement, the twin "
-                 f"{bh3d.REFINE_GROUPS - groups - entered}")
+                 f"the refinement, the twin {twin}")
         g, q = args[0][0].shape
         widths = bh3d.gather_widths(kw["frontier_caps"],
                                     len(kw["frontier_caps"]))

@@ -161,3 +161,14 @@ class SimConfig:
             "float64": torch.float64,
             "bfloat16": torch.bfloat16,
         }[self.dtype]
+
+
+def grouped_options(config: SimConfig) -> dict:
+    """The grouped Barnes-Hut pass's options that every caller (the BH
+    engines, the sharded steps) takes from the config as they are."""
+    return dict(
+        g=config.g, theta=config.theta, softening=config.softening,
+        group_size=config.group_size, frontier_cap=config.frontier_cap,
+        list_cap=config.list_cap, direct_cap=config.direct_cap,
+        direct_cell_max=config.resolved_direct_cell_max,
+        direct_body_cap=config.direct_body_cap)

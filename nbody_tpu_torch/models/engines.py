@@ -22,7 +22,7 @@ from typing import Callable
 
 import torch
 
-from ..config import SimConfig
+from ..config import SimConfig, grouped_options
 from ..physics import pair_accelerations_chunked, pair_accelerations_dense
 
 
@@ -127,6 +127,13 @@ def make_accel_fn(config: SimConfig,
 
         return _no_overflow(tiled, return_diagnostics)
 
+    # the grouped Barnes-Hut engines' options
+    bh_kw = dict(
+        grouped_options(config), max_depth=config.resolved_max_depth,
+        return_diagnostics=return_diagnostics,
+        compensated=config.compensated, eval_mode=config.eval_mode,
+        eval_k_tile=config.eval_k_tile, run_cap=config.run_cap,
+        split_eval=config.split_eval)
     if engine == "barnes_hut":
         if config.n_dim == 3:
             if config.bh_mode == "exact":
@@ -138,19 +145,7 @@ def make_accel_fn(config: SimConfig,
 
             def grouped3(positions, masses):
                 return bh3_accelerations_grouped(
-                    positions, masses, g=g, theta=config.theta,
-                    max_depth=config.resolved_max_depth,
-                    softening=config.softening, group_size=config.group_size,
-                    frontier_cap=config.frontier_cap,
-                    list_cap=config.list_cap, direct_cap=config.direct_cap,
-                    direct_cell_max=config.resolved_direct_cell_max,
-                    direct_body_cap=config.direct_body_cap,
-                    return_diagnostics=return_diagnostics,
-                    compensated=config.compensated,
-                    eval_mode=config.eval_mode,
-                    eval_k_tile=config.eval_k_tile, run_cap=config.run_cap,
-                    split_eval=config.split_eval, collect=config.collect3,
-                )
+                    positions, masses, collect=config.collect3, **bh_kw)
 
             return grouped3
         if config.bh_mode == "exact":
@@ -169,19 +164,7 @@ def make_accel_fn(config: SimConfig,
         from ..ops.bh_grouped import bh_accelerations_grouped
 
         def grouped(positions, masses):
-            return bh_accelerations_grouped(
-                positions, masses, g=g, theta=config.theta,
-                max_depth=config.resolved_max_depth,
-                softening=config.softening, group_size=config.group_size,
-                frontier_cap=config.frontier_cap, list_cap=config.list_cap,
-                direct_cap=config.direct_cap,
-                direct_cell_max=config.resolved_direct_cell_max,
-                direct_body_cap=config.direct_body_cap,
-                return_diagnostics=return_diagnostics,
-                compensated=config.compensated, eval_mode=config.eval_mode,
-                eval_k_tile=config.eval_k_tile, run_cap=config.run_cap,
-                split_eval=config.split_eval,
-            )
+            return bh_accelerations_grouped(positions, masses, **bh_kw)
 
         return grouped
 
@@ -193,19 +176,7 @@ def make_accel_fn(config: SimConfig,
         from ..ops.bh3d import bh3_accelerations_adaptive
 
         def adaptive3(positions, masses):
-            return bh3_accelerations_adaptive(
-                positions, masses, g=g, theta=config.theta,
-                max_depth=config.resolved_max_depth,
-                softening=config.softening, group_size=config.group_size,
-                frontier_cap=config.frontier_cap, list_cap=config.list_cap,
-                direct_cap=config.direct_cap,
-                direct_cell_max=config.resolved_direct_cell_max,
-                direct_body_cap=config.direct_body_cap,
-                return_diagnostics=return_diagnostics,
-                compensated=config.compensated, eval_mode=config.eval_mode,
-                eval_k_tile=config.eval_k_tile, run_cap=config.run_cap,
-                split_eval=config.split_eval,
-            )
+            return bh3_accelerations_adaptive(positions, masses, **bh_kw)
 
         return adaptive3
 

@@ -96,7 +96,7 @@ class Simulation:
         self.last_scan_overflow = None
         self.last_scan_route = None
         # {conditional branch of the graph: replays that took it}, and
-        # {"module.counter": launches a replay makes outside the branches}
+        # {counter: what a replay counts outside the branches}
         self.last_branch_counts = {}
         self.last_replay_launches = {}
         self.last_capture_ms = 0.0
@@ -321,8 +321,7 @@ class Simulation:
                 self.last_scan_ms = (time.perf_counter() - t0) * 1e3
             self.last_branch_counts = g.settle()
             self.last_replay_launches = {
-                f"{mod}.{name}": k for (mod, name), k in g.launches.items()
-                if k}
+                name: k for name, k in g.counts.per_replay.items() if k}
             return g.state, g.trajectory, g.overflow
 
         self.last_capture_ms = 0.0
@@ -472,17 +471,15 @@ class StepGraph:
     capture's ``nbody.capture.enter`` / ``.trace`` / ``.end``
     (``ops/_graph.capture``).
 
-    Counting: the kernel wrappers' launch counters count a captured
-    launch once per replay: :meth:`replay` adds the launches outside the
-    gates' branches (``launches``) and the fixed tallies; a branch's
-    launches and tallies count on the device, once per replay that takes
-    it, and :meth:`settle` adds them after the replays (one host
-    read)."""
+    Counting (``utils.profiling.count``): each count the step makes
+    counts once per replay.  The throwaway capture's counts are dropped;
+    the real capture's counts outside the gates' branches
+    (``counts.per_replay``) are added by :meth:`replay`; a branch's
+    counts count on the device, once per replay that takes it, and
+    :meth:`settle` adds them after the replays (one host read)."""
 
     def __init__(self, step_fn, state: SimState, n_steps: int,
                  trajectory: bool = False):
-        from ..ops import _cuda, _graph
-
         dev = state.device
         self.state = SimState(masses=state.masses, **{
             f: getattr(state, f).clone() for f in _CARRIED})
@@ -507,15 +504,10 @@ class StepGraph:
                 step_fn(copy_of_state())
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
-        before = _cuda.launch_counts()
-        try:
-            with _graph.counting(_graph.CaptureCounts(dev, warm=True)):
-                _graph.capture(torch.cuda.CUDAGraph(),
-                               lambda: step_fn(copy_of_state()), dev,
-                               stream=side, capture_error_mode="relaxed")
-        finally:
-            after = _cuda.launch_counts()
-            _graph.add_counts({k: after[k] - before[k] for k in after}, -1)
+        with _graph.counting(_graph.CaptureCounts(dev, warm=True)):
+            _graph.capture(torch.cuda.CUDAGraph(),
+                           lambda: step_fn(copy_of_state()), dev,
+                           stream=side, capture_error_mode="relaxed")
 
         def step():
             new = step_fn(self.state)
@@ -529,26 +521,15 @@ class StepGraph:
             self._k += 1
 
         self.counts = _graph.CaptureCounts(dev)
-        before = _cuda.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         with _graph.counting(self.counts):
             _graph.capture(self.graph, step, dev)
-        after = _cuda.launch_counts()
-        recorded = {key: after[key] - before[key] for key in after}
-        _graph.add_counts(recorded, -1)  # the capture launched nothing
-        # launches every replay makes: those outside the branches
-        self.launches = {
-            key: k - self.counts.branch_launches.get(key, 0)
-            for key, k in recorded.items()}
 
     def replay(self, n: int) -> None:
         """Run ``n`` more steps (asynchronous, like a launch)."""
-        from ..ops import _graph
-
         for _ in range(n):
             self.graph.replay()
-        _graph.add_counts(self.launches, n)
-        _graph.add_counts(self.counts.per_replay, n)
+        self.counts.replayed(n)
 
     def settle(self) -> dict:
         """Count what the replays so far did inside the gates' branches

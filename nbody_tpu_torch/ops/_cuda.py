@@ -31,10 +31,6 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-# guards the wrappers' launch counters: ranks of a thread group (parallel/
-# collectives.ThreadGroup) launch from several threads, and ``+= 1`` on a
-# module global is not atomic
-counter_lock = threading.Lock()
 _lib = None
 # what the last build in this process printed (ptxas register / shared
 # memory report) and how long it took; "" / 0.0 when the library was
@@ -185,31 +181,3 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
             f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-# Every kernel wrapper's launch counter, as (module of nbody_tpu_torch.ops,
-# attribute).  A wrapper adds one where it launches; under CUDA graph
-# capture that launch is recorded once and runs at every replay (or every
-# replay that takes its branch), so the graph's owner adds the captured
-# launches times the replays (``_graph.add_counts``, ``StepGraph``).
-LAUNCH_COUNTERS = (
-    ("allpairs", "KERNEL_LAUNCHES"),  # K1
-    ("list_eval", "KERNEL_LAUNCHES"),  # K2
-    ("list_eval", "PACKED_LAUNCHES"),  # K3
-    ("list_eval", "SPLIT_LAUNCHES"),  # K4
-    ("allpairs", "POTENTIAL_LAUNCHES"),  # K5
-    ("list_eval", "GRID_LAUNCHES"),  # K6
-    ("list_eval", "DYNAMIC_LAUNCHES"),  # K7
-    ("tree", "LEAF_SUM_LAUNCHES"),  # the tree builds' leaf sums (a call)
-    ("collect_dense3", "DENSE_KERNEL_LAUNCHES"),  # the dense 3D collector
-    ("bh3d", "GATHER_KERNEL_LAUNCHES"),  # the 3D gather walk
-)
-
-
-def launch_counts() -> dict:
-    """{(module, counter): launches so far} of every kernel wrapper."""
-    import importlib
-
-    return {(mod, name): getattr(
-        importlib.import_module(f"{__package__}.{mod}"), name)
-        for mod, name in LAUNCH_COUNTERS}

@@ -21,43 +21,29 @@ memory pool of the capture's own.  A branch writes its results in place
 into tensors made before it: the graph after the node reads fixed
 addresses.
 
-Counting.  The kernel wrappers count a launch when they launch, which
-under capture means once, when it is recorded.  A graph's owner (the
-fused run's ``StepGraph``) turns that into counts per replay, and needs
-to know which launches sit in a branch: those run only on the replays
-that take it.  While a :class:`CaptureCounts` is active (:func:`counting`),
-every :func:`device_if` under capture adds one to a device counter of
-its branch whenever a replay takes it, and records the launches and the
-fixed tallies (:func:`tally` of an int) made inside it;
-:func:`tally` of a tensor adds its value on the device.  The owner reads
-the device counters once after its replays (:meth:`CaptureCounts.settle`).
-A counter is named as in ``_cuda.LAUNCH_COUNTERS``: (module of
-``nbody_tpu_torch.ops``, attribute), or for a module outside ``ops/``
-its dotted name under ``nbody_tpu_torch`` (``"parallel.collectives"``).
-:data:`HOST_READS` counts the host reads of a step (:func:`host_read`).
+Counting.  Every count of the program goes through
+``utils.profiling.count``, which under capture hands it to the
+:class:`CaptureCounts` made active on this thread (:func:`counting`): a
+count outside any branch is kept as a per-replay amount, which the
+graph's owner (the fused run's ``StepGraph``) adds at each replay; each
+:func:`device_if` under capture keeps its branch's counts apart and adds
+one to a device counter of its branch whenever a replay takes it; a
+tensor value is added on the device by every replay that reaches it.
+The owner reads the device counters once after its replays
+(:meth:`CaptureCounts.settle`).  ``ops._graph.HOST_READS`` counts the
+host reads of a step (:func:`host_read`).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import importlib
 import sys
-import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, recorder, recording, span
 from . import _cuda
-
-Key = Tuple[str, str]
-
-# host reads of a tensor value made by the steps: the gates'
-# (``_host_value``) and the contract loop's overflow count
-HOST_READS = 0
-
-_state = threading.local()
 
 
 # the capture mode of a branch's stream (cudaStreamCaptureModeGlobal,
@@ -65,38 +51,20 @@ _state = threading.local()
 _CAPTURE_MODE_GLOBAL = 0
 
 
-def _capturing_now() -> bool:
-    return torch.cuda.is_available() and (
-        torch.cuda.is_current_stream_capturing())
-
-
 def capturing(t: torch.Tensor) -> bool:
     """Whether the current stream of ``t``'s CUDA device is capturing a
     graph (False for a CPU tensor)."""
-    return t.is_cuda and _capturing_now()
-
-
-def add_counts(amounts: Dict[Key, int], times: int = 1) -> None:
-    """Add ``times`` x each amount to its counter (under the counter
-    lock: thread ranks count together)."""
-    with _cuda.counter_lock:
-        for (mod, name), k in amounts.items():
-            m = importlib.import_module(
-                f"nbody_tpu_torch.{mod}" if "." in mod
-                else f"{__package__}.{mod}")
-            setattr(m, name, getattr(m, name) + k * times)
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 class CaptureCounts:
     """What one capture's replays add to the counters.
 
-    ``per_replay``: the fixed tallies made outside any branch (the
-    graph's owner adds the launches outside branches itself).
+    ``per_replay``: {counter: amount} of the counts made outside any
+    branch, which every replay adds (the graph's owner adds them).
     ``slots``: for each device counter (a row of ``values``), the amount
-    of each counter one unit of it stands for: a branch's launches and
-    fixed tallies per replay that took it, or 1 for a tallied value.
-    ``branch_launches``: the launches recorded inside top-level branches,
-    which the owner takes out of its per-replay launches."""
+    of each counter one unit of it stands for: a branch's counts per
+    replay that took it, or 1 for a counted tensor."""
 
     SLOTS = 64
 
@@ -110,12 +78,11 @@ class CaptureCounts:
         self.keep: list = []
         self._pool = None
         self._streams: list = []
-        self.per_replay: Dict[Key, int] = {}
+        self.per_replay: Dict[str, int] = {}
         self.slots: list = []
         self.names: list = []
-        self.branch_launches: Dict[Key, int] = {}
+        # the open frames: per_replay, then each branch being captured
         self._frames = [self.per_replay]
-        self._nested = [self.branch_launches]
 
     @property
     def pool(self):
@@ -136,10 +103,21 @@ class CaptureCounts:
                 ptr.value, device=self.device))
         return self._streams[depth]
 
-    def _slot(self, amounts: Dict[Key, int], name: str) -> int:
+    def record(self, name: str, value) -> None:
+        """A count made under capture (``profiling.count``): an int goes
+        to the innermost open frame, a tensor to a device slot of its
+        own, labelled by the counter's name under ``ops``."""
+        if isinstance(value, torch.Tensor):
+            slot = self._slot({name: 1}, name.removeprefix("ops."))
+            self._add_device(slot, value)
+        else:
+            frame = self._frames[-1]
+            frame[name] = frame.get(name, 0) + int(value)
+
+    def _slot(self, amounts: Dict[str, int], name: str) -> int:
         if len(self.slots) == self.SLOTS:
             raise RuntimeError(
-                f"more than {self.SLOTS} counted branches or tallies in one "
+                f"more than {self.SLOTS} counted branches or tensors in one "
                 "capture")
         self.slots.append(amounts)
         self.names.append(name)
@@ -152,6 +130,11 @@ class CaptureCounts:
         else:
             row.add_(value)
 
+    def replayed(self, n: int) -> None:
+        """Count what ``n`` replays counted outside the branches."""
+        for name, k in self.per_replay.items():
+            count(name, k * n)
+
     def settle(self) -> Dict[str, int]:
         """Add what the replays since the last settle counted on the
         device to the counters (one host read) and zero the device
@@ -160,25 +143,16 @@ class CaptureCounts:
         self.values.zero_()
         seen = {}
         for amounts, name, v in zip(self.slots, self.names, vals):
-            add_counts(amounts, v)
+            for counter, k in amounts.items():
+                count(counter, k * v)
             seen[name] = seen.get(name, 0) + v
         return seen
 
 
-def _active() -> Optional[CaptureCounts]:
-    return getattr(_state, "counts", None)
-
-
-@contextlib.contextmanager
 def counting(counts: CaptureCounts):
-    """Count the branches and tallies of the captures made in this block
-    (on this thread) into ``counts``."""
-    prev = _active()
-    _state.counts = counts
-    try:
-        yield counts
-    finally:
-        _state.counts = prev
+    """Count what the captures made in this block (on this thread) count
+    into ``counts``."""
+    return recording(counts)
 
 
 def capture(graph: torch.cuda.CUDAGraph, fn: Callable[[], None],
@@ -217,19 +191,15 @@ def capture(graph: torch.cuda.CUDAGraph, fn: Callable[[], None],
 
 
 def host_read(t: torch.Tensor) -> int:
-    """``int(t)``, counted in :data:`HOST_READS`."""
-    global HOST_READS
-    with _cuda.counter_lock:
-        HOST_READS += 1
+    """``int(t)``, counted in ``ops._graph.HOST_READS``."""
+    count("ops._graph.HOST_READS")
     return int(t)
 
 
 def host_values(t: torch.Tensor) -> list:
     """``t.tolist()`` of a 1-d integer tensor, one read counted in
-    :data:`HOST_READS`."""
-    global HOST_READS
-    with _cuda.counter_lock:
-        HOST_READS += 1
+    ``ops._graph.HOST_READS``."""
+    count("ops._graph.HOST_READS")
     return t.tolist()
 
 
@@ -256,7 +226,7 @@ def device_if(pred: torch.Tensor, fn: Callable[[], None],
         if v:
             fn()
         return v
-    counts = _active()
+    counts = recorder()
     if counts is None:
         raise RuntimeError(
             "device_if under a CUDA graph capture needs an active "
@@ -272,11 +242,8 @@ def device_if(pred: torch.Tensor, fn: Callable[[], None],
     lib = _cuda.library()
     parent = torch.cuda.current_stream(dev)
     child = counts.child_stream(len(counts._frames) - 1)
-    before = _cuda.launch_counts()
-    amounts: Dict[Key, int] = {}
-    nested: Dict[Key, int] = {}
-    counts._frames.append(amounts)
-    counts._nested.append(nested)
+    frame: Dict[str, int] = {}
+    counts._frames.append(frame)
     try:
         _cuda.check(lib.nbody_graph_if_begin(
             parent.cuda_stream, cond.data_ptr(), child.cuda_stream,
@@ -286,25 +253,13 @@ def device_if(pred: torch.Tensor, fn: Callable[[], None],
             with torch.cuda.stream(child), torch.cuda.use_mem_pool(
                     counts.pool, dev):
                 fn()
-                slot = counts._slot(amounts, name)
-                counts._add_device(slot, 1)
+                # a nested branch's counts sit in its own slot
+                counts._add_device(counts._slot(frame, name), 1)
         finally:
             _cuda.check(lib.nbody_graph_if_end(child.cuda_stream),
                         "conditional node")
     finally:
         counts._frames.pop()
-        counts._nested.pop()
-    after = _cuda.launch_counts()
-    for key in after:
-        d = after[key] - before[key]
-        if d:
-            # the branch's own launches: those of branches nested in it
-            # are counted by their own slots
-            own = d - nested.get(key, 0)
-            if own:
-                amounts[key] = amounts.get(key, 0) + own
-            parent_nested = counts._nested[-1]
-            parent_nested[key] = parent_nested.get(key, 0) + d
     return None
 
 
@@ -322,24 +277,3 @@ def device_cond(pred: torch.Tensor, if_true: Callable[[], None],
     device_if(cond, if_true, names[0])
     device_if(~cond, if_false, names[1])
     return None
-
-
-def tally(key: Key, value, name: Optional[str] = None) -> None:
-    """Add ``value`` (an int, or a 0-d integer tensor) to counter ``key``.
-    Outside capture it is added now (a tensor is read on the host).
-    Under capture with :func:`counting` active: an int is counted per
-    replay (or per replay that takes the branch it sits in); a tensor's
-    value is added on the device by every replay that reaches it.  Under
-    capture with no active counts nothing is counted."""
-    if not _capturing_now():
-        add_counts({key: int(value)})
-        return
-    counts = _active()
-    if counts is None:
-        return
-    if isinstance(value, torch.Tensor):
-        slot = counts._slot({key: 1}, name or ".".join(key))
-        counts._add_device(slot, value)
-    else:
-        frame = counts._frames[-1]
-        frame[key] = frame.get(key, 0) + int(value)

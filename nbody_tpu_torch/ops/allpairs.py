@@ -14,8 +14,8 @@ bodies closer than 1.1e-19 count as coincident there.
 :func:`allpairs_accelerations_vs` (K1) and :func:`allpairs_potential`
 (K5) launch their kernels for CUDA tensors and take the twins only for
 CPU tensors; a CUDA tensor a kernel cannot take raises.
-``KERNEL_LAUNCHES`` counts K1 launches, ``POTENTIAL_LAUNCHES`` K5
-launches.
+``ops.allpairs.KERNEL_LAUNCHES`` counts K1 launches,
+``ops.allpairs.POTENTIAL_LAUNCHES`` K5 launches (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -25,10 +25,9 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import count
 from . import _cuda
 
-KERNEL_LAUNCHES = 0  # K1
-POTENTIAL_LAUNCHES = 0  # K5
 # the H100's SMs and thread slots per SM: the slices a target gets fill them
 SMS = 132
 SM_THREADS = 2048
@@ -40,7 +39,7 @@ ALLPAIRS_TARGETS_PER_THREAD = 2
 COMP_UNIT = 128
 # the share of the card's thread slots K1's sums in flight (Nt x slices)
 # must fill, unsoftened / compensated: the fastest slice counts measured at
-# N=16,384, 65,536 and 1,048,576 (scripts/allpairs_variants.py, PERF.md)
+# N=16,384, 65,536 and 1,048,576 on an H100 (PERF.md, section 6)
 ALLPAIRS_FILL = 0.475
 ALLPAIRS_FILL_COMPENSATED = 0.95
 # K5: threads per block, the sources of one tile, whose partial sum enters
@@ -183,7 +182,6 @@ def allpairs_accelerations_vs(
             softening=softening, source_block=source_block,
             compensated=compensated,
         )
-    global KERNEL_LAUNCHES
     dev = target_positions.device
     nt, dims = target_positions.shape
     ns = source_positions.shape[0]
@@ -210,8 +208,7 @@ def allpairs_accelerations_vs(
             _cuda.stream_of(out),
         )
     _cuda.check(code, "allpairs (K1)")
-    with _cuda.counter_lock:
-        KERNEL_LAUNCHES += 1
+    count("ops.allpairs.KERNEL_LAUNCHES")
     return out
 
 
@@ -265,7 +262,6 @@ def allpairs_potential(
     tile order); f32 only, 2D or 3D.  On the CPU: the plain twin."""
     if not positions.is_cuda:
         return allpairs_potential_plain(positions, masses, g=g)
-    global POTENTIAL_LAUNCHES
     dev = positions.device
     n, dims = positions.shape
     if dims not in (2, 3):
@@ -289,8 +285,7 @@ def allpairs_potential(
             POTENTIAL_THREADS, slices, dims, _cuda.stream_of(out),
         )
     _cuda.check(code, "allpairs potential (K5)")
-    with _cuda.counter_lock:
-        POTENTIAL_LAUNCHES += 1
+    count("ops.allpairs.POTENTIAL_LAUNCHES")
     return out
 
 

@@ -32,7 +32,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import BH_SOFTENING, MASS_SKIP_THRESHOLD, THETA_DEFAULT
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import _cuda, _graph, bh_grouped
 from .bh_grouped import (
     _pow2_ceil,
@@ -59,13 +59,6 @@ from .tree3d import (
     morton_codes_3d,
 )
 
-
-# groups whose walk entered the refinement below the pyramid (the
-# adaptive engine), over all passes
-REFINE_GROUPS = 0
-# launches of csrc/collect_gather3.cu's kernel (one a gather walk on the
-# card; counted under capture too: ``_graph.tally``)
-GATHER_KERNEL_LAUNCHES = 0
 
 # what the gather walk's kernel takes: levels (the adaptive tree's 22),
 # sub-boxes a group, and rows a level (a tail code keeps 5 bits for the
@@ -254,7 +247,6 @@ def _gather_lists(
     """:func:`_collect_lists_3d`'s walk in PyTorch: the plain twin of
     ``csrc/collect_gather3.cu`` (CPU tensors), with the same arguments
     and returns."""
-    global REFINE_GROUPS
     x0, x1, y0, y1, z0, z1 = bbox
     g = x0.shape[0]
     dev = x0.device
@@ -343,8 +335,7 @@ def _gather_lists(
             demand.append(cmask.sum(1).max())
         if refine is not None and level == max_depth:
             entering = _graph.host_read(cmask.any(1).sum())
-            with _cuda.counter_lock:
-                REFINE_GROUPS += entering
+            count("ops.bh3d.REFINE_GROUPS", entering)
             if not entering:
                 break
 
@@ -455,7 +446,6 @@ def _gather_lists_kernel(bbox, tree: Octree, *, theta: float,
     them (where none did, the outputs are cut to the twin's widths, which
     stop at the pyramid); nothing else is read, so a CUDA graph can hold
     the launch."""
-    global REFINE_GROUPS
     x0 = bbox[0]
     dev = x0.device
     if not x0.is_cuda:
@@ -533,13 +523,12 @@ def _gather_lists_kernel(bbox, tree: Octree, *, theta: float,
             int(quarter_bits), int(refine is not None),
             _cuda.stream_of(boxes))
     _cuda.check(code, "gather_collect3")
-    _graph.tally(("bh3d", "GATHER_KERNEL_LAUNCHES"), 1)
+    count("ops.bh3d.GATHER_KERNEL_LAUNCHES")
 
     n_dem = last
     if refine is not None and last > md:
         entering = _graph.host_read(entered.sum())
-        with _cuda.counter_lock:
-            REFINE_GROUPS += entering
+        count("ops.bh3d.REFINE_GROUPS", entering)
         if not entering:
             # the twin stops at the pyramid: its widths, and the kernel's
             # first slots (the refinement's levels held only holes)

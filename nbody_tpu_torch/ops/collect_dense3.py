@@ -35,12 +35,12 @@ sources) is the exclusive prefix sum of the level's counts in Morton
 order.  The JAX package's dead-level skip is not carried over (same
 result; here it would cost a host sync per level).
 
-``DENSE_PASSES``, ``ESCAPED_GROUPS`` and ``SPILL_PASSES`` count the
-collector's calls, the groups that escaped their windows, and the calls
-that ran the spill pass, as the kernels' wrappers count launches
-(``DENSE_KERNEL_LAUNCHES``, the walk's kernel: one a pass on the card); under
-a CUDA graph's capture the replays count them on the device
-(``_graph.tally``), read once after the run.
+The counters ``ops.collect_dense3.DENSE_PASSES``, ``ESCAPED_GROUPS`` and
+``SPILL_PASSES`` count the collector's calls, the groups that escaped
+their windows, and the calls that ran the spill pass, as the kernels'
+wrappers count launches (``DENSE_KERNEL_LAUNCHES``, the walk's kernel:
+one a pass on the card); under a CUDA graph's capture the replays count
+them (``utils.profiling.count``).
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ from typing import List, Tuple
 import torch
 
 from ..config import MASS_SKIP_THRESHOLD
+from ..utils.profiling import count
 from . import _graph
 from .bh_grouped import (
     _INT_MAX,
@@ -71,12 +72,6 @@ from .tree3d import (
     Octree,
     level_cell_size_3d,
 )
-
-DENSE_PASSES = 0
-ESCAPED_GROUPS = 0
-SPILL_PASSES = 0
-# launches of csrc/collect_dense3.cu's kernel (one a pass on the card)
-DENSE_KERNEL_LAUNCHES = 0
 
 # what the window kernel takes (csrc/collect_dense3.cu): levels, cells
 # across a window, and sub-boxes a group
@@ -353,7 +348,6 @@ def _dense_lists_kernel(bbox, spyr: SpatialPyramid, origins, sched, *,
     the twin.  Outputs and scratch come from ``torch.empty`` on the
     current stream and nothing is read on the host, so a CUDA graph can
     hold it."""
-    global DENSE_KERNEL_LAUNCHES
     from . import _cuda
 
     dev = bbox[0].device
@@ -402,8 +396,7 @@ def _dense_lists_kernel(bbox, spyr: SpatialPyramid, origins, sched, *,
             direct_cap, (ctypes.c_void_p * len(ptrs))(*ptrs),
             int(quarter_bits), _cuda.stream_of(boxes))
     _cuda.check(code, "dense_collect3")
-    with _cuda.counter_lock:
-        DENSE_KERNEL_LAUNCHES += 1
+    count("ops.collect_dense3.DENSE_KERNEL_LAUNCHES")
     return lists + direct + quarters, overflow, escape
 
 
@@ -486,18 +479,18 @@ def collect_lists_3d_dense(
             a.index_copy_(0, tgt, torch.nn.functional.pad(
                 s_, (0, a.shape[1] - s_.shape[1]))[src_row])
         overflow.index_copy_(0, tgt, col[2][src_row])
-        _graph.tally(("collect_dense3", "SPILL_PASSES"), 1)
+        count("ops.collect_dense3.SPILL_PASSES")
 
     if spill_cap > 0:
         seen = _graph.device_if(n_esc, spill, "spill")
     else:
         seen = (None if _graph.capturing(n_esc)
                 else _graph._host_value(n_esc))
-    _graph.tally(("collect_dense3", "DENSE_PASSES"), 1)
+    count("ops.collect_dense3.DENSE_PASSES")
     # outside capture the host count read by the gate; under capture
     # counted on the device
-    _graph.tally(("collect_dense3", "ESCAPED_GROUPS"),
-                 n_esc if seen is None else seen)
+    count("ops.collect_dense3.ESCAPED_GROUPS",
+          n_esc if seen is None else seen)
 
     lx, ly, lz, lm, ds, dc = outs[:6]
     res = ((lx, ly, lz, lm), torch.stack([ds, dc], dim=-1), overflow)

@@ -26,9 +26,10 @@ Counterparts of ``nbody_tpu.ops.list_eval``:
   list walked over exactly its occupied tiles.
 
 Each is for 2D and 3D targets.  The wrappers launch a kernel for CUDA
-tensors and take the twin only for CPU tensors.  ``KERNEL_LAUNCHES``
-counts K2 launches, ``PACKED_LAUNCHES`` K3, ``SPLIT_LAUNCHES`` K4,
-``GRID_LAUNCHES`` K6 (plain and compensated), ``DYNAMIC_LAUNCHES`` K7.
+tensors and take the twin only for CPU tensors.  The counters
+``ops.list_eval.KERNEL_LAUNCHES`` count K2 launches, ``PACKED_LAUNCHES``
+K3, ``SPLIT_LAUNCHES`` K4, ``GRID_LAUNCHES`` K6 (plain and compensated),
+``DYNAMIC_LAUNCHES`` K7 (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -38,13 +39,9 @@ import math
 
 import torch
 
+from ..utils.profiling import count
 from . import _cuda
 
-KERNEL_LAUNCHES = 0  # K2 (seg_pack == 1)
-PACKED_LAUNCHES = 0  # K3 (seg_pack > 1)
-SPLIT_LAUNCHES = 0  # K4 (quarter-split)
-GRID_LAUNCHES = 0  # K6 (padded lists, every overlapping tile)
-DYNAMIC_LAUNCHES = 0  # K7 (padded lists, occupied tiles only)
 # segment counts the CUDA kernel is instantiated for
 CUDA_SEG_PACKS = (1, 2, 4, 8)
 # K2/K3's launch shape: threads per block (runs_eval.cu's kRunsThreads),
@@ -204,14 +201,10 @@ def list_eval_runs(
         return list_eval_runs_plain(
             targets, approx, sources_t, tiles, lens, softening=softening,
             k_tile=k_tile, seg_pack=seg_pack)
-    global KERNEL_LAUNCHES, PACKED_LAUNCHES
     out = _launch_runs(targets, approx, sources_t, tiles, lens,
                        softening=softening, k_tile=k_tile, seg_pack=seg_pack)
-    with _cuda.counter_lock:
-        if seg_pack == 1:
-            KERNEL_LAUNCHES += 1
-        else:
-            PACKED_LAUNCHES += 1
+    count("ops.list_eval.KERNEL_LAUNCHES" if seg_pack == 1
+          else "ops.list_eval.PACKED_LAUNCHES")
     return out
 
 
@@ -391,11 +384,9 @@ def list_eval_runs_split(
         return list_eval_runs_split_plain(
             targets, approx, ext, sources_t, tiles, lens,
             softening=softening, k_tile=k_tile)
-    global SPLIT_LAUNCHES
     out = _launch_split(targets, approx, ext, sources_t, tiles, lens,
                         softening=softening, k_tile=k_tile)
-    with _cuda.counter_lock:
-        SPLIT_LAUNCHES += 1
+    count("ops.list_eval.SPLIT_LAUNCHES")
     return out
 
 
@@ -439,7 +430,7 @@ def split_lanes_staged(targets, approx, ext, sources_t, tiles, lens, *,
                        softening: float, k_tile: int = 512) -> int:
     """Run K4 once on CUDA tensors and return the lanes it staged, summed
     over the quarters (each quarter's first block counts).  Not counted in
-    ``SPLIT_LAUNCHES``: a measurement, not the main path."""
+    ``ops.list_eval.SPLIT_LAUNCHES``: a measurement, not the main path."""
     staged = torch.zeros(1, dtype=torch.int64, device=targets.device)
     _launch_split(targets, approx, ext, sources_t, tiles, lens,
                   softening=softening, k_tile=k_tile, staged=staged)
@@ -670,15 +661,13 @@ def list_eval_pallas(
             targets, sources, lens, softening=softening,
             section_offset=section_offset, k_tile=k_tile,
             compensated=compensated)
-    global GRID_LAUNCHES
     out = _launch_list_eval(
         targets, sources, lens, softening=softening,
         section_offset=section_offset, k_tile=k_tile,
         mode=1 if compensated else 0,
         name="list_eval grid (K6, compensated)" if compensated
         else "list_eval grid (K6)")
-    with _cuda.counter_lock:
-        GRID_LAUNCHES += 1
+    count("ops.list_eval.GRID_LAUNCHES")
     return out
 
 
@@ -701,11 +690,9 @@ def list_eval_dynamic(
         return list_eval_dynamic_plain(
             targets, sources, lens, softening=softening,
             section_offset=section_offset, k_tile=k_tile)
-    global DYNAMIC_LAUNCHES
     out = _launch_list_eval(
         targets, sources, lens, softening=softening,
         section_offset=section_offset, k_tile=k_tile,
         mode=2, name="list_eval dynamic (K7)")
-    with _cuda.counter_lock:
-        DYNAMIC_LAUNCHES += 1
+    count("ops.list_eval.DYNAMIC_LAUNCHES")
     return out

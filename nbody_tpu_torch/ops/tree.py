@@ -30,8 +30,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import MAX_DEPTH_DEFAULT, ROOT_PAD_FRACTION
+from ..utils.profiling import count
 
-LEAF_SUM_LAUNCHES = 0  # the leaf-sums kernels (csrc/tree_sums.cu), a call
 # Rows of a chunk in the leaf sums' order (csrc/tree_sums.cu's kChunk): a
 # leaf of at most this many rows is one serial sum in row order (as
 # torch.segment_reduce adds); a longer one sums its chunks' serial sums in
@@ -155,7 +155,6 @@ def leaf_sums(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     hold it), bit-equal to the twin.  On the CPU: the plain twin."""
     if not rows.is_cuda:
         return leaf_sums_plain(rows, lengths)
-    global LEAF_SUM_LAUNCHES
     from . import _cuda
 
     dev = rows.device
@@ -185,8 +184,7 @@ def leaf_sums(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
             base + n_leaf * width * rows.element_size(), n, n_leaf, width,
             int(rows.dtype == torch.float64), _cuda.stream_of(both))
     _cuda.check(code, "leaf_sums")
-    with _cuda.counter_lock:
-        LEAF_SUM_LAUNCHES += 1
+    count("ops.tree.LEAF_SUM_LAUNCHES")
     return both[:n_leaf] if width == w else both[:n_leaf, :w].contiguous()
 
 

@@ -31,8 +31,8 @@ from typing import Tuple
 import torch
 
 from ..config import ROOT_PAD_FRACTION
-from ..utils.profiling import span
-from . import _cuda, _graph
+from ..utils.profiling import count, span
+from . import _graph
 from .tree import leaf_counts, leaf_sums
 
 # Column layout of the packed per-level rows [8^level, 16].
@@ -174,11 +174,6 @@ def level_cell_size_3d(bounds: torch.Tensor, level: int) -> torch.Tensor:
 # levels, the most that a 63-bit Morton code holds.
 MAX_DEPTH3_WIDE = 21
 
-# cells built below the pyramid by :func:`refine_octree`, over all calls
-# (read on the host where the build sizes its levels)
-REFINED_CELLS = 0
-
-
 @dataclasses.dataclass
 class Refinement:
     """The sparse levels that hang below a pyramid's crowded leaves.
@@ -229,9 +224,8 @@ def refine_octree(sorted_codes: torch.Tensor, sorted_rows: torch.Tensor,
     ``leaf_cum`` [8^base + 1]: the pyramid leaves' body prefix.  A
     cell's row is :func:`tree.leaf_sums` over its bodies (gaps between
     one level's cells are segments of their own, dropped).  One host
-    read sizes every level (``_graph.HOST_READS``); the cells counted
-    go to ``REFINED_CELLS``."""
-    global REFINED_CELLS
+    read sizes every level (``ops._graph.HOST_READS``); the cells
+    counted go to ``ops.tree3d.REFINED_CELLS``."""
     n = sorted_codes.shape[0]
     dev = sorted_codes.device
     top = MAX_DEPTH3_WIDE
@@ -264,8 +258,7 @@ def refine_octree(sorted_codes: torch.Tensor, sorted_rows: torch.Tensor,
     counts = _graph.host_values(torch.cumsum(edges, 0)[base + 1:top + 1])
     while counts and counts[-1] == 0:
         counts.pop()
-    with _cuda.counter_lock:
-        REFINED_CELLS += sum(counts)
+    count("ops.tree3d.REFINED_CELLS", sum(counts))
 
     raws, firsts, ends = [], [], []
     for i, k in enumerate(counts):

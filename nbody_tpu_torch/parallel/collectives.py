@@ -30,10 +30,10 @@ behind one interface:
 ``parallel.memory.collective_inventory`` models.
 
 Counters: both axes count each collective they run and its operand's
-bytes (the same per-rank size) in this module's ``<OP>_CALLS`` /
+bytes (the same per-rank size) in ``parallel.collectives.<OP>_CALLS`` /
 ``<OP>_BYTES``, summed over the process's ranks, through
-``ops._graph.tally``: a collective captured in a rank's CUDA graph counts
-once per replay, as a kernel launch does.
+``utils.profiling.count``: a collective captured in a rank's CUDA graph
+counts once per replay, as a kernel launch does.
 """
 
 from __future__ import annotations
@@ -44,22 +44,14 @@ from typing import Callable, List, Sequence, Tuple
 
 import torch
 
-Perm = Sequence[Tuple[int, int]]  # (source rank, destination rank) pairs
+from ..utils.profiling import count
 
-# collectives run and their operands' bytes, by op (module docstring)
-ALL_GATHER_CALLS = ALL_GATHER_BYTES = 0
-PSUM_CALLS = PSUM_BYTES = 0
-PMIN_CALLS = PMIN_BYTES = 0
-PMAX_CALLS = PMAX_BYTES = 0
-PPERMUTE_CALLS = PPERMUTE_BYTES = 0
+Perm = Sequence[Tuple[int, int]]  # (source rank, destination rank) pairs
 
 
 def _count(op: str, t: torch.Tensor) -> None:
-    from ..ops import _graph
-
-    _graph.tally(("parallel.collectives", f"{op}_CALLS"), 1)
-    _graph.tally(("parallel.collectives", f"{op}_BYTES"),
-                 t.numel() * t.element_size())
+    count(f"parallel.collectives.{op}_CALLS")
+    count(f"parallel.collectives.{op}_BYTES", t.numel() * t.element_size())
 
 
 class ThreadGroup:

@@ -38,7 +38,7 @@ from typing import Callable
 
 import torch
 
-from ..config import ROOT_PAD_FRACTION, SimConfig
+from ..config import ROOT_PAD_FRACTION, SimConfig, grouped_options
 from ..physics import integrate
 from ..state import SimState
 from ..utils.profiling import span
@@ -187,11 +187,7 @@ def _grouped_kw(config: SimConfig) -> dict:
     """The grouped pass's options from the config (what the JAX package's
     grouped steps pass; no ``compensated``)."""
     return dict(
-        g=config.g, theta=config.theta, softening=config.softening,
-        group_size=config.group_size, frontier_cap=config.frontier_cap,
-        list_cap=config.list_cap, direct_cap=config.direct_cap,
-        direct_cell_max=config.resolved_direct_cell_max,
-        direct_body_cap=config.direct_body_cap, eval_mode=config.eval_mode,
+        grouped_options(config), eval_mode=config.eval_mode,
         eval_k_tile=config.eval_k_tile, run_cap=config.run_cap,
         split_eval=config.split_eval, return_diagnostics=True)
 
@@ -394,6 +390,7 @@ def make_dp_barnes_hut_sharded3_step(config: SimConfig,
 
     ax = mesh.axes[config.mesh.axis_name]
     md = config.resolved_max_depth
+    opts = grouped_options(config)
 
     def step(state: SimState) -> SimState:
         p, m = state.positions, state.masses
@@ -408,13 +405,9 @@ def make_dp_barnes_hut_sharded3_step(config: SimConfig,
             raw[:, R3_CNT].to(torch.int32))
         acc, ovf = grouped_eval_3d(
             p, tree, target_codes=codes, sorted_srcs=tuple(srcs),
-            g=config.g, theta=config.theta, softening=config.softening,
-            group_size=config.group_size, frontier_cap=config.frontier_cap,
-            list_cap=config.list_cap, direct_cap=config.direct_cap,
-            direct_cell_max=config.resolved_direct_cell_max,
-            direct_body_cap=config.direct_body_cap, window_cells=window,
-            range_offset=base, n_sources_hint=p.shape[0] * ax.size,
-            return_diagnostics=True)
+            window_cells=window, range_offset=base,
+            n_sources_hint=p.shape[0] * ax.size, return_diagnostics=True,
+            **opts)
         return integrate(state, acc, config.dt,
                          overflow=_n_overflow(ax, ovf))
 

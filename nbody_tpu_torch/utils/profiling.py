@@ -23,18 +23,26 @@ on the CPU, and where the stream was capturing a CUDA graph).  A
 :func:`counter_values` over it.  :func:`spans` returns the records (one
 device synchronise resolves their events), :func:`clear` drops them.
 
-Counters are plain module integers, always on: the host reads of a step
-(``ops._graph.HOST_READS``), the cells the adaptive engine builds below
-its pyramid and the groups that walk them (``ops.tree3d.REFINED_CELLS``,
-``ops.bh3d.REFINE_GROUPS``), and the collectives' calls and operand
-bytes (``parallel.collectives``).
+Counters live here, always on, one registry for the whole program:
+:data:`COUNTERS` names each by its dotted name under ``nbody_tpu_torch``
+(the module that counts it, then the count), and :func:`count` is the
+one way to add to one.  Outside a CUDA graph's capture it adds at once
+(a tensor value is read on the host).  Under capture a count is not
+made yet: it is handed to the recorder that ``ops._graph.counting``
+installed on this thread, which makes it count once per replay (or per
+replay that takes the branch it sits in); under capture with no
+recorder :func:`count` raises.  The benchmark reads, from counted
+spans, the host reads of a step (``ops._graph.HOST_READS``), the cells
+the adaptive engine builds below its pyramid
+(``ops.tree3d.REFINED_CELLS``) and the collectives' operand bytes
+(``parallel.collectives.<OP>_BYTES``); the kernels' launch counters are
+read by the card's tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import importlib
 import itertools
 import threading
 import time
@@ -42,17 +50,35 @@ from typing import Dict, List, Optional
 
 import torch
 
-# (module of nbody_tpu_torch, attribute) of every counter a counted span
-# reads
+# every counter, by its dotted name under nbody_tpu_torch (module docstring)
 COUNTERS = (
-    ("ops._graph", "HOST_READS"),
-    ("ops.tree3d", "REFINED_CELLS"),
-    ("ops.bh3d", "REFINE_GROUPS"),
-    *(("parallel.collectives", f"{op}_{what}")
+    "ops.allpairs.KERNEL_LAUNCHES",  # K1
+    "ops.list_eval.KERNEL_LAUNCHES",  # K2 (seg_pack == 1)
+    "ops.list_eval.PACKED_LAUNCHES",  # K3 (seg_pack > 1)
+    "ops.list_eval.SPLIT_LAUNCHES",  # K4 (quarter-split)
+    "ops.allpairs.POTENTIAL_LAUNCHES",  # K5
+    "ops.list_eval.GRID_LAUNCHES",  # K6
+    "ops.list_eval.DYNAMIC_LAUNCHES",  # K7
+    "ops.tree.LEAF_SUM_LAUNCHES",  # the tree builds' leaf sums, a call
+    "ops.collect_dense3.DENSE_KERNEL_LAUNCHES",  # the dense 3D collector
+    "ops.bh3d.GATHER_KERNEL_LAUNCHES",  # the 3D gather walk
+    # host reads of a tensor value made by the steps (ops._graph.host_read)
+    "ops._graph.HOST_READS",
+    "ops.tree3d.REFINED_CELLS",  # cells built below the adaptive pyramid
+    "ops.bh3d.REFINE_GROUPS",  # groups whose walk entered the refinement
+    "ops.collect_dense3.DENSE_PASSES",
+    "ops.collect_dense3.ESCAPED_GROUPS",
+    "ops.collect_dense3.SPILL_PASSES",
+    # collectives run and their operands' bytes, by op
+    *(f"parallel.collectives.{op}_{what}"
       for op in ("ALL_GATHER", "PSUM", "PMIN", "PMAX", "PPERMUTE")
       for what in ("CALLS", "BYTES")),
 )
 
+_values = dict.fromkeys(COUNTERS, 0)
+# thread ranks (parallel/collectives.ThreadGroup) count from several
+# threads, and ``+=`` on a dict entry is not atomic
+_values_lock = threading.Lock()
 _OFF = contextlib.nullcontext()
 _lock = threading.Lock()
 _records: List["Span"] = []
@@ -87,10 +113,58 @@ def enabled() -> bool:
     return torch._C._autograd._profiler_enabled()
 
 
+def count(name: str, value=1) -> None:
+    """Add ``value`` (an int, or a 0-d integer tensor) to counter
+    ``name`` (module docstring)."""
+    if name not in _values:
+        raise KeyError(f"{name!r} is not a counter (profiling.COUNTERS)")
+    if torch.cuda.is_initialized() and (
+            torch.cuda.is_current_stream_capturing()):
+        rec = recorder()
+        if rec is None:
+            raise RuntimeError(
+                f"counting {name} under a CUDA graph capture needs an "
+                "active ops._graph.counting(CaptureCounts(device)) (the "
+                "fused run's StepGraph makes one)")
+        rec.record(name, value)
+        return
+    value = int(value)
+    with _values_lock:
+        _values[name] += value
+
+
+def counter(name: str) -> int:
+    """The value of counter ``name``."""
+    return _values[name]
+
+
 def counter_values() -> Dict[str, int]:
-    """{"module.attribute": value} of every counter in ``COUNTERS``."""
-    return {f"{mod}.{name}": getattr(importlib.import_module(
-        f"nbody_tpu_torch.{mod}"), name) for mod, name in COUNTERS}
+    """{name: value} of every counter."""
+    with _values_lock:
+        return dict(_values)
+
+
+def reset_counters() -> None:
+    """Set every counter to 0 (for tests and ``chip_smoke.py``)."""
+    with _values_lock:
+        _values.update(dict.fromkeys(_values, 0))
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Hand the counts made under capture on this thread in this block to
+    ``recorder.record(name, value)`` (``ops._graph.counting``)."""
+    prev = getattr(_local, "recorder", None)
+    _local.recorder = recorder
+    try:
+        yield recorder
+    finally:
+        _local.recorder = prev
+
+
+def recorder():
+    """The recorder :func:`recording` installed on this thread, or None."""
+    return getattr(_local, "recorder", None)
 
 
 def _stream():

@@ -20,6 +20,7 @@ from nbody_tpu_torch.models.simulation import Simulation
 from nbody_tpu_torch.ops import bh3d, tree3d
 from nbody_tpu_torch.rng import plummer, random_state
 from nbody_tpu_torch.utils import profiling
+from nbody_tpu_torch.utils.profiling import counter
 
 ROOT = Path(__file__).resolve().parents[1]
 SOFT = 0.01
@@ -180,10 +181,11 @@ def test_uniform_builds_no_refinement_and_is_barnes_hut():
     bit; a uniform random state builds no refinement either."""
     p, m = _lattice()
     assert tree3d.default_max_depth3(p.shape[0]) == 5
-    cells, groups = tree3d.REFINED_CELLS, bh3d.REFINE_GROUPS
+    names = ("ops.tree3d.REFINED_CELLS", "ops.bh3d.REFINE_GROUPS")
+    cells, groups = map(counter, names)
     got = make_accel_fn(_config(4096, "barnes_hut_adaptive"))(p, m)
     want = make_accel_fn(_config(4096, "barnes_hut"))(p, m)
-    assert (tree3d.REFINED_CELLS, bh3d.REFINE_GROUPS) == (cells, groups)
+    assert tuple(map(counter, names)) == (cells, groups)
     assert torch.equal(got, want)
     st = random_state(_config(8192, "barnes_hut_adaptive", seed=2),
                       device="cpu")

@@ -11,11 +11,21 @@ import pytest
 import torch
 
 from nbody_tpu_torch.ops import allpairs, bh_grouped, list_eval
+from nbody_tpu_torch.utils.profiling import counter
 
 pytestmark = pytest.mark.cuda
 
 G = 6.67e-11
 TOL = 1e-5  # of max|a|: f32 both sides, summation order differs
+
+# counters (utils/profiling.COUNTERS) the tests read
+HOST_READS = "ops._graph.HOST_READS"
+REFINE_GROUPS = "ops.bh3d.REFINE_GROUPS"
+GATHER_KERNEL = "ops.bh3d.GATHER_KERNEL_LAUNCHES"
+DENSE_PASS, DENSE_KERNEL = (f"ops.collect_dense3.{c}" for c in (
+    "DENSE_PASSES", "DENSE_KERNEL_LAUNCHES"))
+DENSE_COUNTERS = (DENSE_PASS, DENSE_KERNEL, "ops.collect_dense3.SPILL_PASSES",
+                  "ops.collect_dense3.ESCAPED_GROUPS")
 
 
 @pytest.fixture
@@ -37,13 +47,13 @@ def _cloud(n, seed, device):
     (4099, 0.0, True)])
 def test_k1_matches_twin(cuda, n, soft, comp):
     p, m = _cloud(n, n, cuda)
-    before = allpairs.KERNEL_LAUNCHES
+    before = counter("ops.allpairs.KERNEL_LAUNCHES")
     got = allpairs.allpairs_accelerations_vs(
         p, p, m, g=G, softening=soft, target_block=128, source_block=512,
         compensated=comp)
     want = allpairs.allpairs_accelerations_plain(
         p, p, m, g=G, softening=soft, source_block=512, compensated=comp)
-    assert allpairs.KERNEL_LAUNCHES == before + 1
+    assert counter("ops.allpairs.KERNEL_LAUNCHES") == before + 1
     assert (got - want).abs().max() <= TOL * want.abs().max()
 
 
@@ -74,13 +84,13 @@ def test_k1_every_shape_gives_the_same_bits(cuda, dims, nt, ns, sb, soft,
     p, m = cloud(ns, ns + sb, cuda)
     t = p if nt == ns else cloud(nt, nt + 1, cuda)[0]
     kw = dict(g=G, softening=soft, source_block=sb, compensated=comp)
-    before = allpairs.KERNEL_LAUNCHES
+    before = counter("ops.allpairs.KERNEL_LAUNCHES")
     ref = allpairs.allpairs_accelerations_vs(t, p, m, **kw)
     for tb in allpairs.allpairs_target_blocks():
         got = allpairs.allpairs_accelerations_vs(t, p, m, target_block=tb,
                                                  **kw)
         assert torch.equal(got, ref), f"target_block={tb}"
-    assert allpairs.KERNEL_LAUNCHES == before + 5
+    assert counter("ops.allpairs.KERNEL_LAUNCHES") == before + 5
     want = allpairs.allpairs_accelerations_plain(t, p, m, **kw)
     assert (ref - want).abs().max() <= TOL * want.abs().max()
 
@@ -113,10 +123,10 @@ def test_k2_matches_twin_on_engine_tables(cuda):
         bh_grouped.bh_accelerations_grouped(p, m, g=G, group_size=512)
     finally:
         list_eval.list_eval_runs = orig
-    before = list_eval.KERNEL_LAUNCHES
+    before = counter("ops.list_eval.KERNEL_LAUNCHES")
     got = list_eval.list_eval_runs(*seen["a"], **seen["kw"])
     want = list_eval.list_eval_runs_plain(*seen["a"], **seen["kw"])
-    assert list_eval.KERNEL_LAUNCHES == before + 1
+    assert counter("ops.list_eval.KERNEL_LAUNCHES") == before + 1
     assert (got - want).abs().max() <= TOL * want.abs().max()
 
 
@@ -142,13 +152,13 @@ def _cloud3(n, seed, device):
     (4099, 0.0, True)])
 def test_k1_3d_matches_twin(cuda, n, soft, comp):
     p, m = _cloud3(n, n, cuda)
-    before = allpairs.KERNEL_LAUNCHES
+    before = counter("ops.allpairs.KERNEL_LAUNCHES")
     got = allpairs.allpairs_accelerations_vs(
         p, p, m, g=G, softening=soft, target_block=128, source_block=512,
         compensated=comp)
     want = allpairs.allpairs_accelerations_plain(
         p, p, m, g=G, softening=soft, source_block=512, compensated=comp)
-    assert allpairs.KERNEL_LAUNCHES == before + 1
+    assert counter("ops.allpairs.KERNEL_LAUNCHES") == before + 1
     assert got.shape == (n, 3)
     assert (got - want).abs().max() <= TOL * want.abs().max()
 
@@ -179,11 +189,11 @@ def _tables3(p, m, seg_pack, monkeypatch):
 def test_runs_kernels_3d_match_twin(cuda, monkeypatch, seg_pack):
     p, m = _cloud3(8192, 4, cuda)
     a, kw = _tables3(p, m, seg_pack, monkeypatch)
-    counter = "KERNEL_LAUNCHES" if seg_pack == 1 else "PACKED_LAUNCHES"
-    before = getattr(list_eval, counter)
+    key = "KERNEL_LAUNCHES" if seg_pack == 1 else "PACKED_LAUNCHES"
+    before = counter(f"ops.list_eval.{key}")
     got = list_eval.list_eval_runs(*a, **kw)
     want = list_eval.list_eval_runs_plain(*a, **kw)
-    assert getattr(list_eval, counter) == before + 1
+    assert counter(f"ops.list_eval.{key}") == before + 1
     assert (got - want).abs().max() <= TOL * want.abs().max()
 
 
@@ -289,10 +299,10 @@ def test_runs_kernels_on_ragged_tables(cuda, monkeypatch, dims, seg_pack,
     args, k = _ragged_runs_tables(dims, seg_pack + dims, cuda, seg_pack,
                                   case)
     kw = dict(softening=1e-15, k_tile=k, seg_pack=seg_pack)
-    counter = "KERNEL_LAUNCHES" if seg_pack == 1 else "PACKED_LAUNCHES"
-    before = getattr(list_eval, counter)
+    key = "KERNEL_LAUNCHES" if seg_pack == 1 else "PACKED_LAUNCHES"
+    before = counter(f"ops.list_eval.{key}")
     outs = _every_slice_count(monkeypatch, args, kw)
-    assert getattr(list_eval, counter) == before + 4
+    assert counter(f"ops.list_eval.{key}") == before + 4
     want = list_eval.list_eval_runs_plain(*args, **kw)
     assert want[0].abs().max() == 0 and want.abs().max() > 0
     for got in outs:
@@ -365,12 +375,12 @@ def _split_tables(dims, seed, device):
 @pytest.mark.parametrize("dims", [2, 3])
 def test_k4_matches_twin_on_ragged_tables(cuda, dims):
     args, k = _split_tables(dims, dims, cuda)
-    before = list_eval.SPLIT_LAUNCHES
+    before = counter("ops.list_eval.SPLIT_LAUNCHES")
     got = list_eval.list_eval_runs_split(*args, softening=1e-15, k_tile=k)
     want = list_eval.list_eval_runs_split_plain(*args, softening=1e-15,
                                                 k_tile=k)
     torch.cuda.synchronize()
-    assert list_eval.SPLIT_LAUNCHES == before + 1
+    assert counter("ops.list_eval.SPLIT_LAUNCHES") == before + 1
     assert torch.isfinite(got).all() and want.abs().max() > 0
     assert (got - want).abs().max() <= TOL * want.abs().max()
 
@@ -397,10 +407,10 @@ def test_k4_matches_twin_on_engine_tables(cuda, monkeypatch):
     p, m = _cloud3(32768, 7, cuda)
     a, kw = _split_engine_tables(p, m, monkeypatch)
     assert a[2].shape[0] == 4 * a[0].shape[0]  # [4G, 8, E]
-    before = list_eval.SPLIT_LAUNCHES
+    before = counter("ops.list_eval.SPLIT_LAUNCHES")
     got = list_eval.list_eval_runs_split(*a, **kw)
     want = list_eval.list_eval_runs_split_plain(*a, **kw)
-    assert list_eval.SPLIT_LAUNCHES == before + 1
+    assert counter("ops.list_eval.SPLIT_LAUNCHES") == before + 1
     assert (got - want).abs().max() <= TOL * want.abs().max()
 
 
@@ -419,7 +429,7 @@ def test_cuda_tensors_never_reach_the_twins(cuda, monkeypatch):
               ("KERNEL_LAUNCHES", float("inf"), dict(split_eval=False)),
               ("PACKED_LAUNCHES", -1.0, dict(split_eval=False, seg_pack=4,
                                              eval_k_tile=512)))
-    for counter, gate, kw in passes:
+    for key, gate, kw in passes:
         monkeypatch.setattr(bh_grouped, "SEG_PACK_MIN_RUN_LANES", gate)
         want = bh3d.bh3_accelerations_grouped(p.cpu(), m.cpu(), g=G,
                                               group_size=512, **kw)
@@ -427,11 +437,11 @@ def test_cuda_tensors_never_reach_the_twins(cuda, monkeypatch):
             for name in ("list_eval_runs_plain",
                          "list_eval_runs_split_plain"):
                 mp.setattr(list_eval, name, refuse)
-            before = getattr(list_eval, counter)
+            before = counter(f"ops.list_eval.{key}")
             got, ovf = bh3d.bh3_accelerations_grouped(
                 p, m, g=G, group_size=512, return_diagnostics=True, **kw)
             torch.cuda.synchronize()
-            assert getattr(list_eval, counter) == before + 1
+            assert counter(f"ops.list_eval.{key}") == before + 1
         assert int(ovf.sum()) == 0
         assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
 
@@ -527,12 +537,12 @@ def test_k4_packed_streaming_matches_twin(cuda, dims, case):
     s, k, t_cap, sections = PACKED_CASES[case]
     args = _packed_split_tables(dims, len(case) + dims, cuda, s, k, t_cap,
                                 sections)
-    before = list_eval.SPLIT_LAUNCHES
+    before = counter("ops.list_eval.SPLIT_LAUNCHES")
     got = list_eval.list_eval_runs_split(*args, softening=1e-15, k_tile=k)
     want = list_eval.list_eval_runs_split_plain(*args, softening=1e-15,
                                                 k_tile=k)
     torch.cuda.synchronize()
-    assert list_eval.SPLIT_LAUNCHES == before + 1
+    assert counter("ops.list_eval.SPLIT_LAUNCHES") == before + 1
     assert torch.isfinite(got).all() and want.abs().max() > 0
     assert (got - want).abs().max() <= TOL * want.abs().max()
     # the kernel stages exactly the lanes the tables need
@@ -554,10 +564,10 @@ def test_k5_matches_twin(cuda, dims, n):
                      device=cuda)
     m = torch.tensor(10 ** rng.uniform(-1, np.log10(0.5), n),
                      dtype=torch.float32, device=cuda)
-    before = allpairs.POTENTIAL_LAUNCHES
+    before = counter("ops.allpairs.POTENTIAL_LAUNCHES")
     got = allpairs.allpairs_potential(p, m, g=G)
     want = allpairs.allpairs_potential_plain(p, m, g=G)
-    assert allpairs.POTENTIAL_LAUNCHES == before + 1
+    assert counter("ops.allpairs.POTENTIAL_LAUNCHES") == before + 1
     assert (got - want).abs().max() <= TOL * want.abs().max()
 
 
@@ -596,10 +606,10 @@ def test_potential_energy_scalable_takes_k5_on_the_card(cuda):
                     rng.uniform(-0.1, 0.1, (n, 3)), np.zeros((n, 3)),
                     device="cpu")
     want = physics.potential_energy_scalable(st, G)
-    before = allpairs.POTENTIAL_LAUNCHES
+    before = counter("ops.allpairs.POTENTIAL_LAUNCHES")
     got = physics.potential_energy_scalable(
         from_numpy(st.masses, st.positions, st.velocities, device=cuda), G)
-    assert allpairs.POTENTIAL_LAUNCHES == before + 1
+    assert counter("ops.allpairs.POTENTIAL_LAUNCHES") == before + 1
     assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
 
 
@@ -618,10 +628,10 @@ def test_potential_energy_scalable_dtypes_on_the_card(cuda, dtype, launches):
             rng.uniform(-0.1, 0.1, (n, 2)), np.zeros((n, 2)))
     want = physics.potential_energy_scalable(
         from_numpy(*args, dtype=torch.float64, device="cpu"), G)
-    before = allpairs.POTENTIAL_LAUNCHES
+    before = counter("ops.allpairs.POTENTIAL_LAUNCHES")
     got = physics.potential_energy_scalable(
         from_numpy(*args, dtype=dtype, device=cuda), G)
-    assert allpairs.POTENTIAL_LAUNCHES == before + launches
+    assert counter("ops.allpairs.POTENTIAL_LAUNCHES") == before + launches
     rel = 1e-12 if dtype == torch.float64 else 2e-2
     assert abs(float(got) - float(want)) <= rel * abs(float(want))
 
@@ -661,13 +671,13 @@ PADDED = {
 @pytest.mark.parametrize("dims", [2, 3])
 @pytest.mark.parametrize("kernel", sorted(PADDED))
 def test_padded_list_kernels_match_twin(cuda, kernel, dims):
-    fn, twin, counter, extra = PADDED[kernel]
+    fn, twin, key, extra = PADDED[kernel]
     args, off = _packed_lists(dims, dims, cuda)
     kw = dict(softening=1e-15, section_offset=off, k_tile=2048, **extra)
-    before = getattr(list_eval, counter)
+    before = counter(f"ops.list_eval.{key}")
     got = fn(*args, **kw)
     want = twin(*args, **kw)
-    assert getattr(list_eval, counter) == before + 1
+    assert counter(f"ops.list_eval.{key}") == before + 1
     assert torch.all(got[0] == 0.0)  # the empty group
     assert (got - want).abs().max() <= TOL * want.abs().max()
 
@@ -746,14 +756,14 @@ LIVE_SHAPES = {"r1": (66, 4100), "r8": (9, 300)}
 def test_padded_list_kernels_on_live_lane_lists(cuda, kernel, dims, shape):
     g, s = LIVE_SHAPES[shape]
     assert list_eval.list_launch_shape(g, s)[0] == int(shape[1:])
-    fn, twin, counter, extra = PADDED[kernel]
+    fn, twin, key, extra = PADDED[kernel]
     args, off = _live_lane_lists(dims, dims + g, cuda, g, s)
     kw = dict(softening=1e-15, section_offset=off, k_tile=2048, **extra)
-    before = getattr(list_eval, counter)
+    before = counter(f"ops.list_eval.{key}")
     got = fn(*args, **kw)
     want = twin(*args, **kw)
     torch.cuda.synchronize()
-    assert getattr(list_eval, counter) == before + 1
+    assert counter(f"ops.list_eval.{key}") == before + 1
     assert torch.all(got[0] == 0.0) and torch.isfinite(got).all()
     assert want[1:4].abs().min() > 0  # a_n = 0, d_n = 0, an empty tile
     assert (got - want).abs().max() <= TOL * want.abs().max()
@@ -800,13 +810,14 @@ def test_padded_routes_never_reach_the_twins(cuda, monkeypatch, mode):
     for name in ("list_eval_pallas_plain", "list_eval_dynamic_plain",
                  "list_eval_runs_plain"):
         monkeypatch.setattr(list_eval, name, refuse)
-    counter = "DYNAMIC_LAUNCHES" if mode == "dynamic" else "GRID_LAUNCHES"
-    before = getattr(list_eval, counter), list_eval.KERNEL_LAUNCHES
+    key = "DYNAMIC_LAUNCHES" if mode == "dynamic" else "GRID_LAUNCHES"
+    before = (counter(f"ops.list_eval.{key}"),
+              counter("ops.list_eval.KERNEL_LAUNCHES"))
     got, ovf = bh3d.bh3_accelerations_grouped(p, m, return_diagnostics=True,
                                               **kw)
     torch.cuda.synchronize()
-    assert getattr(list_eval, counter) == before[0] + 1
-    assert list_eval.KERNEL_LAUNCHES == before[1]
+    assert counter(f"ops.list_eval.{key}") == before[0] + 1
+    assert counter("ops.list_eval.KERNEL_LAUNCHES") == before[1]
     assert int(ovf.sum()) == 0
     assert (got.cpu() - want).abs().max() <= TOL * want.abs().max()
 
@@ -849,15 +860,16 @@ def test_graph_route_equals_eager_loop(cuda, engine, n, counter):
     """The graph replays the eager step's kernels in its order: a fused
     run without overflow ends bit-equal to the contract loop, and each
     replay counts its kernels' launches (warm-up 1 + 3 replays)."""
-    from nbody_tpu_torch.ops import _cuda
+    from nbody_tpu_torch.utils import profiling
 
+    name = "ops.{}.{}".format(*counter)
     s0, eager, fused = _sim_pair(cuda, n_bodies=n, n_steps=3, engine=engine)
     loop, _ = eager.run_contract()
-    before = _cuda.launch_counts()[counter]
+    before = profiling.counter(name)
     final = fused.run_scan()
     torch.cuda.synchronize()
     assert fused.last_scan_route == "graph"
-    assert _cuda.launch_counts()[counter] - before == 4
+    assert profiling.counter(name) - before == 4
     assert torch.equal(final.positions, loop.positions)
     assert torch.equal(final.velocities, loop.velocities)
     assert int(final.step) == 3 and float(final.time) == 3.0
@@ -906,8 +918,10 @@ def test_capture_with_a_host_read_raises(cuda):
 def test_device_if_runs_its_branch_on_the_replays_that_take_it(cuda):
     """One IF node around a K1 launch and an allocating op: the branch's
     writes land only on replays whose predicate is true, its launches and
-    its device tally count only then (settle)."""
-    from nbody_tpu_torch.ops import _cuda, _graph, collect_dense3
+    its device-counted value count only then (settle); the capture
+    itself counts nothing."""
+    from nbody_tpu_torch.ops import _graph
+    from nbody_tpu_torch.utils import profiling
 
     p, m = _cloud(2048, 5, cuda)
     out = torch.zeros_like(p)
@@ -920,25 +934,25 @@ def test_device_if_runs_its_branch_on_the_replays_that_take_it(cuda):
     want = out.clone()
     counts = _graph.CaptureCounts(cuda)
     graph = torch.cuda.CUDAGraph()
-    before = _cuda.launch_counts()
+    before = profiling.counter_values()
     with _graph.counting(counts), torch.cuda.graph(graph):
         assert _graph.device_if(pred, branch, "k1") is None
-        _graph.tally(("collect_dense3", "ESCAPED_GROUPS"),
-                     pred.to(torch.int64) * 3)
-    key = ("allpairs", "KERNEL_LAUNCHES")
-    assert _cuda.launch_counts()[key] - before[key] == 1
-    assert counts.branch_launches == {key: 1}
+        profiling.count("ops.collect_dense3.ESCAPED_GROUPS",
+                        pred.to(torch.int64) * 3)
+    key = "ops.allpairs.KERNEL_LAUNCHES"
+    assert profiling.counter_values() == before
+    assert counts.slots[0] == {key: 1} and counts.per_replay == {}
     for v in (False, True, True, False):
         pred.fill_(v)
         out.zero_()
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want) if v else not out.any()
-    escaped = collect_dense3.ESCAPED_GROUPS
-    k1 = allpairs.KERNEL_LAUNCHES
+    escaped = counter("ops.collect_dense3.ESCAPED_GROUPS")
+    k1 = counter("ops.allpairs.KERNEL_LAUNCHES")
     assert counts.settle() == {"k1": 2, "collect_dense3.ESCAPED_GROUPS": 6}
-    assert allpairs.KERNEL_LAUNCHES - k1 == 2
-    assert collect_dense3.ESCAPED_GROUPS - escaped == 6
+    assert counter("ops.allpairs.KERNEL_LAUNCHES") - k1 == 2
+    assert counter("ops.collect_dense3.ESCAPED_GROUPS") - escaped == 6
 
 
 def test_failed_capture_leaves_later_branch_pools_intact(cuda):
@@ -1040,10 +1054,10 @@ def test_leaf_sums_bit_equal_to_twin_and_deterministic(cuda, case):
                         device=cuda)
     lengths = torch.tensor(np.bincount(codes, minlength=n_leaf),
                            dtype=torch.int64, device=cuda)
-    before = tree.LEAF_SUM_LAUNCHES
+    before = counter("ops.tree.LEAF_SUM_LAUNCHES")
     got = tree.leaf_sums(rows, lengths)
     again = tree.leaf_sums(rows, lengths)
-    assert tree.LEAF_SUM_LAUNCHES == before + 2
+    assert counter("ops.tree.LEAF_SUM_LAUNCHES") == before + 2
     want = tree.leaf_sums_plain(rows, lengths)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -1079,10 +1093,10 @@ def test_leaf_sums_bit_equal_to_twin_around_the_chunk(cuda, case):
     rows = torch.tensor(rng.uniform(-0.1, 0.5, (int(lengths.sum()), w)),
                         dtype=dtype, device=cuda)
     lengths = torch.tensor(lengths, dtype=torch.int64, device=cuda)
-    before = tree.LEAF_SUM_LAUNCHES
+    before = counter("ops.tree.LEAF_SUM_LAUNCHES")
     got = tree.leaf_sums(rows, lengths)
     again = tree.leaf_sums(rows, lengths)
-    assert tree.LEAF_SUM_LAUNCHES == before + 2
+    assert counter("ops.tree.LEAF_SUM_LAUNCHES") == before + 2
     want = tree.leaf_sums_plain(rows, lengths)
     torch.cuda.synchronize()
     assert got.shape == (lengths.shape[0], w)
@@ -1093,8 +1107,9 @@ def test_leaf_sums_bit_equal_to_twin_around_the_chunk(cuda, case):
 
 
 def test_leaf_sums_graph_replay_equals_eager(cuda):
-    """The wrapper captured in a CUDA graph (``_graph.capture``): a replay
-    on new rows gives the eager call's bits on them."""
+    """The wrapper captured in a CUDA graph (``_graph.capture``, counting
+    into a ``CaptureCounts``): a replay on new rows gives the eager
+    call's bits on them."""
     from nbody_tpu_torch.ops import _graph, tree
 
     c = tree.LEAF_CHUNK
@@ -1108,13 +1123,15 @@ def test_leaf_sums_graph_replay_equals_eager(cuda):
                         dtype=torch.float32, device=cuda)
     tree.leaf_sums(rows, lengths)  # warm: builds and sizes the grids
     graph, box = torch.cuda.CUDAGraph(), {}
-    _graph.capture(graph, lambda: box.setdefault(
-        "out", tree.leaf_sums(rows, lengths)), cuda)
+    with _graph.counting(_graph.CaptureCounts(cuda)):
+        _graph.capture(graph, lambda: box.setdefault(
+            "out", tree.leaf_sums(rows, lengths)), cuda)
     rows.copy_(torch.tensor(rng.uniform(-0.1, 0.5, (n, 16)),
                             dtype=torch.float32, device=cuda))
-    before = tree.LEAF_SUM_LAUNCHES
+    before = counter("ops.tree.LEAF_SUM_LAUNCHES")
     graph.replay()
-    assert tree.LEAF_SUM_LAUNCHES == before  # a replay runs no wrapper
+    # a replay runs no wrapper
+    assert counter("ops.tree.LEAF_SUM_LAUNCHES") == before
     want = tree.leaf_sums(rows, lengths)
     torch.cuda.synchronize()
     assert torch.equal(box["out"], want)
@@ -1221,14 +1238,13 @@ def test_loop_spans_tile_the_step_on_the_stream(cuda):
     count's read."""
     from nbody_tpu_torch.config import SimConfig
     from nbody_tpu_torch.models.simulation import Simulation
-    from nbody_tpu_torch.ops import _graph
 
     cfg = SimConfig(n_bodies=8192, n_dim=3, n_steps=2, engine="barnes_hut",
                     collect3="dense", seed=3)
     sim = Simulation(cfg, device=cuda)
-    reads = _graph.HOST_READS
+    reads = counter("ops._graph.HOST_READS")
     _, recs = _profiled(sim.run_contract)
-    reads = _graph.HOST_READS - reads
+    reads = counter("ops._graph.HOST_READS") - reads
     by_id = {r.id: r for r in recs}
     steps = [r for r in recs if r.name == "nbody.step"]
     assert len(steps) == 2
@@ -1320,12 +1336,12 @@ def test_dense_kernel_bit_equal_to_twin(cuda, case):
                 direct_cell_max=kw["direct_cell_max"], quarter_bits=quarters)
     if caps:
         walk.update(list_cap=caps[0], direct_cap=caps[1])
-    before = cd.DENSE_KERNEL_LAUNCHES
+    before = counter("ops.collect_dense3.DENSE_KERNEL_LAUNCHES")
     got, g_ovf, g_esc = cd._dense_lists_kernel(bbox, spyr, origins, sched,
                                                **walk)
     want, w_ovf, w_esc = cd._dense_lists(bbox, spyr, origins, sched, **walk)
     torch.cuda.synchronize()
-    assert cd.DENSE_KERNEL_LAUNCHES == before + 1
+    assert counter("ops.collect_dense3.DENSE_KERNEL_LAUNCHES") == before + 1
     assert len(got) == len(want) == (11 if quarters else 6)
     for k, (a, b) in enumerate(zip(got, want)):
         assert _same_bits(a, b), f"output {k}"
@@ -1359,17 +1375,17 @@ def test_dense_collector_spill_on_card_equals_twin_route(cuda, monkeypatch,
             flat += [res[3]["bits"], *res[3]["com"], res[3]["mass"]]
         return flat
 
-    passes, launches = cd.DENSE_PASSES, cd.DENSE_KERNEL_LAUNCHES
-    spills, escaped = cd.SPILL_PASSES, cd.ESCAPED_GROUPS
+    passes, launches, spills, escaped = map(counter, DENSE_COUNTERS)
     got = run()
     torch.cuda.synchronize()
-    assert cd.DENSE_KERNEL_LAUNCHES - launches == cd.DENSE_PASSES - passes
-    assert cd.DENSE_PASSES - passes == 1
-    assert cd.SPILL_PASSES == spills + 1 and cd.ESCAPED_GROUPS > escaped
+    assert counter(DENSE_KERNEL) - launches == counter(DENSE_PASS) - passes
+    assert counter(DENSE_PASS) - passes == 1
+    assert counter(DENSE_COUNTERS[2]) == spills + 1 and counter(
+        DENSE_COUNTERS[3]) > escaped
     with monkeypatch.context() as mp:
         mp.setattr(cd, "_dense_lists_kernel", cd._dense_lists)
         want = run()
-    assert cd.DENSE_KERNEL_LAUNCHES - launches == 1
+    assert counter(DENSE_KERNEL) - launches == 1
     for k, (a, b) in enumerate(zip(got, want)):
         assert _same_bits(a, b), f"output {k}"
 
@@ -1384,13 +1400,13 @@ def test_dense_pass_launches_the_kernel_never_the_twin(cuda, monkeypatch):
 
     monkeypatch.setattr(cd, "_dense_lists", refuse)
     p, m = _cloud3(8192, 9, cuda)
-    passes, launches = cd.DENSE_PASSES, cd.DENSE_KERNEL_LAUNCHES
+    passes, launches = counter(DENSE_PASS), counter(DENSE_KERNEL)
     _, ovf = bh3d.bh3_accelerations_grouped(p, m, g=G, group_size=512,
                                             collect="dense",
                                             return_diagnostics=True)
     torch.cuda.synchronize()
-    assert cd.DENSE_PASSES - passes == 1
-    assert cd.DENSE_KERNEL_LAUNCHES - launches == cd.DENSE_PASSES - passes
+    assert counter(DENSE_PASS) - passes == 1
+    assert counter(DENSE_KERNEL) - launches == counter(DENSE_PASS) - passes
     assert int(ovf.sum()) == 0
 
 
@@ -1414,15 +1430,15 @@ def test_adaptive_refinement_bit_equal_to_cpu(cuda):
     kernels, starts and child ranges) is the CPU build's (the sums'
     twin) bit for bit, and the same at every build; the refinement sums
     a level a kernel call."""
-    from nbody_tpu_torch.ops import bh3d, tree, tree3d
+    from nbody_tpu_torch.ops import bh3d, tree3d
 
     cfg, p, m = _evolved_plummer(cuda)
     md = cfg.resolved_max_depth
     dcm = bh3d.direct_cell_max_default(cfg.n_bodies)
-    before = tree.LEAF_SUM_LAUNCHES
+    before = counter("ops.tree.LEAF_SUM_LAUNCHES")
     t_g, r_g, o_g = tree3d.build_octree_adaptive(p, m, md, dcm)
     assert r_g.n_cells > 0 and r_g.depth > md
-    assert tree.LEAF_SUM_LAUNCHES == before + 1 + len(r_g.raw)
+    assert counter("ops.tree.LEAF_SUM_LAUNCHES") == before + 1 + len(r_g.raw)
     again = tree3d.build_octree_adaptive(p, m, md, dcm)
     t_w, r_w, o_w = tree3d.build_octree_adaptive(p.cpu(), m.cpu(), md, dcm)
     assert torch.equal(o_g.cpu(), o_w) and torch.equal(again[2], o_g)
@@ -1444,15 +1460,14 @@ def test_adaptive_pass_matches_its_reference(cuda):
     from benchmark.check import force_gap
     from benchmark.reference.adaptive_bh import AdaptiveBH
     from nbody_tpu_torch.models.engines import make_accel_fn
-    from nbody_tpu_torch.ops import _graph, bh3d
 
     cfg, p, m = _evolved_plummer(cuda)
     cfg = cfg.replace(split_eval=True)
-    reads, groups = _graph.HOST_READS, bh3d.REFINE_GROUPS
+    reads, groups = counter(HOST_READS), counter(REFINE_GROUPS)
     acc = make_accel_fn(cfg)(p, m)
     torch.cuda.synchronize()
-    assert _graph.HOST_READS == reads + 2
-    assert bh3d.REFINE_GROUPS > groups
+    assert counter(HOST_READS) == reads + 2
+    assert counter(REFINE_GROUPS) > groups
     ref = AdaptiveBH(p, m, g=1.0, theta=cfg.theta, group_size=2048,
                      sub_boxes=16, direct_cell_max=32, quarter_split=True,
                      softening=0.01)
@@ -1529,7 +1544,7 @@ def test_gather_kernel_bit_equal_to_twin(cuda, case):
     caps cut so that a frontier, the approx and the direct list each
     overflow, and a walk that no group carries into the refinement; one
     launch a walk, and the same groups counted as entering."""
-    from nbody_tpu_torch.ops import _graph, bh3d
+    from nbody_tpu_torch.ops import bh3d
 
     state, quarters, window, demand, cut, far = GATHER_KERNEL_CASES[case]
     bbox, tree, kw = _gather_setup(state, cuda)
@@ -1545,16 +1560,16 @@ def test_gather_kernel_bit_equal_to_twin(cuda, case):
             512, md, 131072), list_cap=700, direct_cap=300)
     if far:  # every group's sub-boxes far off: the root is accepted
         bbox = tuple(b + 100.0 for b in bbox)
-    before, groups = bh3d.GATHER_KERNEL_LAUNCHES, bh3d.REFINE_GROUPS
-    reads = _graph.HOST_READS
+    before, groups = counter(GATHER_KERNEL), counter(REFINE_GROUPS)
+    reads = counter(HOST_READS)
     got = _walk_outputs(bh3d._gather_lists_kernel(bbox, tree, **kw))
-    entered = bh3d.REFINE_GROUPS - groups
-    kernel_reads = _graph.HOST_READS - reads
+    entered = counter(REFINE_GROUPS) - groups
+    kernel_reads = counter(HOST_READS) - reads
     want = _walk_outputs(bh3d._gather_lists(bbox, tree, **kw))
     torch.cuda.synchronize()
-    assert bh3d.GATHER_KERNEL_LAUNCHES == before + 1
-    assert bh3d.REFINE_GROUPS - groups == 2 * entered
-    assert _graph.HOST_READS - reads == 2 * kernel_reads
+    assert counter(GATHER_KERNEL) == before + 1
+    assert counter(REFINE_GROUPS) - groups == 2 * entered
+    assert counter(HOST_READS) - reads == 2 * kernel_reads
     assert kernel_reads == (1 if state == "plummer" else 0)
     assert len(got) == len(want)
     for k, (a, b) in enumerate(zip(got, want)):
@@ -1597,13 +1612,13 @@ def test_gather_walk_on_card_never_calls_the_twin(cuda, monkeypatch):
     cfg, pp, mp = _evolved_plummer(cuda, n=32768, steps=1)
     monkeypatch.setattr(bh3d, "_gather_lists", refuse)
     p, m = _cloud3(8192, 9, cuda)
-    before = bh3d.GATHER_KERNEL_LAUNCHES
+    before = counter(GATHER_KERNEL)
     _, ovf = bh3d.bh3_accelerations_grouped(p, m, g=G, group_size=512,
                                             collect="gather",
                                             return_diagnostics=True)
     make_accel_fn(cfg)(pp, mp)
     torch.cuda.synchronize()
-    assert bh3d.GATHER_KERNEL_LAUNCHES == before + 2
+    assert counter(GATHER_KERNEL) == before + 2
     assert int(ovf.sum()) == 0
 
 
@@ -1624,15 +1639,15 @@ def test_gather_kernel_in_the_dense_spill_pass(cuda, monkeypatch, quarters):
             spill_cap=16, quarter_bits=quarters, **kw)
         return _walk_outputs(res)
 
-    spills, launches = cd.SPILL_PASSES, bh3d.GATHER_KERNEL_LAUNCHES
+    spills, launches = counter(DENSE_COUNTERS[2]), counter(GATHER_KERNEL)
     got = run()
     torch.cuda.synchronize()
-    assert cd.SPILL_PASSES == spills + 1
-    assert bh3d.GATHER_KERNEL_LAUNCHES == launches + 1
+    assert counter(DENSE_COUNTERS[2]) == spills + 1
+    assert counter(GATHER_KERNEL) == launches + 1
     with monkeypatch.context() as mp:
         mp.setattr(bh3d, "_gather_lists_kernel", bh3d._gather_lists)
         want = run()
-    assert bh3d.GATHER_KERNEL_LAUNCHES == launches + 1
+    assert counter(GATHER_KERNEL) == launches + 1
     for k, (a, b) in enumerate(zip(got, want)):
         assert _same_bits(a, b), f"output {k}"
 
@@ -1649,16 +1664,16 @@ def test_gather_kernel_counts_once_a_replay(cuda):
     want = _walk_outputs(bh3d._collect_lists_3d(bbox, tree, **kw))
     counts = _graph.CaptureCounts(cuda)
     graph, box = torch.cuda.CUDAGraph(), {}
-    before = bh3d.GATHER_KERNEL_LAUNCHES
+    before = counter(GATHER_KERNEL)
     with _graph.counting(counts):
         _graph.capture(graph, lambda: box.setdefault(
             "out", bh3d._collect_lists_3d(bbox, tree, **kw)), cuda)
-    assert bh3d.GATHER_KERNEL_LAUNCHES == before
-    assert counts.per_replay == {("bh3d", "GATHER_KERNEL_LAUNCHES"): 1}
+    assert counter(GATHER_KERNEL) == before
+    assert counts.per_replay == {GATHER_KERNEL: 1}
     for _ in range(2):
         graph.replay()
-    _graph.add_counts(counts.per_replay, 2)
+    counts.replayed(2)
     torch.cuda.synchronize()
-    assert bh3d.GATHER_KERNEL_LAUNCHES == before + 2
+    assert counter(GATHER_KERNEL) == before + 2
     for k, (a, b) in enumerate(zip(_walk_outputs(box["out"]), want)):
         assert _same_bits(a, b), f"output {k}"

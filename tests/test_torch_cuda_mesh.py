@@ -174,3 +174,4 @@ def test_collectives_counted_once_per_replay(nccl1):
     assert replay[f"{key}_BYTES"] == STEPS * (n * 2 * 4 + n * 4)
     assert run[f"{key}_CALLS"] == 2 * (STEPS + 1)
     assert run[f"{key}_BYTES"] == (STEPS + 1) * (n * 2 * 4 + n * 4)
+    assert sim.last_replay_launches[f"{key}_CALLS"] == 2

@@ -32,6 +32,7 @@ from nbody_tpu.ops import tree3d as jt
 from nbody_tpu_torch.ops import bh3d as tb
 from nbody_tpu_torch.ops import collect_dense3 as td
 from nbody_tpu_torch.ops import tree3d as tt
+from nbody_tpu_torch.utils.profiling import counter
 
 G = 6.67e-11
 TINY_WINDOWS = (1, 2, 4, 6, 6, 6, 6, 6)  # tests/test_collect_dense.py:148
@@ -273,11 +274,13 @@ def test_spill_ladder():
     sched = TINY_WINDOWS[:md + 1]
     (_, _, _, glm), granges, _ = tb._collect_lists_3d(_tbox(bbox), ttree,
                                                       **kw)
-    before = td.ESCAPED_GROUPS, td.SPILL_PASSES
+    names = ("ops.collect_dense3.ESCAPED_GROUPS",
+             "ops.collect_dense3.SPILL_PASSES")
+    before = tuple(map(counter, names))
     (_, _, _, slm), sranges, sovf = td.collect_lists_3d_dense(
         _tbox(bbox), ttree, tspyr, window_schedule=sched, spill_cap=g, **kw)
-    escaped = td.ESCAPED_GROUPS - before[0]
-    assert escaped > 0 and td.SPILL_PASSES == before[1] + 1
+    escaped = counter(names[0]) - before[0]
+    assert escaped > 0 and counter(names[1]) == before[1] + 1
     jovf = jax.jit(lambda b: jd.collect_lists_3d_dense(
         b, jtree, jspyr, window_schedule=sched, spill_cap=g,
         **kw))(_jbox(bbox))[2]

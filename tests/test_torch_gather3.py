@@ -10,6 +10,8 @@ import torch
 
 from nbody_tpu_torch.ops import _cuda, bh3d, tree3d
 from nbody_tpu_torch.rng import plummer
+from nbody_tpu_torch.utils import profiling
+from nbody_tpu_torch.utils.profiling import counter
 
 GS = 1024  # groups of 1,024 bodies: 8 sub-boxes each
 DCM = 32
@@ -86,12 +88,12 @@ def test_gather_widths_stop_at_the_pyramid_when_none_enters():
     bbox, tree, refine = _setup("plummer", True)
     md = tree.max_depth
     far = tuple(b + 100.0 for b in bbox)  # the root is accepted
-    groups = bh3d.REFINE_GROUPS
+    groups = counter("ops.bh3d.REFINE_GROUPS")
     (lx, *_), ranges, _ = bh3d._gather_lists(
         far, tree, theta=0.5, softening=0.01, frontier_caps=HYBRID,
         list_cap=1 << 15, direct_cap=1 << 15, direct_cell_max=DCM,
         refine=refine)
-    assert bh3d.REFINE_GROUPS == groups
+    assert counter("ops.bh3d.REFINE_GROUPS") == groups
     widths = bh3d.gather_widths(HYBRID, refine.depth + 1)
     assert refine.depth > md
     assert lx.shape[1] == ranges.shape[1] == sum(widths[:md + 1])
@@ -175,9 +177,9 @@ def test_collect_lists_3d_takes_the_twin_on_cpu(monkeypatch, quarter_bits):
               quarter_bits=quarter_bits, return_demand=True, refine=refine)
     want = bh3d._gather_lists(bbox, tree, **kw)
     monkeypatch.setattr(bh3d, "_gather_lists_kernel", refuse)
-    launches = bh3d.GATHER_KERNEL_LAUNCHES
+    launches = counter("ops.bh3d.GATHER_KERNEL_LAUNCHES")
     got = bh3d._collect_lists_3d(bbox, tree, **kw)
-    assert bh3d.GATHER_KERNEL_LAUNCHES == launches
+    assert counter("ops.bh3d.GATHER_KERNEL_LAUNCHES") == launches
     assert len(got) == len(want) == (5 if quarter_bits else 4)
     for a, b in zip(got[0], want[0]):
         assert torch.equal(a, b)
@@ -194,7 +196,10 @@ def test_gather_kernel_listed_and_found_by_name():
     from benchmark.trace import hand_kernel_names
 
     assert "collect_gather3.cu" in _cuda.SOURCES
-    key = ("bh3d", "GATHER_KERNEL_LAUNCHES")
-    assert key in _cuda.LAUNCH_COUNTERS
-    assert _cuda.launch_counts()[key] == bh3d.GATHER_KERNEL_LAUNCHES
+    key = "ops.bh3d.GATHER_KERNEL_LAUNCHES"
+    assert key in profiling.COUNTERS
+    before = counter(key)
+    profiling.count(key)
+    assert counter(key) == profiling.counter_values()[key] == before + 1
+    profiling.count(key, -1)
     assert "gather_collect3_kernel" in hand_kernel_names()

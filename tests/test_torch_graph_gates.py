@@ -48,6 +48,7 @@ from nbody_tpu_torch.ops import bh3d as tb
 from nbody_tpu_torch.ops import bh_grouped as tbg
 from nbody_tpu_torch.ops import collect_dense3 as td
 from nbody_tpu_torch.ops import list_eval as tle
+from nbody_tpu_torch.utils.profiling import count, counter
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_dense3 import TINY_WINDOWS, _cloud, _jbox, _setup, _tbox  # noqa: E402
@@ -80,13 +81,16 @@ def test_device_cond_outside_capture(value):
 
 
 def test_tally_outside_capture_adds_now():
-    before = td.ESCAPED_GROUPS, td.SPILL_PASSES
-    _graph.tally(("collect_dense3", "ESCAPED_GROUPS"), torch.tensor(5))
-    _graph.tally(("collect_dense3", "SPILL_PASSES"), 2)
-    assert (td.ESCAPED_GROUPS, td.SPILL_PASSES) == (before[0] + 5,
-                                                    before[1] + 2)
-    _graph.add_counts({("collect_dense3", "ESCAPED_GROUPS"): -5,
-                       ("collect_dense3", "SPILL_PASSES"): -2})
+    """``profiling.count`` outside capture adds at once: a tensor value is
+    read on the host."""
+    names = ("ops.collect_dense3.ESCAPED_GROUPS",
+             "ops.collect_dense3.SPILL_PASSES")
+    before = tuple(map(counter, names))
+    count(names[0], torch.tensor(5))
+    count(names[1], 2)
+    assert tuple(map(counter, names)) == (before[0] + 5, before[1] + 2)
+    count(names[0], -5)
+    count(names[1], -2)
 
 
 # -- the spill pass over a fixed spill_cap rows -----------------------------
@@ -113,12 +117,15 @@ def test_fixed_row_spill_matches_jax(sched, spill_cap, escaped):
     md = ttree.max_depth
     sched = None if sched == "default" else TINY_WINDOWS[:md + 1]
     kw = dict(kw, window_schedule=sched, spill_cap=spill_cap)
-    before = td.ESCAPED_GROUPS, td.SPILL_PASSES, td.DENSE_PASSES
+    names = [f"ops.collect_dense3.{c}"
+             for c in ("ESCAPED_GROUPS", "SPILL_PASSES", "DENSE_PASSES")]
+    before = [counter(c) for c in names]
     (_, _, _, tlm), tr, tovf = td.collect_lists_3d_dense(
         _tbox(bbox), ttree, tspyr, **kw)
-    assert td.ESCAPED_GROUPS - before[0] == escaped
-    assert td.SPILL_PASSES - before[1] == int(escaped > 0)
-    assert td.DENSE_PASSES - before[2] == 1
+    moved = [counter(c) - b for c, b in zip(names, before)]
+    assert moved[0] == escaped
+    assert moved[1] == int(escaped > 0)
+    assert moved[2] == 1
     (_, _, _, jlm), jr, jovf = jax.jit(lambda b: jd.collect_lists_3d_dense(
         b, jtree, jspyr, **kw))(_jbox(bbox))
     np.testing.assert_array_equal(tovf.numpy(), np.asarray(jovf))
@@ -339,7 +346,7 @@ def test_step_reads_host_only_in_device_if(kw, monkeypatch):
         monkeypatch.setattr(td, "window_schedule_3d", _tiny_windows)
     sim = Simulation(nbody_tpu_torch.SimConfig(seed=4, **kw), device="cpu")
     state = sim.state
-    spills = td.SPILL_PASSES
+    spills = counter("ops.collect_dense3.SPILL_PASSES")
     with _no_host_reads() as seen:
         new = sim.step_fn(state)
     assert new.positions.shape == state.positions.shape
@@ -347,4 +354,4 @@ def test_step_reads_host_only_in_device_if(kw, monkeypatch):
     gated = seg_pack or kw.get("collect3") == "dense"
     assert seen["gate"] == (1 if gated else 0)
     if escape:
-        assert td.SPILL_PASSES == spills + 1
+        assert counter("ops.collect_dense3.SPILL_PASSES") == spills + 1

@@ -30,6 +30,7 @@ import torch
 from nbody_tpu_torch.ops import _cuda
 from nbody_tpu_torch.ops import tree as tt
 from nbody_tpu_torch.ops import tree3d as tt3
+from nbody_tpu_torch.utils.profiling import counter
 
 
 def _rows(n, w, seed):
@@ -90,7 +91,7 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel library")
 
     monkeypatch.setattr(_cuda, "library", no_library)
-    before = tt.LEAF_SUM_LAUNCHES
+    before = counter("ops.tree.LEAF_SUM_LAUNCHES")
     rows = torch.tensor(_rows(500, 16, seed=1))
     lengths = torch.tensor([100, 0, 400], dtype=torch.int64)
     got = tt.leaf_sums(rows, lengths)
@@ -99,7 +100,7 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
                      dtype=torch.float32)
     tree = tt3.build_octree(p, torch.ones(2048), max_depth=4)
     assert int(tree.raw[0][0, tt3.R3_CNT]) == 2048
-    assert tt.LEAF_SUM_LAUNCHES == before
+    assert counter("ops.tree.LEAF_SUM_LAUNCHES") == before
 
 
 C = tt.LEAF_CHUNK

@@ -13,6 +13,8 @@ import contextlib
 import dataclasses
 import io
 import json
+import sys
+import threading
 
 import pytest
 import torch
@@ -22,9 +24,8 @@ from benchmark import cells, harness
 from nbody_tpu_torch import cli
 from nbody_tpu_torch.models.simulation import Simulation
 from nbody_tpu_torch.ops import _graph
-from nbody_tpu_torch.parallel import collectives
 from nbody_tpu_torch.utils import profiling
-from nbody_tpu_torch.utils.profiling import Span, span
+from nbody_tpu_torch.utils.profiling import Span, counter, span
 
 
 @pytest.fixture
@@ -55,6 +56,83 @@ def test_span_off_is_one_shared_noop(fresh, monkeypatch):
     assert calls == [] and profiling.spans() == []
 
 
+def test_unknown_counter_raises():
+    before = profiling.counter_values()
+    with pytest.raises(KeyError, match="HOST_READ"):
+        profiling.count("ops._graph.HOST_READ")
+    with pytest.raises(KeyError):
+        counter("ops.allpairs.LAUNCHES")
+    assert profiling.counter_values() == before
+
+
+def test_threads_counting_together_lose_nothing():
+    """Eight threads adding 10,000 each (thread ranks count together),
+    switching as often as the interpreter allows."""
+    name = "ops.list_eval.GRID_LAUNCHES"
+    before = counter(name)
+    start = threading.Barrier(8)
+
+    def add():
+        start.wait(timeout=60)
+        for _ in range(10_000):
+            profiling.count(name)
+
+    threads = [threading.Thread(target=add) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert counter(name) == before + 80_000
+    profiling.count(name, -80_000)
+
+
+def test_benchmark_suffixes_select_only_their_counters():
+    """The benchmark selects counters by name suffix
+    (``benchmark/program_spans.counter_per_step``): each suffix picks
+    exactly the counters it read before the registry."""
+    picked = {suffix: {n for n in profiling.COUNTERS if n.endswith(suffix)}
+              for suffix in ("HOST_READS", "REFINED_CELLS", "_BYTES")}
+    assert picked["HOST_READS"] == {"ops._graph.HOST_READS"}
+    assert picked["REFINED_CELLS"] == {"ops.tree3d.REFINED_CELLS"}
+    assert picked["_BYTES"] == {
+        f"parallel.collectives.{op}_BYTES"
+        for op in ("ALL_GATHER", "PSUM", "PMIN", "PMAX", "PPERMUTE")}
+    assert len(set(profiling.COUNTERS)) == len(profiling.COUNTERS) == 26
+
+
+def test_count_under_capture_goes_to_the_recorder(monkeypatch):
+    """Under a (here pretended) capture a count is not made: it goes to
+    the innermost frame of the thread's recorder, a tensor to a device
+    slot; with no recorder it raises."""
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    before = profiling.counter_values()
+    with pytest.raises(RuntimeError, match="counting"):
+        profiling.count("ops.allpairs.KERNEL_LAUNCHES")
+    counts = _graph.CaptureCounts(torch.device("cpu"))
+    with _graph.counting(counts):
+        profiling.count("ops.allpairs.KERNEL_LAUNCHES")
+        profiling.count("ops.allpairs.KERNEL_LAUNCHES", 2)
+        profiling.count("ops.collect_dense3.ESCAPED_GROUPS",
+                        torch.tensor(4))
+    assert profiling.recorder() is None
+    assert counts.per_replay == {"ops.allpairs.KERNEL_LAUNCHES": 3}
+    assert counts.slots == [{"ops.collect_dense3.ESCAPED_GROUPS": 1}]
+    assert profiling.counter_values() == before
+    monkeypatch.undo()
+    assert counts.settle() == {"collect_dense3.ESCAPED_GROUPS": 4}
+    assert counter("ops.collect_dense3.ESCAPED_GROUPS") == (
+        before["ops.collect_dense3.ESCAPED_GROUPS"] + 4)
+    profiling.count("ops.collect_dense3.ESCAPED_GROUPS", -4)
+
+
 def test_span_records_parent_run_and_trace(fresh, tmp_path):
     with _cpu_profile() as prof:
         with span("outer", counted=True) as outer:
@@ -73,7 +151,7 @@ def test_span_records_parent_run_and_trace(fresh, tmp_path):
     assert recs[3].parent is None and recs[3].run == recs[3].id
     assert outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
     assert outer.counters["ops._graph.HOST_READS"] == 1
-    assert set(outer.counters) == {f"{m}.{a}" for m, a in profiling.COUNTERS}
+    assert set(outer.counters) == set(profiling.COUNTERS)
     assert inner.counters is None
     assert all(r.stream_ms is None for r in recs)  # no CUDA stream here
     path = tmp_path / "trace.json"
@@ -103,10 +181,10 @@ def test_retries_and_host_reads_are_counted(fresh, monkeypatch):
         collect3="dense", list_cap=8, seed=3)
     sim = Simulation(cfg, device="cpu")
     err = io.StringIO()
-    reads = _graph.HOST_READS
+    reads = counter("ops._graph.HOST_READS")
     with _cpu_profile(), contextlib.redirect_stderr(err):
         sim.run_contract()
-    reads = _graph.HOST_READS - reads
+    reads = counter("ops._graph.HOST_READS") - reads
     recs = profiling.spans()
     names = collections.Counter(r.name for r in recs)
     retried = err.getvalue().count("retrying with 4x caps")
@@ -164,7 +242,7 @@ def test_thread_mesh_counts_collectives(n_dev):
     assert moved == {f"{key}_CALLS": 2 * steps * n_dev,
                      f"{key}_BYTES": steps * n_dev * (
                          n // n_dev * 2 * 4 + n // n_dev * 4)}
-    assert collectives.ALL_GATHER_CALLS == after[f"{key}_CALLS"]
+    assert counter(f"{key}_CALLS") == after[f"{key}_CALLS"]
 
 
 def test_cli_profile_writes_a_trace_with_spans(tmp_path, fresh):
