@@ -32,8 +32,12 @@ Phases, each printing what it found; the first failure exits non-zero:
    a real 3D state at N=1,048,576 (the default route: dense collector,
    split on), and K4's 2D instantiation on a 2D state with
    ``split_eval=True``; for both, the launch shape, blocks per SM, waves,
-   registers and spills, and the lanes the kernel staged (its own count)
-   against the lanes the tables need, which must be equal;
+   registers and spills, the lanes the kernel staged (its own count)
+   against the lanes the tables need, which must be equal, and the
+   schedule (quarters given thread slices, the heaviest block against the
+   fair share) with K4's device time at it and at r = 1 forced, which
+   must give the same bits (``--only-phase-3c`` runs phases 0, 1 and
+   3c);
    3d. K6, K6 compensated and K7 (the padded two-section list
    evaluators) against their twins on the packed lists of a real 2D
    state at N=40,960 and a 3D state at N=131,072, with each call's
@@ -177,8 +181,9 @@ Phases, each printing what it found; the first failure exits non-zero:
    and the build timed alone beside the sums' bound, and one force pass
    with its launches counted (the pyramid's leaf sums, one a refined
    level, one K4) and K4 against its plain twin on that pass's tables,
-   for the group of the widest quarter and seven more
-   (``--only-phase-11`` runs phases 0, 1 and 11).
+   for the group of the widest quarter and seven more, and against
+   itself at r = 1 forced bit for bit, with its schedule and device time
+   at both (``--only-phase-11`` runs phases 0, 1 and 11).
 12. the 3D gather walk's kernel (``csrc/collect_gather3.cu``) against its
    twin at the main path's three shapes (the 1M Plummer pass across the
    refinement, the bh3d 1M spill pass, the 4x-cap retry pass on the
@@ -578,25 +583,73 @@ def k5_launch(n: int, dims: int, ptx: dict) -> dict:
 
 
 def k4_launch(args, kw, ptx: dict) -> dict:
-    """K4's launch on one call's tables, and the lanes it stages (counted
-    by the kernel) against the lanes the tables need."""
+    """K4's launch on one call's tables (the light path's shape, and the
+    blocks and grid of the schedule, with its sliced quarters), and the
+    lanes it stages (counted by the kernel) against the lanes the tables
+    need."""
     import torch
 
     from nbody_tpu_torch.ops import list_eval
 
     g, s, dims = args[0].shape
-    tpt, per_q, blocks = list_eval.split_launch_shape(4 * g, s)
+    tpt, per_q, _ = list_eval.split_launch_shape(4 * g, s)
+    sched = list_eval.split_schedule_summary(*args, k_tile=kw["k_tile"])
     per_sm = list_eval.split_occupancy(dims)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     regs, spill = ptx.get(dims, (None, None))
     need = int(list_eval.split_quarter_lanes(
         *args[1:], k_tile=kw["k_tile"]).sum())
     return {"targets_per_thread": tpt, "blocks_per_quarter": per_q,
-            "blocks": blocks, "blocks_per_sm": per_sm,
-            "waves": blocks / (per_sm * sms), "registers": regs,
+            "blocks": sched["blocks"], "grid": sched["grid"],
+            "sliced_quarters": len(sched["sliced"]),
+            "blocks_per_sm": per_sm,
+            "waves": sched["blocks"] / (per_sm * sms), "registers": regs,
             "spill_bytes": spill,
             "lanes_staged": list_eval.split_lanes_staged(*args, **kw),
             "lanes_needed": need}
+
+
+def k4_schedule(name: str, args, kw, card: str) -> dict:
+    """K4's schedule on one call's tables (the quarters given r > 1, the
+    heaviest block's pairs against the fair share) and its device time
+    at that schedule and with r = 1 forced on every quarter (the light
+    path alone: the launch before thread slices), by the profiler; fail
+    unless both give the same bits."""
+    import torch
+
+    from nbody_tpu_torch.ops import list_eval
+
+    sched = list_eval.split_schedule_summary(*args, k_tile=kw["k_tile"])
+    by_r = {}
+    for _, _, r in sched["sliced"]:
+        by_r[r] = by_r.get(r, 0) + 1
+    print(f"  {name} schedule: {len(sched['sliced'])} quarters sliced "
+          f"(quarters by r: {dict(sorted(by_r.items()))}; the heaviest "
+          f"(quarter, lanes, r): {sched['sliced'][:4]}); heaviest block "
+          f"{sched['heaviest_block_pairs']:.4g} pairs (at r = 1: "
+          f"{sched['heaviest_block_pairs_r1']:.4g}) against a fair share "
+          f"of {sched['fair_share_pairs']:.4g} ({sched['pairs']:.4g} pairs "
+          f"over {list_eval.SMS} x {list_eval.SPLIT_WAVE_BLOCKS} block "
+          f"slots); {sched['blocks']} blocks of a {sched['grid']}-block "
+          "grid", flush=True)
+    got = list_eval.list_eval_runs_split(*args, **kw)
+    light = list_eval._launch_split(*args, slices=1, **kw)
+    if not torch.equal(got, light):
+        fail(f"{name}: K4 at its schedule differs in bits from r = 1")
+    times = {}
+    for tag, fn in (("r=1", lambda: list_eval._launch_split(
+                        *args, slices=1, **kw)),
+                    ("schedule",
+                     lambda: list_eval.list_eval_runs_split(*args, **kw))):
+        _, kern = device_profile(fn, reps=3)
+        times[tag] = sum(v for k, v in kern.items()
+                         if "runs_split_kernel" in k)
+    pairs = sched["pairs"]
+    print(f"  {name} K4 device time: r = 1 forced (before) "
+          f"{times['r=1']:.3f} ms, at the schedule {times['schedule']:.3f} "
+          f"ms ({pairs / times['schedule'] / 1e6:.1f} G pairs/s); bit-equal"
+          f"  [{card}]", flush=True)
+    return dict(sched, ms=times, by_r=by_r)
 
 
 def runs_launch(args, kw, ptx: dict) -> dict:
@@ -2632,6 +2685,61 @@ def phase10(dev, card: str) -> dict:
     return out
 
 
+def phase3c(dev, card: str) -> dict:
+    """3c: K4 against its twin on the tables of a uniform 3D state at
+    N=1,048,576 (the default route) and of a 2D state with
+    ``split_eval=True``: the launch, the lanes staged against needed, the
+    schedule and its device time against r = 1 forced, bit for bit."""
+    from nbody_tpu_torch.ops import _cuda, list_eval
+
+    err = {}
+    n1m = 1 << 20
+    print(f"phase 3c: K4 (quarter-split runs evaluation) vs plain twin, 3D "
+          f"grouped BH N={n1m} at the resolved defaults (dense collector, "
+          "split on)", flush=True)
+    p1m, m1m = cloud(n1m, seed=19, device=dev, dims=3)
+    a4, kw4 = capture_split(p1m, m1m)
+    print(f"  tables: targets {tuple(a4[0].shape)}, approx "
+          f"{tuple(a4[1].shape)}, ext {tuple(a4[2].shape)}, tiles "
+          f"{tuple(a4[4].shape)}; per quarter max approx / ext lanes / "
+          f"direct tiles {a4[5].max(1).values.tolist()}, k_tile "
+          f"{kw4['k_tile']}", flush=True)
+    err["k4_3d"] = compare(
+        f"K4 3D N={n1m}, all {a4[2].shape[0]} quarters",
+        list_eval.list_eval_runs_split(*a4, **kw4),
+        list_eval.list_eval_runs_split_plain(*a4, **kw4))
+    p2s, m2s = cloud(65536, seed=23, device=dev)
+    a42, kw42 = capture_split(p2s, m2s, group_size=2048, split_eval=True)
+    err["k4_2d"] = compare(
+        "K4 2D N=65536 group_size 2048 split_eval=True",
+        list_eval.list_eval_runs_split(*a42, **kw42),
+        list_eval.list_eval_runs_split_plain(*a42, **kw42))
+    ptx4 = ptxas_report(_cuda.build_log, r"runs_split_kernelILi(\d)E",
+                        lambda m: int(m[1]))
+    k4_info, k4_sched = {}, {}
+    for dims, (a, kw) in ((3, (a4, kw4)), (2, (a42, kw42))):
+        info = k4_info[dims] = k4_launch(a, kw, ptx4)
+        lanes = list_eval.split_quarter_lanes(*a[1:], k_tile=kw["k_tile"])
+        per_pair = pairs_needed(a, split=True) // (a[0].shape[1] // 4)
+        print(f"  K4 {dims}D launch: {info['targets_per_thread']} target a "
+              f"thread, {info['blocks_per_quarter']} block(s) a quarter at "
+              f"r = 1, {info['blocks']} blocks ({info['sliced_quarters']} "
+              f"quarters sliced; grid {info['grid']}), "
+              f"{info['blocks_per_sm']} blocks/SM -> {info['waves']:.2f} "
+              f"waves; registers {info['registers']}, spill bytes "
+              f"{info['spill_bytes']}; lanes staged {info['lanes_staged']}"
+              f", needed {info['lanes_needed']} (from the pair count "
+              f"{per_pair}); lanes a quarter mean "
+              f"{float(lanes.float().mean()):.1f}, max {int(lanes.max())}",
+              flush=True)
+        if not info["lanes_staged"] == info["lanes_needed"] == per_pair:
+            fail(f"K4 {dims}D stages {info['lanes_staged']} lanes where "
+                 f"{info['lanes_needed']} are needed")
+        k4_sched[dims] = k4_schedule(f"K4 {dims}D", a, kw, card)
+    return dict(p1m=p1m, m1m=m1m, a4=a4, kw4=kw4, err=err, info=k4_info,
+                schedule=k4_sched)
+
+
 def phase11(dev, card: str) -> dict:
     """11: the adaptive engine's refinement (``tree3d.refine_octree``: the
     sparse levels below the pyramid, their sums on the leaf-sums kernels)
@@ -2743,11 +2851,15 @@ def phase11(dev, card: str) -> dict:
         f"(group {widest}), mean {float(lanes.float().mean()):,.0f}",
         list_eval.list_eval_runs_split(*a4, **kw4)[gi],
         list_eval.list_eval_runs_split_plain(*part, **kw4))
+    # the schedule on the pass's tables, bit for bit against r = 1 (the
+    # widest quarter's group among them), and K4's time before and after
+    k4_sched = k4_schedule("K4 on the adaptive pass's tables", a4, kw4,
+                           card)
     f_ms = cuda_ms(lambda: accel(p, m), reps=3)
     print(f"  the force pass: {f_ms:.1f} ms [{card}]", flush=True)
     return dict(ms=k_ms, bound_ms=b_ms, refine_ms=r_ms, build_ms=b_all,
                 cells=r_g.n_cells, depth=r_g.depth, k4_err=k4_err,
-                launches=launches)
+                k4_schedule=k4_sched, launches=launches)
 
 
 def gather_outputs(res) -> list:
@@ -2983,7 +3095,8 @@ def main() -> int:
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
-    only = {"--only-phase-6c": phase6c, "--only-phase-7": phase7,
+    only = {"--only-phase-3c": phase3c, "--only-phase-6c": phase6c,
+            "--only-phase-7": phase7,
             "--only-phase-8": phase8, "--only-phase-9": phase9,
             "--only-phase-10": phase10, "--only-phase-11": phase11,
             "--only-phase-12": phase12}
@@ -3100,45 +3213,10 @@ def main() -> int:
 
     # -- phase 3c: K4 on real 1M tables, and in 2D -------------------------
     n1m = 1 << 20
-    print(f"phase 3c: K4 (quarter-split runs evaluation) vs plain twin, 3D "
-          f"grouped BH N={n1m} at the resolved defaults (dense collector, "
-          "split on)", flush=True)
-    p1m, m1m = cloud(n1m, seed=19, device=dev, dims=3)
-    a4, kw4 = capture_split(p1m, m1m)
-    print(f"  tables: targets {tuple(a4[0].shape)}, approx "
-          f"{tuple(a4[1].shape)}, ext {tuple(a4[2].shape)}, tiles "
-          f"{tuple(a4[4].shape)}; per quarter max approx / ext lanes / "
-          f"direct tiles {a4[5].max(1).values.tolist()}, k_tile "
-          f"{kw4['k_tile']}", flush=True)
-    err["k4_3d"] = compare(
-        f"K4 3D N={n1m}, all {a4[2].shape[0]} quarters",
-        list_eval.list_eval_runs_split(*a4, **kw4),
-        list_eval.list_eval_runs_split_plain(*a4, **kw4))
-    p2s, m2s = cloud(65536, seed=23, device=dev)
-    a42, kw42 = capture_split(p2s, m2s, group_size=2048, split_eval=True)
-    err["k4_2d"] = compare(
-        "K4 2D N=65536 group_size 2048 split_eval=True",
-        list_eval.list_eval_runs_split(*a42, **kw42),
-        list_eval.list_eval_runs_split_plain(*a42, **kw42))
-    ptx4 = ptxas_report(_cuda.build_log, r"runs_split_kernelILi(\d)E",
-                        lambda m: int(m[1]))
-    k4_info = {}
-    for dims, (a, kw) in ((3, (a4, kw4)), (2, (a42, kw42))):
-        info = k4_info[dims] = k4_launch(a, kw, ptx4)
-        lanes = list_eval.split_quarter_lanes(*a[1:], k_tile=kw["k_tile"])
-        per_pair = pairs_needed(a, split=True) // (a[0].shape[1] // 4)
-        print(f"  K4 {dims}D launch: {info['targets_per_thread']} target a "
-              f"thread, {info['blocks_per_quarter']} block(s) a quarter, "
-              f"{info['blocks']} blocks, {info['blocks_per_sm']} blocks/SM "
-              f"-> {info['waves']:.2f} waves; registers "
-              f"{info['registers']}, spill bytes {info['spill_bytes']}; "
-              f"lanes staged {info['lanes_staged']}, needed "
-              f"{info['lanes_needed']} (from the pair count {per_pair}); "
-              f"lanes a quarter mean {float(lanes.float().mean()):.1f}, "
-              f"max {int(lanes.max())}", flush=True)
-        if not info["lanes_staged"] == info["lanes_needed"] == per_pair:
-            fail(f"K4 {dims}D stages {info['lanes_staged']} lanes where "
-                 f"{info['lanes_needed']} are needed")
+    k4 = phase3c(dev, card)
+    p1m, m1m, a4, kw4 = k4["p1m"], k4["m1m"], k4["a4"], k4["kw4"]
+    err.update(k4["err"])
+    k4_info = k4["info"]
 
     # -- phase 3d: K6, K6 compensated and K7 on real packed lists ---------
     print("phase 3d: K6, K6 compensated and K7 (padded two-section lists) "

@@ -108,13 +108,25 @@
 //    in the same order, so the same bits.  A unit that runs past a chunk
 //    carries its partial over.
 //  * Streaming.  The next chunk is loaded into registers before this
-//    chunk's pair loop, so its loads fly during it.  Shared memory is one
-//    chunk and two tables of kUnits unit bounds (~16 KB), whatever k_tile.
+//    chunk's pair loop, so its loads fly during it.  The light path's
+//    shared memory is one chunk and two tables of kUnits unit bounds
+//    (~16 KB), whatever k_tile.
 //  * Heaviest quarters first.  A quarter's lanes are heavy-tailed (at 1M:
 //    mean ~16,550, max ~280,000), so the kernel's time is the heaviest
 //    quarters' blocks; one target a thread keeps each of them short (two
 //    or more targets a thread measured slower: PERF.md), and the wrapper's
 //    `order` starts the heaviest first.
+//  * Thread slices for the heaviest.  On a clustered state one quarter can
+//    hold 1M lanes (the 1M Plummer sphere: mean ~23,900), and its two
+//    blocks, each target one serial chain, outlast the rest of the card.
+//    A row of the wrapper's schedule whose block would hold more than a
+//    fair share of the pass's pairs (the pairs over the card's block
+//    slots) gets r = 2, 4 or 8 thread slices a target and 2r blocks,
+//    which take K2's rounds (split_sliced): the same partials in the same
+//    order, so the bits do not depend on r.  Other rows keep the light
+//    path (split_light).  One launch holds both, so its shared memory is
+//    the larger, the sliced path's (~73 KB), which still lets three blocks
+//    share an SM, as the registers do.
 #include <cuda_runtime.h>
 
 #include "pair_eval.cuh"
@@ -405,96 +417,137 @@ constexpr int kSplitWarps = kSplitThreads / 32;
 constexpr int kSplitPer = 2;  // lanes each thread loads per chunk
 constexpr int kSplitChunk = kSplitPer * kSplitThreads;  // lanes per chunk
 constexpr int kUnits = kSplitThreads;  // units per batch, one per thread
+// The sliced path (a row's r > 1): lanes staged a round (7.5 direct
+// entries of 512 lanes, so eight slices have a unit each), and the unit
+// partials of one round's slices 1..r-1 and the carry, U + 1 slots of
+// DIMS x (kSplitThreads / r) floats.
+constexpr int kSliceChunk = 3840;
+constexpr int kSliceSlotFloats = 2048;
 
-// The stream of one quarter: its units, in table order, are the approx
-// tiles (lanes < lens[0, i] of each), the extension tiles (lanes
-// < lens[1, i]) and the direct entries ([lo, hi) of each, clipped as
-// direct_entry clips it).  The stream is cut into chunks of at most
-// kSplitChunk lanes that never cross a batch of kUnits units; a batch's
-// table in shared memory gives each unit its first stream position (an
-// exclusive prefix over the block), its list and its first column.
+// One quarter's stream (runs_split_kernel): its units, in table order,
+// are the approx tiles (lanes < lens[0, i] of each), the extension tiles
+// (lanes < lens[1, i]) and the direct entries ([lo, hi) of each, clipped
+// as direct_entry clips it).
 template <int DIMS>
-__global__ void __launch_bounds__(kSplitThreads, 3) runs_split_kernel(
-    const float* __restrict__ tgt,     // [G, S, DIMS]
-    const float* __restrict__ approx,  // [G, 8, A]
-    const float* __restrict__ ext,     // [4G, 8, E]
-    const float* __restrict__ srct,    // [8, npad]
-    const int* __restrict__ tiles,     // [4G, 3, T]
-    const int* __restrict__ lens,      // [3, 4G]
-    float* __restrict__ out,           // [G, S, DIMS]
-    const int n_quarters, const int S, const int A, const int E,
-    const long long npad, const int T, const int k_tile, const int e_tiles,
-    const float eps, const int* __restrict__ order,
-    unsigned long long* __restrict__ staged) {
-  __shared__ float4 buf[kSplitChunk];
-  __shared__ int upos[2][kUnits + 1];     // stream position of each unit
-  __shared__ long long ucol[2][kUnits];   // its first column in its list
-  __shared__ int ukind[2][kUnits];        // 0 approx, 1 extension, 2 direct
-  __shared__ int wsum[kSplitWarps];
-  const int qi = order[blockIdx.y];  // quarter i = 4g + q, heaviest first
-  const int g = qi >> 2;
-  const int sq = S / 4;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+struct SplitStream {
+  const float* ap;    // the group's approx list [8, A]
+  const float* ep;    // the quarter's extension table [8, E]
+  const float* srct;  // the source table [8, npad]
+  const int* tb;      // the quarter's direct table [3, T]
+  int A, E, T, k_tile, a_t, e_t, n_units, a_lim, e_lim;
+  long long npad;
 
-  const int i = blockIdx.x * kSplitThreads + threadIdx.x;  // in the quarter
-  const bool live = i < sq;
-  const size_t ti_base =
-      (static_cast<size_t>(g) * S + (qi & 3) * sq + i) * DIMS;
-  const float px = live ? tgt[ti_base] : 0.f;
-  const float py = live ? tgt[ti_base + 1] : 0.f;
-  const float pz = (DIMS == 3 && live) ? tgt[ti_base + DIMS - 1] : 0.f;
-
-  const int a_t = (lens[qi] + k_tile - 1) / k_tile;
-  const int e_t = min((lens[n_quarters + qi] + k_tile - 1) / k_tile, e_tiles);
-  const int d_t = min(lens[2 * n_quarters + qi], T);
-  const int a_lim = min(lens[qi], A);  // lanes the approx tiles hold
-  const int e_lim = min(lens[n_quarters + qi], E);
-  const int n_units = a_t + e_t + d_t;
-  const float* ap = approx + static_cast<size_t>(g) * 8 * A;
-  const float* ep = ext + static_cast<size_t>(qi) * 8 * E;
-  const int* tb = tiles + static_cast<size_t>(qi) * 3 * T;
-
-  // Units [u0, u0 + kUnits) into table `slot`, from stream position base;
-  // returns the batch's end position.  Every thread takes part.
-  auto build = [&](int slot, int u0, int base) {
-    const int u = u0 + static_cast<int>(threadIdx.x);
-    int w = 0, kind = 2;
-    long long col = 0;
+  // unit u's lanes (0 past the stream), its list (0 approx, 1 extension,
+  // 2 direct) and its first column in that list
+  __device__ __forceinline__ int unit(int u, int* kind,
+                                      long long* col) const {
+    int w = 0;
+    *kind = 2;
+    *col = 0;
     if (u < a_t) {
-      kind = 0;
-      col = static_cast<long long>(u) * k_tile;
+      *kind = 0;
+      *col = static_cast<long long>(u) * k_tile;
       w = min(k_tile, a_lim - u * k_tile);
     } else if (u < a_t + e_t) {
-      kind = 1;
-      col = static_cast<long long>(u - a_t) * k_tile;
+      *kind = 1;
+      *col = static_cast<long long>(u - a_t) * k_tile;
       w = min(k_tile, e_lim - (u - a_t) * k_tile);
     } else if (u < n_units) {
       long long start;
       int lo, hi;
       direct_entry(tb, T, u - a_t - e_t, k_tile, npad, &start, &lo, &hi);
-      col = start + lo;
+      *col = start + lo;
       w = hi - lo;
     }
-    w = max(w, 0);
+    return max(w, 0);
+  }
+
+  // column c of list `kind`: (x, y, z, gm), through the read-only cache
+  // (the kernel writes none of the lists)
+  __device__ __forceinline__ float4 lane(int kind, long long c) const {
+    const float* sp = kind == 0 ? ap : (kind == 1 ? ep : srct);
+    const long long pitch = kind == 0 ? A : (kind == 1 ? E : npad);
+    return make_float4(__ldg(sp + c), __ldg(sp + pitch + c),
+                       DIMS == 3 ? __ldg(sp + 2 * pitch + c) : 0.f,
+                       __ldg(sp + DIMS * pitch + c));
+  }
+};
+
+// The unit holding stream position pos in a batch table upos[0..kUnits]:
+// upos[lo] <= pos < upos[lo + 1].
+__device__ __forceinline__ int unit_at(const int* upos, int pos) {
+  int lo = 0, hi = kUnits;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (upos[mid] <= pos) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Shared memory of one block: the light path's or the sliced path's.
+struct SplitLight {
+  float4 buf[kSplitChunk];
+  int upos[2][kUnits + 1];     // stream position of each unit
+  long long ucol[2][kUnits];   // its first column in its list
+  int ukind[2][kUnits];        // 0 approx, 1 extension, 2 direct
+  int wsum[kSplitWarps];
+};
+struct SplitSliced {
+  float4 buf[kSliceChunk];
+  float slot[kSliceSlotFloats];
+  long long ucol[kUnits];
+  int upos[kUnits + 1];
+  int ukind[kUnits];
+  int uend[kUnits];  // the nonempty units' ends
+  int wsum[kSplitWarps], wcnt[kSplitWarps];
+};
+union SplitShared {
+  SplitLight light;
+  SplitSliced sliced;
+};
+
+// The light path (r = 1): one target a thread.  The stream is cut into
+// chunks of at most kSplitChunk lanes that never cross a batch of kUnits
+// units; a batch's table in shared memory gives each unit its first stream
+// position (an exclusive prefix over the block), its list and its first
+// column.  Adds the quarter's force on the thread's target to a.
+template <int DIMS>
+__device__ __forceinline__ void split_light(SplitLight& sm,
+                                            const SplitStream<DIMS>& st,
+                                            float px, float py, float pz,
+                                            float eps, float* a,
+                                            unsigned long long* n_staged) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // Units [u0, u0 + kUnits) into table `slot`, from stream position base;
+  // returns the batch's end position.  Every thread takes part.
+  auto build = [&](int slot, int u0, int base) {
+    int kind;
+    long long col;
+    const int w = st.unit(u0 + static_cast<int>(threadIdx.x), &kind, &col);
     int x = w;  // inclusive scan over the warp, then over the warps
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int y = __shfl_up_sync(0xffffffffu, x, d);
       if (lane >= d) x += y;
     }
-    if (lane == 31) wsum[warp] = x;
+    if (lane == 31) sm.wsum[warp] = x;
     __syncthreads();
     int before = base, end = base;
 #pragma unroll
     for (int ww = 0; ww < kSplitWarps; ++ww) {
-      if (ww < warp) before += wsum[ww];
-      end += wsum[ww];
+      if (ww < warp) before += sm.wsum[ww];
+      end += sm.wsum[ww];
     }
-    upos[slot][threadIdx.x + 1] = before + x;
-    if (threadIdx.x == 0) upos[slot][0] = base;
-    ucol[slot][threadIdx.x] = col;
-    ukind[slot][threadIdx.x] = kind;
+    sm.upos[slot][threadIdx.x + 1] = before + x;
+    if (threadIdx.x == 0) sm.upos[slot][0] = base;
+    sm.ucol[slot][threadIdx.x] = col;
+    sm.ukind[slot][threadIdx.x] = kind;
     __syncthreads();
     return end;
   };
@@ -507,23 +560,9 @@ __global__ void __launch_bounds__(kSplitThreads, 3) runs_split_kernel(
       const int pos = p0 + p * kSplitThreads + static_cast<int>(threadIdx.x);
       v[p] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (pos < p1) {
-        // the unit holding pos: upos[lo] <= pos < upos[lo + 1]
-        int lo = 0, hi = kUnits;
-        while (hi - lo > 1) {
-          const int mid = (lo + hi) >> 1;
-          if (upos[slot][mid] <= pos) {
-            lo = mid;
-          } else {
-            hi = mid;
-          }
-        }
-        const int kind = ukind[slot][lo];
-        const float* sp = kind == 0 ? ap : (kind == 1 ? ep : srct);
-        const long long pitch = kind == 0 ? A : (kind == 1 ? E : npad);
-        const long long c = ucol[slot][lo] + (pos - upos[slot][lo]);
-        v[p] = make_float4(sp[c], sp[pitch + c],
-                           DIMS == 3 ? sp[2 * pitch + c] : 0.f,
-                           sp[DIMS * pitch + c]);
+        const int lo = unit_at(sm.upos[slot], pos);
+        v[p] = st.lane(sm.ukind[slot][lo],
+                       sm.ucol[slot][lo] + (pos - sm.upos[slot][lo]));
       }
     }
   };
@@ -532,7 +571,7 @@ __global__ void __launch_bounds__(kSplitThreads, 3) runs_split_kernel(
   // units, each of which would add +0)
   int slot = 0, u0 = 0;
   int bend = build(0, 0, 0);
-  while (bend == 0 && u0 + kUnits < n_units) {
+  while (bend == 0 && u0 + kUnits < st.n_units) {
     u0 += kUnits;
     bend = build(0, u0, 0);
   }
@@ -540,25 +579,23 @@ __global__ void __launch_bounds__(kSplitThreads, 3) runs_split_kernel(
   int u = u0;  // the unit the pair loop is in
   if (pos1 > pos0) fetch(slot, pos0, pos1);
 
-  float a[3] = {0.f, 0.f, 0.f};  // the running sum
   float t[3] = {0.f, 0.f, 0.f};  // this unit's partial
-  unsigned long long n_staged = 0;
   while (pos1 > pos0) {  // uniform across the block
     const int m = pos1 - pos0;
     __syncthreads();  // every thread is done with the last chunk
 #pragma unroll
     for (int p = 0; p < kSplitPer; ++p) {
       const int l = p * kSplitThreads + static_cast<int>(threadIdx.x);
-      if (l < m) buf[l] = v[p];
+      if (l < m) sm.buf[l] = v[p];
     }
-    n_staged += m;
+    *n_staged += m;
     // the next chunk, from the next batch that holds lanes when this one
     // ends; its loads fly while this chunk is evaluated
     int nslot = slot, nu0 = u0, nbend = bend;
     const int np0 = pos1;
     if (np0 == bend) {
       nslot = slot ^ 1;
-      while (nbend == np0 && nu0 + kUnits < n_units) {
+      while (nbend == np0 && nu0 + kUnits < st.n_units) {
         nu0 += kUnits;
         nbend = build(nslot, nu0, np0);
       }
@@ -572,10 +609,10 @@ __global__ void __launch_bounds__(kSplitThreads, 3) runs_split_kernel(
     // the chunk carries its partial into the next
     int j = 0;
     while (j < m) {
-      const int uend = upos[slot][u - u0 + 1] - pos0;
+      const int uend = sm.upos[slot][u - u0 + 1] - pos0;
       const int e = min(uend, m);
       for (; j < e; ++j) {
-        nbody::pair_force<DIMS>(buf[j], px, py, pz, eps, &t[0], &t[1],
+        nbody::pair_force<DIMS>(sm.buf[j], px, py, pz, eps, &t[0], &t[1],
                                 &t[2]);
       }
       if (uend <= m) {
@@ -594,10 +631,238 @@ __global__ void __launch_bounds__(kSplitThreads, 3) runs_split_kernel(
     pos0 = np0;
     pos1 = np1;
   }
-  if (staged != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+}
+
+// The sliced path (r = `slices` > 1), K2's rounds: thread il of slice q
+// holds target il of the block's kSplitThreads / r.  A round stages at most
+// kSliceChunk lanes and as many nonempty units as the slots hold; its lanes
+// are cut into r spans at the unit ends nearest to equal shares.  Every
+// unit's partial is one thread's chain in lane order: slice 0 adds its own
+// units' partials to the running sum as they end, slices 1..r-1 leave
+// theirs in slots that slice 0 adds in unit order after the round, and a
+// unit that runs past the round leaves its partial in the carry slot,
+// which slice 0 goes on summing.  Empty units are skipped: each would add
+// +0, which leaves a sum that starts at +0 as it is.  So the running sum
+// (slice 0's a) takes the light path's operations in its order.
+template <int DIMS>
+__device__ __forceinline__ void split_sliced(SplitSliced& sm,
+                                             const SplitStream<DIMS>& st,
+                                             int slices, float px, float py,
+                                             float pz, float eps, float* a,
+                                             unsigned long long* n_staged) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int per_block = kSplitThreads / slices;
+  const int q = threadIdx.x / per_block;  // this thread's slice
+  const int il = threadIdx.x % per_block;
+  // slots: unit k of a round at [(k DIMS + d) per_block + il], k < n_slot,
+  // the carry at k = n_slot
+  const int n_slot = kSliceSlotFloats / (DIMS * per_block) - 1;
+  float* carry = sm.slot + n_slot * DIMS * per_block + il;
+
+  // Units [u0, u0 + kUnits) into the tables, from stream position base;
+  // returns the table's end position and sets *n_u to its nonempty units.
+  // Every thread takes part.
+  auto build = [&](int u0, int base, int* n_u) {
+    int kind;
+    long long col;
+    const int w = st.unit(u0 + static_cast<int>(threadIdx.x), &kind, &col);
+    int x = w;  // inclusive scan over the warp, then over the warps
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += y;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, w > 0);
+    if (lane == 31) sm.wsum[warp] = x;
+    if (lane == 0) sm.wcnt[warp] = __popc(bal);
+    __syncthreads();
+    int before = base, end = base, ubefore = 0, units = 0;
+#pragma unroll
+    for (int ww = 0; ww < kSplitWarps; ++ww) {
+      if (ww < warp) {
+        before += sm.wsum[ww];
+        ubefore += sm.wcnt[ww];
+      }
+      end += sm.wsum[ww];
+      units += sm.wcnt[ww];
+    }
+    sm.upos[threadIdx.x + 1] = before + x;
+    if (threadIdx.x == 0) sm.upos[0] = base;
+    sm.ucol[threadIdx.x] = col;
+    sm.ukind[threadIdx.x] = kind;
+    if (w > 0) {
+      sm.uend[ubefore + __popc(bal & ((1u << lane) - 1u))] = before + x;
+    }
+    __syncthreads();
+    *n_u = units;
+    return end;
+  };
+
+  if (q == 0) {
+#pragma unroll
+    for (int d = 0; d < DIMS; ++d) carry[d * per_block] = 0.f;
+  }
+  int u0 = -kUnits;  // the table's first unit
+  int n_u = 0;       // its nonempty units
+  int bend = 0;      // its end position
+  int pos0 = 0;      // the round's first lane
+  int kb = 0;        // the round's first nonempty unit in the table
+  int n_fold = 0, n_own = 0;  // the last round's units, slice 0's own
+  while (true) {  // one round; uniform across the block
+    __syncthreads();  // the last round's buf reads, slots and carry are done
+    float t[3] = {0.f, 0.f, 0.f};  // the partial of the unit in progress
+    if (q == 0) {  // slices 1..r-1's partials, in unit order; the carry
+      for (int k = n_own; k < n_fold; ++k) {
+#pragma unroll
+        for (int d = 0; d < DIMS; ++d) {
+          a[d] += sm.slot[(k * DIMS + d) * per_block + il];
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < DIMS; ++d) t[d] = carry[d * per_block];
+    }
+    // at a table's end (a unit's end), the next table that holds lanes
+    if (pos0 == bend) {
+      bool more = false;
+      while (!more && u0 + kUnits < st.n_units) {
+        u0 += kUnits;
+        bend = build(u0, pos0, &n_u);
+        kb = 0;
+        more = bend > pos0;
+      }
+      if (!more) break;
+    }
+    // the round: at most kSliceChunk lanes and n_slot units of the table
+    int pos1 = min(pos0 + kSliceChunk, bend);
+    if (kb + n_slot - 1 < n_u) pos1 = min(pos1, sm.uend[kb + n_slot - 1]);
+    const int k1 = first_above(sm.uend, kb, n_u, pos1);  // units past pos1
+    const int m = pos1 - pos0;
+    for (int l = threadIdx.x; l < m; l += kSplitThreads) {
+      const int lo = unit_at(sm.upos, pos0 + l);
+      sm.buf[l] = st.lane(sm.ukind[lo],
+                          sm.ucol[lo] + (pos0 + l - sm.upos[lo]));
+    }
+    *n_staged += m;
+    __syncthreads();
+
+    // slice q's span [b0, b1): cut at the unit ends in (pos0, pos1) nearest
+    // to pos0 + q m / r (slice 0 always starts at pos0, the last ends at
+    // pos1)
+    auto cut = [&](int qq) {
+      if (qq == slices) return pos1;
+      if (qq == 0) return pos0;
+      const int x = pos0 + static_cast<int>(
+          static_cast<long long>(qq) * m / slices);
+      const int k = first_above(sm.uend, kb, k1, x - 1);  // first end >= x
+      const int hi_c = k < k1 ? sm.uend[k] : pos1;
+      if (k == kb) return hi_c;
+      const int lo_c = sm.uend[k - 1];
+      return x - lo_c <= hi_c - x ? lo_c : hi_c;
+    };
+    const int b0 = cut(q), b1 = cut(q + 1);
+    int k = first_above(sm.uend, kb, k1, b0);  // the unit holding lane b0
+    int own = 0;
+    for (int j = b0; j < b1;) {
+      const int ue = k < k1 ? sm.uend[k] : pos1 + 1;  // past pos1: carried
+      const int e = min(ue, b1);
+      for (; j < e; ++j) {
+        nbody::pair_force<DIMS>(sm.buf[j - pos0], px, py, pz, eps, &t[0],
+                                &t[1], &t[2]);
+      }
+      if (e == ue) {  // the unit ends: its partial, in unit order
+#pragma unroll
+        for (int d = 0; d < DIMS; ++d) {
+          if (q == 0) {
+            a[d] += t[d];
+          } else {
+            sm.slot[((k - kb) * DIMS + d) * per_block + il] = t[d];
+          }
+          t[d] = 0.f;
+        }
+        own += q == 0;
+        ++k;
+      }
+    }
+    // the slice with the round's last lanes leaves the carry (0 when the
+    // round ends at a unit's end)
+    if (b0 < b1 && b1 == pos1) {
+#pragma unroll
+      for (int d = 0; d < DIMS; ++d) carry[d * per_block] = t[d];
+    }
+    n_fold = k1 - kb;
+    n_own = own;
+    kb = k1;
+    pos0 = pos1;
+  }
+}
+
+// K4: block b of the grid takes row r of the schedule (row_start[r] <= b
+// < row_start[r + 1]; blocks past row_start[4G] exit), quarter order[r]
+// (heaviest first) with slices[r] thread slices a target, so the row's
+// blocks hold kSplitThreads / slices[r] targets each.
+template <int DIMS>
+__global__ void __launch_bounds__(kSplitThreads, 3) runs_split_kernel(
+    const float* __restrict__ tgt,     // [G, S, DIMS]
+    const float* __restrict__ approx,  // [G, 8, A]
+    const float* __restrict__ ext,     // [4G, 8, E]
+    const float* __restrict__ srct,    // [8, npad]
+    const int* __restrict__ tiles,     // [4G, 3, T]
+    const int* __restrict__ lens,      // [3, 4G]
+    float* __restrict__ out,           // [G, S, DIMS]
+    const int n_quarters, const int S, const int A, const int E,
+    const long long npad, const int T, const int k_tile, const int e_tiles,
+    const float eps, const int* __restrict__ order,
+    const int* __restrict__ row_slices, const int* __restrict__ row_start,
+    unsigned long long* __restrict__ staged) {
+  extern __shared__ float4 split_shared[];
+  SplitShared& sm = *reinterpret_cast<SplitShared*>(split_shared);
+  const int b = blockIdx.x;
+  if (b >= row_start[n_quarters]) return;  // a surplus block
+  const int row = first_above(row_start, 0, n_quarters + 1, b) - 1;
+  const int slices = row_slices[row];
+  const int bx = b - row_start[row];  // the block within its row
+  const int qi = order[row];  // quarter i = 4g + q
+  const int g = qi >> 2;
+  const int sq = S / 4;
+  const int per_block = kSplitThreads / slices;
+
+  const int i = bx * per_block + threadIdx.x % per_block;  // in the quarter
+  const bool live = i < sq;
+  const size_t ti_base =
+      (static_cast<size_t>(g) * S + (qi & 3) * sq + i) * DIMS;
+  const float px = live ? tgt[ti_base] : 0.f;
+  const float py = live ? tgt[ti_base + 1] : 0.f;
+  const float pz = (DIMS == 3 && live) ? tgt[ti_base + DIMS - 1] : 0.f;
+
+  SplitStream<DIMS> st;
+  st.ap = approx + static_cast<size_t>(g) * 8 * A;
+  st.ep = ext + static_cast<size_t>(qi) * 8 * E;
+  st.srct = srct;
+  st.tb = tiles + static_cast<size_t>(qi) * 3 * T;
+  st.A = A;
+  st.E = E;
+  st.T = T;
+  st.k_tile = k_tile;
+  st.npad = npad;
+  st.a_t = (lens[qi] + k_tile - 1) / k_tile;
+  st.e_t = min((lens[n_quarters + qi] + k_tile - 1) / k_tile, e_tiles);
+  st.a_lim = min(lens[qi], A);  // lanes the approx tiles hold
+  st.e_lim = min(lens[n_quarters + qi], E);
+  st.n_units = st.a_t + st.e_t + min(lens[2 * n_quarters + qi], T);
+
+  float a[3] = {0.f, 0.f, 0.f};  // the running sum
+  unsigned long long n_staged = 0;
+  if (slices == 1) {  // uniform across the block
+    split_light<DIMS>(sm.light, st, px, py, pz, eps, a, &n_staged);
+  } else {
+    split_sliced<DIMS>(sm.sliced, st, slices, px, py, pz, eps, a,
+                       &n_staged);
+  }
+  if (staged != nullptr && bx == 0 && threadIdx.x == 0) {
     atomicAdd(staged, n_staged);
   }
-  if (live) {
+  if (live && threadIdx.x < per_block) {  // slice 0
 #pragma unroll
     for (int d = 0; d < DIMS; ++d) out[ti_base + d] = a[d];
   }
@@ -632,20 +897,30 @@ RunsFn runs_for(int dims, int seg_pack) {
 using SplitFn = void (*)(const float*, const float*, const float*,
                         const float*, const int*, const int*, float*, int,
                         int, int, int, long long, int, int, int, float,
-                        const int*, unsigned long long*);
+                        const int*, const int*, const int*,
+                        unsigned long long*);
 
-SplitFn split_for(int dims) {
-  return dims == 3 ? runs_split_kernel<3>
-                   : (dims == 2 ? runs_split_kernel<2> : nullptr);
+// K4 for `dims`, allowed the dynamic shared memory its sliced path needs
+// (past the 48 KB a block gets unasked); nullptr for other dims
+SplitFn split_for(int dims, cudaError_t* err) {
+  const SplitFn kernel = dims == 3 ? runs_split_kernel<3>
+                         : (dims == 2 ? runs_split_kernel<2> : nullptr);
+  *err = kernel == nullptr
+             ? cudaErrorInvalidValue
+             : cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                   static_cast<int>(sizeof(SplitShared)));
+  return kernel;
 }
 
 }  // namespace
 
-// One launch of K4: `threads` must be kSplitThreads; blocks of
-// kSplitThreads targets over each quarter's S / 4, one row per quarter,
-// row r taking quarter order[r] (a permutation of the 4G quarters).  A
-// non-null `staged` gets the lanes the first block of each quarter
-// staged.
+// One launch of K4: `threads` must be kSplitThreads; `blocks` blocks, row
+// r of the schedule (quarter order[r], a permutation of the 4G quarters,
+// with slices[r] in 1, 2, 4, 8 thread slices a target) taking blocks
+// [row_start[r], row_start[r + 1]) of kSplitThreads / slices[r] targets
+// each; blocks past row_start[4G] exit.  A non-null `staged` gets the lanes
+// the first block of each quarter staged.
 extern "C" int nbody_runs_eval_split(const float* tgt, const float* approx,
                                      const float* ext, const float* srct,
                                      const int* tiles, const int* lens,
@@ -653,18 +928,21 @@ extern "C" int nbody_runs_eval_split(const float* tgt, const float* approx,
                                      int E, long long npad, int T, int k_tile,
                                      int e_tiles, float softening, int dims,
                                      int threads, const int* order,
-                                     unsigned long long* staged,
+                                     const int* slices, const int* row_start,
+                                     int blocks, unsigned long long* staged,
                                      void* stream) {
   if (n_quarters == 0 || S == 0) return 0;
-  const SplitFn kernel = split_for(dims);
-  if (kernel == nullptr || threads != kSplitThreads || S % 4 ||
-      n_quarters % 4 || k_tile < 1) {
+  if (threads != kSplitThreads || S % 4 || n_quarters % 4 || k_tile < 1 ||
+      blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((S / 4 + kSplitThreads - 1) / kSplitThreads, n_quarters);
-  kernel<<<grid, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t err;
+  const SplitFn kernel = split_for(dims, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, kSplitThreads, sizeof(SplitShared),
+           static_cast<cudaStream_t>(stream)>>>(
       tgt, approx, ext, srct, tiles, lens, out, n_quarters, S, A, E, npad, T,
-      k_tile, e_tiles, softening, order, staged);
+      k_tile, e_tiles, softening, order, slices, row_start, staged);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -672,12 +950,14 @@ extern "C" int nbody_runs_eval_split(const float* tgt, const float* approx,
 // *blocks_per_sm.
 extern "C" int nbody_runs_split_occupancy(int dims, int threads,
                                           int* blocks_per_sm) {
-  const SplitFn kernel = split_for(dims);
-  if (kernel == nullptr || threads != kSplitThreads) {
+  cudaError_t err;
+  const SplitFn kernel = split_for(dims, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (threads != kSplitThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, kSplitThreads, 0));
+      blocks_per_sm, kernel, kSplitThreads, sizeof(SplitShared)));
 }
 
 // One launch of K2 (seg_pack 1) or K3 (seg_pack 2, 4, 8): `threads` must

@@ -124,7 +124,7 @@ class _Library:
              [i, i, i, ctypes.POINTER(ctypes.c_int)], i),
             ("nbody_runs_eval_split",
              [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
-              f, i, i, p, p, p], i),
+              f, i, i, p, p, p, i, p, p], i),
             ("nbody_runs_split_occupancy",
              [i, i, ctypes.POINTER(ctypes.c_int)], i),
             ("nbody_graph_if_begin", [p, p, p, i], i),

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -59,9 +60,11 @@ SMS = 132
 LIST_WAVE_WARPS = 32
 # K4's launch shape: threads per block, one target each (runs_eval.cu's
 # kSplitThreads), and the blocks one SM is counted to hold
-# (__launch_bounds__(256, 3))
+# (__launch_bounds__(256, 3)); a heavy quarter's r thread slices a target
+# (split_schedule)
 SPLIT_THREADS = 256
 SPLIT_WAVE_BLOCKS = 3
+SPLIT_SLICES = (1, 2, 4, 8)
 
 # Same constants as nbody_tpu.ops.list_eval: ``runs_k_max`` is the TPU
 # kernel's VMEM ceiling on k_tile.  The grouped engine keeps applying it
@@ -378,7 +381,8 @@ def list_eval_runs_split(
     [qS/4, (q+1)S/4) of group g.  Returns [G, S, D].
 
     On CUDA: kernel K4 (heaviest quarters first, by
-    :func:`split_quarter_lanes`), f32 2D or 3D targets, int32 tables,
+    :func:`split_quarter_lanes`, each with the thread slices
+    :func:`split_schedule` gives it), f32 2D or 3D targets, int32 tables,
     contiguous inputs only, any k_tile.  On the CPU: the plain twin."""
     if not targets.is_cuda:
         return list_eval_runs_split_plain(
@@ -391,11 +395,12 @@ def list_eval_runs_split(
 
 
 def split_launch_shape(n_quarters: int, s: int) -> tuple:
-    """K4's launch on 4G quarters of S / 4 targets: (targets per thread,
-    blocks per quarter, blocks).  One target a thread, ``SPLIT_THREADS`` a
-    block, so a quarter of S / 4 targets takes ceil(S / 4 / SPLIT_THREADS)
-    blocks, each staging the quarter's lanes once.  Targets never share a
-    sum, so the shape moves time, never bits."""
+    """K4's launch on 4G quarters of S / 4 targets where every quarter
+    keeps r = 1 (the light path): (targets per thread, blocks per quarter,
+    blocks).  One target a thread, ``SPLIT_THREADS`` a block, so a quarter
+    of S / 4 targets takes ceil(S / 4 / SPLIT_THREADS) blocks, each staging
+    the quarter's lanes once.  Targets never share a sum, so the shape
+    moves time, never bits."""
     per_quarter = max(1, -(-(s // 4) // SPLIT_THREADS))
     return 1, per_quarter, n_quarters * per_quarter
 
@@ -417,6 +422,105 @@ def split_quarter_lanes(approx, ext, sources_t, tiles, lens, *,
             + lens[1].long().clamp(max=ext.shape[2]) + (span * live).sum(1))
 
 
+def split_block_targets(sq: int, r: int) -> int:
+    """Targets a K4 block holds in a quarter of ``sq`` targets at r thread
+    slices a target."""
+    return min(sq, SPLIT_THREADS // r)
+
+
+def split_heavy_rows(n_quarters: int, s: int) -> int:
+    """The most quarters :func:`split_schedule` can give r > 1, from the
+    shapes alone.  Such a quarter has SPLIT_THREADS x lanes x slots > S / 4
+    x (all lanes), with slots = SMS x SPLIT_WAVE_BLOCKS; summed over them,
+    their count is below slots x SPLIT_THREADS / (S / 4)."""
+    slots = SMS * SPLIT_WAVE_BLOCKS
+    return min(n_quarters, -(-(slots * SPLIT_THREADS) // (s // 4)) - 1)
+
+
+class SplitSchedule(NamedTuple):
+    """K4's schedule: row j of the launch is quarter ``order[j]`` (the
+    heaviest first) with ``slices[j]`` thread slices a target, and takes
+    blocks [row_start[j], row_start[j + 1]); ``grid`` blocks are launched,
+    those past row_start[-1] exiting at once."""
+    order: torch.Tensor  # [4G] int32
+    slices: torch.Tensor  # [4G] int32
+    row_start: torch.Tensor  # [4G + 1] int32
+    grid: int
+
+
+def split_schedule(lanes: torch.Tensor, s: int,
+                   slices: int | None = None) -> SplitSchedule:
+    """K4's schedule for quarters of S / 4 targets that need ``lanes``
+    [4G] source lanes each (:func:`split_quarter_lanes`), made on their
+    device with no host read, so that it can be captured.
+
+    Each quarter gets the fewest thread slices r in ``SPLIT_SLICES`` whose
+    block takes at most a fair share of the card: a block of SPLIT_THREADS
+    threads runs chains of lanes / r pairs, so (SPLIT_THREADS / r) x lanes
+    <= S / 4 x sum(lanes) / (SMS x SPLIT_WAVE_BLOCKS), the pass's pairs
+    over the card's block slots (8 where none does).  With S / 4 >=
+    SPLIT_THREADS that is the block's own pairs.  A quarter takes
+    ceil(S / 4 / split_block_targets(S / 4, r)) blocks: light quarters keep
+    r = 1 and the light path, the heaviest spread over up to eight times
+    the blocks.  The grid is sized from the shapes: every row's r = 1
+    blocks, and up to r = 8 for the :func:`split_heavy_rows` heaviest.
+    ``slices`` forces one r on every quarter (a measurement: every r gives
+    the same bits)."""
+    nq, sq = lanes.shape[0], s // 4
+    order = torch.argsort(lanes, descending=True, stable=True)
+
+    def blocks(r: int) -> int:
+        return -(-sq // split_block_targets(sq, r))
+
+    if slices is None:
+        heavy = lanes[order].long()
+        pairs = heavy.sum() * sq
+        slots = SMS * SPLIT_WAVE_BLOCKS
+        r = torch.full_like(heavy, SPLIT_SLICES[-1])
+        for cand in SPLIT_SLICES[-2::-1]:  # the fewest that fits wins
+            fits = heavy * (SPLIT_THREADS // cand * slots) <= pairs
+            r = torch.where(fits, cand, r)
+        grid = nq * blocks(1) + split_heavy_rows(nq, s) * (
+            blocks(SPLIT_SLICES[-1]) - blocks(1))
+    else:
+        if slices not in SPLIT_SLICES:
+            raise ValueError(f"slices={slices}: K4 takes {SPLIT_SLICES}")
+        r = torch.full_like(order, slices)
+        grid = nq * blocks(slices)
+    per_block = (SPLIT_THREADS // r).clamp(max=sq)
+    row_start = torch.cat([r.new_zeros(1),
+                           torch.cumsum(-(-sq // per_block), 0)])
+    return SplitSchedule(order.to(torch.int32), r.to(torch.int32),
+                         row_start.to(torch.int32), grid)
+
+
+def split_schedule_summary(targets, approx, ext, sources_t, tiles, lens, *,
+                           k_tile: int = 512) -> dict:
+    """K4's schedule on one call's tables, read on the host: a
+    measurement, not the main path (which never reads it).  ``sliced``:
+    (quarter, lanes, r) of each quarter given r > 1, heaviest first;
+    ``heaviest_block_pairs`` and ``heaviest_block_pairs_r1``: the largest
+    (SPLIT_THREADS / r) x lanes, what :func:`split_schedule` holds to
+    ``fair_share_pairs`` (the pass's pairs over SMS x SPLIT_WAVE_BLOCKS),
+    at this schedule and at r = 1 everywhere; ``blocks`` used and ``grid``
+    launched."""
+    s = targets.shape[1]
+    lanes = split_quarter_lanes(approx, ext, sources_t, tiles, lens,
+                                k_tile=k_tile)
+    sched = split_schedule(lanes, s)
+    order, r = sched.order.long(), sched.slices.long()
+    heavy = lanes[order]
+    cut = r > 1
+    pairs = int(lanes.sum()) * (s // 4)
+    return {"sliced": [tuple(x) for x in torch.stack(
+                [order[cut], heavy[cut], r[cut]], 1).tolist()],
+            "heaviest_block_pairs": int((SPLIT_THREADS // r * heavy).max()),
+            "heaviest_block_pairs_r1": int(heavy.max()) * SPLIT_THREADS,
+            "fair_share_pairs": pairs / (SMS * SPLIT_WAVE_BLOCKS),
+            "pairs": pairs, "blocks": int(sched.row_start[-1]),
+            "grid": sched.grid}
+
+
 def split_occupancy(dims: int) -> int:
     """Blocks of K4 (``dims``) that one SM of the current card holds at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
@@ -427,18 +531,22 @@ def split_occupancy(dims: int) -> int:
 
 
 def split_lanes_staged(targets, approx, ext, sources_t, tiles, lens, *,
-                       softening: float, k_tile: int = 512) -> int:
+                       softening: float, k_tile: int = 512,
+                       slices: int | None = None) -> int:
     """Run K4 once on CUDA tensors and return the lanes it staged, summed
-    over the quarters (each quarter's first block counts).  Not counted in
+    over the quarters (each quarter's first block counts); ``slices`` as
+    :func:`split_schedule` takes it.  Not counted in
     ``ops.list_eval.SPLIT_LAUNCHES``: a measurement, not the main path."""
     staged = torch.zeros(1, dtype=torch.int64, device=targets.device)
     _launch_split(targets, approx, ext, sources_t, tiles, lens,
-                  softening=softening, k_tile=k_tile, staged=staged)
+                  softening=softening, k_tile=k_tile, staged=staged,
+                  slices=slices)
     return int(staged)
 
 
 def _launch_split(targets, approx, ext, sources_t, tiles, lens, *,
-                  softening, k_tile, staged=None) -> torch.Tensor:
+                  softening, k_tile, staged=None,
+                  slices=None) -> torch.Tensor:
     _check_split(targets, ext, tiles, lens)
     dev = targets.device
     g, s, dims = targets.shape
@@ -453,13 +561,13 @@ def _launch_split(targets, approx, ext, sources_t, tiles, lens, *,
     _cuda.require(lens, "lens", torch.int32, (3, nq), dev)
     if k_tile < 1:
         raise ValueError(f"k_tile={k_tile}: a tile holds at least one lane")
-    if nq > 65535:
-        raise ValueError(f"{nq} quarters exceed the grid's y dimension")
-    # the heaviest quarters first: their blocks set the kernel's time
-    order = torch.argsort(
+    # the heaviest quarters first, the heaviest blocks spread: they set the
+    # kernel's time
+    sched = split_schedule(
         split_quarter_lanes(approx, ext, sources_t, tiles, lens,
-                            k_tile=k_tile),
-        descending=True, stable=True).to(torch.int32)
+                            k_tile=k_tile), s, slices)
+    if sched.grid >= 1 << 31:
+        raise ValueError(f"{sched.grid} blocks exceed the grid")
     out = torch.empty((g, s, dims), dtype=torch.float32, device=dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
@@ -469,7 +577,8 @@ def _launch_split(targets, approx, ext, sources_t, tiles, lens, *,
             out.data_ptr(), nq, s, approx.shape[2], ext.shape[2],
             sources_t.shape[1], tiles.shape[2], k_tile,
             -(-ext.shape[2] // k_tile), float(softening), dims,
-            SPLIT_THREADS, order.data_ptr(),
+            SPLIT_THREADS, sched.order.data_ptr(), sched.slices.data_ptr(),
+            sched.row_start.data_ptr(), sched.grid,
             None if staged is None else staged.data_ptr(),
             _cuda.stream_of(out),
         )

@@ -553,6 +553,119 @@ def test_k4_packed_streaming_matches_twin(cuda, dims, case):
         need)
 
 
+HEAVY_Q = 5  # the heavy quarter of _heavy_split_tables
+
+
+def _heavy_split_tables(dims, seed, device, s=512, k=512, n_heavy=1500):
+    """K4 tables with one quarter (HEAVY_Q) far heavier than the rest:
+    ``n_heavy`` direct entries of k_tile lanes, every seventh a partial
+    window and every 97th empty, so that units end inside the sliced
+    path's rounds and run past them; among light quarters (the group's
+    approx lanes, a few extension lanes and direct entries: r = 1, 2 or
+    4) and two empty ones."""
+    rng = np.random.default_rng(seed)
+    g, a_w, e_w, ns = 4, 700, 300, 1 << 16
+    targets = rng.uniform(-0.1, 0.1, (g, s, dims)).astype(np.float32)
+    approx = np.zeros((g, 8, a_w), np.float32)
+    approx[:, :dims] = rng.uniform(-0.1, 0.1, (g, dims, a_w))
+    ext = np.zeros((4 * g, 8, e_w), np.float32)
+    ext[:, :dims] = rng.uniform(-0.1, 0.1, (4 * g, dims, e_w))
+    srct = np.zeros((8, ns + k), np.float32)
+    srct[:dims, :ns] = rng.uniform(-0.1, 0.1, (dims, ns))
+    srct[dims, :ns] = G * rng.uniform(0.1, 0.5, ns)
+    tiles = np.zeros((4 * g, 3, n_heavy), np.int32)
+    lens = np.zeros((3, 4 * g), np.int32)
+    for gi in range(g):
+        a_n = int(rng.integers(100, 400))
+        approx[gi, dims, :a_n] = G * rng.uniform(0.1, 0.5, a_n)
+        lens[0, 4 * gi:4 * gi + 4] = a_n
+    for i in range(4 * g):
+        if i in (2, 11):  # empty quarters
+            lens[0, i] = 0
+            continue
+        lens[1, i] = int(rng.integers(1, 120))
+        ext[i, dims, :lens[1, i]] = G * rng.uniform(0.1, 0.5, lens[1, i])
+        n_d = n_heavy if i == HEAVY_Q else int(rng.integers(0, 4))
+        for j in range(n_d):
+            start = 128 * int(rng.integers(0, ns // 128 - 4))
+            lo, hi = 0, k
+            if j % 7 == 3:
+                lo = int(rng.integers(0, k // 2))
+                hi = int(rng.integers(lo, k + 1))
+            if j % 97 == 50:
+                hi = lo
+            tiles[i, :, j] = (start, lo, hi)
+        lens[2, i] = n_d
+    return [torch.tensor(a, device=device)
+            for a in (targets, approx, ext, srct, tiles, lens)]
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_k4_every_schedule_bit_equal_on_a_heavy_quarter(cuda, dims):
+    """The heavy quarter gets r = 8 and the light ones r = 1, 2 or 4 in
+    one launch; that launch and every r forced on all quarters give r = 1's
+    bits (the light path, today's kernel), within TOL of the twin, and
+    stage exactly the lanes the tables need."""
+    k = 512
+    args = _heavy_split_tables(dims, 40 + dims, cuda, k=k)
+    kw = dict(softening=1e-15, k_tile=k)
+    summary = list_eval.split_schedule_summary(*args, k_tile=k)
+    rs = {q: r for q, _, r in summary["sliced"]}
+    assert rs[HEAVY_Q] == 8 and summary["blocks"] < 16 * 8
+    assert summary["heaviest_block_pairs"] < summary[
+        "heaviest_block_pairs_r1"]
+    got = list_eval.list_eval_runs_split(*args, **kw)
+    ref = list_eval._launch_split(*args, slices=1, **kw)
+    want = list_eval.list_eval_runs_split_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ref).all() and want.abs().max() > 0
+    assert (ref - want).abs().max() <= TOL * want.abs().max()
+    assert torch.equal(got, ref)
+    need = _lanes_needed(args, k)
+    for r in list_eval.SPLIT_SLICES:
+        assert torch.equal(list_eval._launch_split(*args, slices=r, **kw),
+                           ref), f"r = {r}"
+        assert list_eval.split_lanes_staged(*args, slices=r, **kw) == need
+    assert list_eval.split_lanes_staged(*args, **kw) == need
+
+
+def test_k4_sliced_graph_replay_equals_eager(cuda):
+    """K4's wrapper captured in a CUDA graph (``_graph.capture``, counting
+    into a ``CaptureCounts``) with the heavy quarter sliced: a replay on
+    new targets gives the eager call's bits, and so does a replay after
+    the tables move the heavy work to another quarter, whose schedule the
+    graph makes anew on the device."""
+    from nbody_tpu_torch.ops import _graph
+
+    args = _heavy_split_tables(3, 47, cuda)
+    kw = dict(softening=1e-15, k_tile=512)
+    list_eval.list_eval_runs_split(*args, **kw)  # warm
+    graph, box = torch.cuda.CUDAGraph(), {}
+    with _graph.counting(_graph.CaptureCounts(cuda)):
+        _graph.capture(graph, lambda: box.setdefault(
+            "out", list_eval.list_eval_runs_split(*args, **kw)), cuda)
+    targets, _, _, _, tiles, lens = args
+    rng = np.random.default_rng(48)
+    for move in (False, True):
+        targets.copy_(torch.tensor(rng.uniform(-0.1, 0.1, targets.shape),
+                                   dtype=torch.float32, device=cuda))
+        if move:  # quarter 9 takes the heavy entries, HEAVY_Q keeps two
+            tiles[9] = tiles[HEAVY_Q]
+            lens[2, 9] = lens[2, HEAVY_Q]
+            lens[2, HEAVY_Q] = 2
+        before = counter("ops.list_eval.SPLIT_LAUNCHES")
+        graph.replay()
+        # a replay runs no wrapper
+        assert counter("ops.list_eval.SPLIT_LAUNCHES") == before
+        want = list_eval.list_eval_runs_split(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(box["out"], want)
+        assert torch.equal(want, list_eval._launch_split(*args, slices=1,
+                                                          **kw))
+    sliced = list_eval.split_schedule_summary(*args, k_tile=512)["sliced"]
+    assert sliced[0][0] == 9 and sliced[0][2] == 8
+
+
 # -- K5, K6 and K7 ---------------------------------------------------------------
 
 
